@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch / CUDA port renders on the GPU.
+"""Quickest proof that the PyTorch / CUDA port renders and trains on the GPU.
 
     python3 chip_smoke.py
 
@@ -8,23 +8,39 @@ into build/kernels first. Phases, one JSON line each on stdout:
 
   1. device: torch's name for the card and nvidia-smi's name and power
      limit (also printed raw on a line of its own);
-  2. build: nvcc time for the three kernels;
-  3. kernels vs their plain PyTorch versions on the card, at the main
-     path's shapes (the 1,161,358-Gaussian bicycle proxy at 1237x822,
-     centre gaze, alpha 0.05) and, for the blend, also on the 150k proxy
-     at 656x528. Integer outputs and the kept count must match exactly,
-     float outputs within the tolerances below;
-  4. the main path: the foveated "ours" frame at full width over the 9
+  2. build: nvcc time for the six sources (seven kernels);
+  3. the frame's kernels 1-3 against their plain PyTorch versions on the
+     card, at the frame's shapes (the 1,161,358-Gaussian bicycle proxy at
+     1237x822, centre gaze, alpha 0.05) and, for the blend, also on the
+     150k proxy at 656x528. Integer outputs and the kept count must match
+     exactly, float outputs within the tolerances below;
+  4. the train step's kernels 4-7 against their plain versions at the
+     step's full-width shapes (the permuted proxy of bench.py's train leg,
+     1<<22 + N candidates, 3,145,728 kept): kernel 4 exact, the blend forward
+     within T_EPS, the backward's per-pair rows within 1e-4 of each row's
+     largest value, the gid reduce within 1e-5 relative;
+  5. the frame path: the foveated "ours" frame at full width over the 9
      gazes (3 warm-ups, 20 timed reps each) through eval/fps.py, with every
-     launch counter set to 0 just before and read just after; every kernel
+     launch counter set to 0 just before and read just after; kernels 1-3
      must have launched, overflow must be 0 and the image finite;
-  5. a torch.profiler window over 10 centre-gaze frames: device time by
+  6. a torch.profiler window over 10 centre-gaze frames: device time by
      kernel and the device's idle share;
-  6. the frame on the card against the same frame on the CPU (plain
+  7. the frame on the card against the same frame on the CPU (plain
      versions) on a small input;
-  7. the kernels line: per kernel its launches on the main path, time,
-     plain time, bound and error, plus the torch.sort time as a library
-     row.
+  8. the train path: the photometric train step at full width, 3 warm-up
+     and 10 timed steps (CUDA events), with every launch counter set to 0
+     just before and read just after; kernels 4-7 must have launched, and
+     every step must report overflow 0, nonfinite 0 and a finite loss;
+  9. determinism: two gradient evaluations of the same state on the card
+     are bit-identical;
+ 10. the train step on the card against the CPU plain path on the 20k
+     proxy at 320x224: loss within 1e-5 relative, gradients scaled by
+     their largest value within rtol 2e-3, atol 2e-4;
+ 11. a torch.profiler window over 3 train steps;
+ 12. the kernels line: per kernel its launches on its path, time, plain
+     time, bound and error, the index_add_ time of kernel 7's sums as its
+     library time, and the torch.sort times of the frame's and the
+     train route's keys as library rows.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero without that line; so does a machine
 without CUDA or a checkout without the package.
@@ -45,6 +61,16 @@ ALPHA = 0.05
 TABLE_RTOL = 1e-5              # kernel 1 float rows vs plain: relative
 BLEND_ATOL = 1e-4              # kernel 3 vs plain: T_EPS
 FRAME_ATOL = 1e-4              # card frame vs CPU frame
+# bench.py:383-386 leg_train_step: pair_capacity 1 << 22. The JAX buffer
+# holds that many candidates plus one dummy slot per row
+# (binning.py:263-265); the port has no dummy pairs and counts real
+# candidates only, so the same buffer is 1 << 22 + N real candidates.
+TRAIN_PAIR_CAPACITY = (1 << 22) + N_FULL
+TRAIN_COMPACT_CAPACITY = 3_145_728
+BWD_RTOL = 1e-4                # kernel 6 vs plain, of each row's max
+REDUCE_RTOL = 1e-5             # kernel 7 vs plain
+LOSS_RTOL = 1e-5               # card step vs CPU step
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4   # scaled gradients, card vs CPU
 
 
 def emit(obj):
@@ -228,22 +254,21 @@ def check_blend(tag, inputs, reps):
                 shape=tag, pair_pixels_walked=int(walked.long().sum()))
 
 
-def profile_frame(render, cam, dev, frames=10):
-    """Device time of the main path by kernel name, and the device's idle
-    share of the wall time, over `frames` centre-gaze frames under
-    torch.profiler (which adds host overhead of its own)."""
+def profile_window(fn, iters):
+    """Device time by kernel name, and the device's idle share of the wall
+    time, over `iters` calls of fn() under torch.profiler (which adds host
+    overhead of its own), after 3 warm-up calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=dev)
     for _ in range(3):
-        render(cam, gaze)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            render(cam, gaze)
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -253,14 +278,264 @@ def profile_frame(render, cam, dev, frames=10):
             by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
     busy_us = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"frames": frames, "wall_ms_per_frame": wall_us / frames / 1e3,
-            "device_busy_ms_per_frame": busy_us / frames / 1e3,
+    # Device time of the kernels each host-side torch op launched itself
+    # (key_averages also lists the kernels as entries of their own).
+    ops = sorted(((e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    return {"iters": iters, "wall_ms_per_iter": wall_us / iters / 1e3,
+            "device_busy_ms_per_iter": busy_us / iters / 1e3,
             "device_idle_share": (1.0 - busy_us / wall_us) if by_name
             else None,
             "kernel_events": sum(c for _, c in by_name.values()),
-            "top": [{"name": k[:80], "ms_per_frame": us / frames / 1e3,
-                     "launches_per_frame": c / frames}
-                    for k, (us, c) in top]}
+            "top": [{"name": k[:80], "ms_per_iter": us / iters / 1e3,
+                     "launches_per_iter": c / iters}
+                    for k, (us, c) in top],
+            "top_ops": [{"op": k, "device_ms_per_iter": us / iters / 1e3,
+                         "calls_per_iter": c / iters}
+                        for k, us, c in ops[:16]]}
+
+
+def train_inputs(n, width, height, seed, device):
+    """A capacity-n TrainerState of the permuted proxy (bench.py:355-371),
+    its camera and the uniform ground truth of bench.py:374."""
+    import numpy as np
+    import torch
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.models import state as S
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=seed))
+    st = S.from_params(convert.params_from_numpy(**raw, device=device))
+    cam = proxy.proxy_camera(width=width, height=height, device=device)
+    gt = np.random.default_rng(1).uniform(0, 1, (height, width, 3))
+    return st, cam, torch.tensor(gt, dtype=torch.float32, device=device)
+
+
+def train_config(pair_capacity=TRAIN_PAIR_CAPACITY,
+                 compact_capacity=TRAIN_COMPACT_CAPACITY):
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    from fovsplat_torch.train import loops
+    return loops.LoopConfig(raster=RasterizeConfig(
+        pair_capacity=pair_capacity, compact_capacity=compact_capacity))
+
+
+def check_train_kernels(st, cam, gt, results):
+    """Kernels 4-7 against their plain versions on the train step's own
+    inputs at full width: the 19 columns of the state, the sorted pairs,
+    the cotangent of the photometric loss of the forward's image, and
+    the gid-sorted stream of the backward's rows."""
+    import torch
+    from fovsplat_torch.ops import blend, foveated as fov
+    from fovsplat_torch.ops import projection, sh
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.kernels import blend_fwd as bfw
+    from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    from fovsplat_torch.ops.kernels import segment_reduce as sr
+    from fovsplat_torch.train import losses
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    T, n, P = gx * gy, st.capacity, blend.PIX
+    cap = TRAIN_COMPACT_CAPACITY
+    p = st.params
+    with torch.no_grad():
+        prep = projection.preprocess_cols(p.xyz, p.get_scaling(),
+                                          p.get_rotation(), cam,
+                                          live_mask=st.live)
+        colors = sh.sh_to_rgb(3, p.get_features(), p.xyz, cam.cam_center)
+        cols = rast.train_columns(prep, p.get_opacity(), colors)
+        table, cum, total = ep1.ps1_table(cols, prep.valid, prep.depth)
+
+    # --- kernel 4
+    args = (table, cum, gx, TRAIN_PAIR_CAPACITY, cap)
+    ek, ep = ep1.expand_ps1(*args), ep1.expand_ps1_plain(*args)
+    kept, cand = int(ek.kept), int(total)
+    if kept != int(ep.kept):
+        raise AssertionError(f"expand_ps1 kept {kept} vs {int(ep.kept)}")
+    k = min(kept, cap)
+    for name in ("tile", "depth", "attrs"):
+        if not torch.equal(getattr(ek, name)[..., :k],
+                           getattr(ep, name)[..., :k]):
+            raise AssertionError(f"expand_ps1 {name} differs from plain")
+    nbytes = table.numel() * 4 + n * 4 + k * 48
+    # ~30 FLOP of OBB test per candidate pair walked.
+    b_ms, b_by = bound(nbytes, 30.0 * min(cand, TRAIN_PAIR_CAPACITY))
+    results["expand_ps1"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: ep1.expand_ps1(*args), 20),
+        plain_ms=cuda_ms(lambda: ep1.expand_ps1_plain(*args), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"N={n}, {cam.width}x{cam.height}, candidates={cand}, "
+              f"kept={kept}")
+    emit({"phase": "check", "kernel": "expand_ps1", "candidates": cand,
+          "kept": kept, "exact": ["kept", "tile", "depth", "attrs"]})
+
+    key, dbits = fov.fused_key32(ek.tile, ek.depth,
+                                 torch.clamp(ek.kept[0], max=cap), T)
+    full, seg = fov.sort_pairs(key, dbits, ek.attrs, T, True)
+    results["torch.sort train"] = dict(
+        ms=cuda_ms(lambda: torch.sort((key.long() << 32) | dbits.long(),
+                                      stable=True), 20), lanes=cap)
+    pairs, num_pairs = full[:9], int(seg[-1])
+
+    # --- kernel 5
+    ck, Tk, nk = bfw.blend_forward(pairs, seg, gx)
+    cp, Tp, ncp, walked = blend.blend_forward_plain(pairs, seg, gx,
+                                                    return_walked=True)
+    f_err = max(float((ck - cp).abs().max()), float((Tk - Tp).abs().max()))
+    nc_diff = int((nk != ncp).sum())
+    emit({"phase": "check", "kernel": "blend_forward", "num_pairs": num_pairs,
+          "max_abs_err": f_err, "tol": BLEND_ATOL,
+          "n_contrib_differing_pixels": nc_diff})
+    if not f_err <= BLEND_ATOL or nc_diff > T * P // 1000:
+        raise AssertionError(f"blend_forward: err {f_err}, {nc_diff} "
+                             "n_contrib differ")
+    nbytes = num_pairs * 36 + (T + 1) * 4 + T * P * 20
+    b_ms, b_by = bound(nbytes, 25.0 * float(walked.double().sum()))
+    results["blend_forward"] = dict(
+        max_abs_err=f_err, ms=cuda_ms(lambda: bfw.blend_forward(
+            pairs, seg, gx), 20),
+        plain_ms=cuda_ms(lambda: blend.blend_forward_plain(pairs, seg, gx),
+                         1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
+        pair_pixels_walked=int(walked.long().sum()))
+
+    # --- kernel 6, on the cotangent of the photometric loss
+    tile_c = ck.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        img = blend.tiles_to_image(tile_c, gx, gy, cam.width, cam.height)
+        g_c, = torch.autograd.grad(losses.photometric_loss(img, gt), tile_c)
+    g_T = torch.zeros_like(Tk)
+    bargs = (pairs, seg, gx, g_c, g_T, Tk, nk)
+    gk = bfw.blend_backward(*bargs)
+    gp = blend.blend_backward_plain(*bargs)
+    row_max = gp.abs().amax(1)
+    b_rel = float(((gk - gp).abs().amax(1) / row_max.clamp(min=1e-30))
+                  .max())
+    emit({"phase": "check", "kernel": "blend_backward",
+          "max_rel_err_of_row_max": b_rel, "tol": BWD_RTOL,
+          "row_max": [float(x) for x in row_max]})
+    if not b_rel <= BWD_RTOL:
+        raise AssertionError(f"blend_backward: rel err {b_rel}")
+    # ~66 FLOP per pair and pixel up to the pixel's last contributor,
+    # counted from csrc/blend_fwd.cu (its header), one expf counted as one.
+    nbytes = num_pairs * 72 + T * P * 24
+    b_ms, b_by = bound(nbytes, 66.0 * float(nk.double().sum()))
+    results["blend_backward"] = dict(
+        max_abs_err=float((gk - gp).abs().max()),
+        ms=cuda_ms(lambda: bfw.blend_backward(*bargs), 20),
+        plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*bargs), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
+        max_rel_err_of_row_max=b_rel,
+        pair_pixels_to_last_contributor=int(nk.long().sum()))
+
+    # --- kernel 7
+    gid, vals = rast.gid_sorted_stream(gk, full[9].to(torch.int32),
+                                       seg[-1], n)
+    rk = sr.reduce_by_sorted_gid(gid, vals, n)
+    rp = sr.reduce_by_sorted_gid_plain(gid, vals, n)
+    r_err = float((rk - rp).abs().max())
+    r_rel = r_err / max(float(rp.abs().max()), 1e-30)
+    live_lanes = int((gid < n).sum())
+    emit({"phase": "check", "kernel": "reduce_by_sorted_gid",
+          "live_lanes": live_lanes, "max_abs_err": r_err,
+          "rel_err_of_max": r_rel, "tol": REDUCE_RTOL})
+    if not r_rel <= REDUCE_RTOL:
+        raise AssertionError(f"reduce_by_sorted_gid: rel err {r_rel}")
+    # The library call sums the live prefix as the kernel does (sending
+    # the sentinel tail to one column costs index_add_ its atomics on one
+    # address).
+    gid_l, live_vals = gid[:live_lanes].long(), vals[:, :live_lanes]
+
+    def library():
+        out = torch.zeros((vals.shape[0], n), device=vals.device)
+        return out.index_add_(1, gid_l, live_vals)
+    lib_err = float((library() - rp).abs().max())
+    b_ms, b_by = bound(live_lanes * 40 + n * 36, 9.0 * live_lanes)
+    results["reduce_by_sorted_gid"] = dict(
+        max_abs_err=r_err,
+        ms=cuda_ms(lambda: sr.reduce_by_sorted_gid(gid, vals, n), 20),
+        plain_ms=cuda_ms(lambda: sr.reduce_by_sorted_gid_plain(
+            gid, vals, n), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library, 20),
+        library_max_abs_err=lib_err,
+        shape=f"N={n}, lanes={cap}, live lanes={live_lanes}")
+
+
+def run_train_path(st, cam, gt, cfg, kernels):
+    """The main train path: 3 warm-up and 10 timed photometric steps at
+    full width, every launch counter set to 0 just before and read just
+    after. Returns (per-step rows, mean step ms, launches)."""
+    import torch
+    from fovsplat_torch.train import loops
+    step = loops.make_photometric_step(cfg)
+    for kf in kernels.values():
+        kf.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    auxs, cur = [], st
+    for i in range(3):
+        cur, aux = step(cur, cam, gt, i)
+        auxs.append(aux)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(3, 13):
+        cur, aux = step(cur, cam, gt, i)
+        auxs.append(aux)
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+    launches = {name: kf.launches for name, kf in kernels.items()}
+    rows = [{k: (float(v) if k == "loss" else int(v)) for k, v in a.items()}
+            for a in auxs]
+    for i, r in enumerate(rows):
+        if not (r["overflow"] == 0 and r["nonfinite"] == 0
+                and r["loss"] == r["loss"] and abs(r["loss"]) < float("inf")):
+            raise AssertionError(f"train step {i}: {r}")
+    return rows, start.elapsed_time(end) / 10, wall_ms, launches, \
+        torch.cuda.max_memory_allocated()
+
+
+def check_determinism(st, cam, gt, cfg):
+    """Two gradient evaluations of one state give bit-identical results."""
+    import torch
+    from fovsplat_torch.train import loops
+    a = loops.photometric_grads(st, cam, gt, cfg)
+    b = loops.photometric_grads(st, cam, gt, cfg)
+    same = {f: bool(torch.equal(a[1][f], b[1][f])) for f in a[1]}
+    same["loss"] = bool(torch.equal(a[0], b[0]))
+    emit({"phase": "determinism", "bit_identical": same})
+    if not all(same.values()):
+        raise AssertionError(f"gradients differ between two runs: {same}")
+
+
+def train_vs_cpu(cfg):
+    """The photometric gradients on the card against the CPU plain path on
+    the 20k proxy at 320x224."""
+    outs = []
+    for d in ("cuda", "cpu"):
+        from fovsplat_torch.train import loops
+        st, cam, gt = train_inputs(20_000, 320, 224, 1, d)
+        loss, grads, n_bad, out = loops.photometric_grads(st, cam, gt, cfg)
+        outs.append((float(loss), {f: g.cpu() for f, g in grads.items()},
+                     int(n_bad), int(out["binned"].num_pairs)))
+    (lc, gc, bc, nc), (lh, gh, bh, nh) = outs
+    loss_rel = abs(lc - lh) / abs(lh)
+    worst = {}
+    for f, g in gh.items():
+        scale = float(g.abs().max()) or 1.0
+        d = (gc[f] - g).abs() / scale
+        worst[f] = float((d - GRAD_RTOL * (g.abs() / scale)).max())
+    emit({"phase": "train_vs_cpu", "shape": "N=20000, 320x224",
+          "loss": [lc, lh], "loss_rel_err": loss_rel, "num_pairs": [nc, nh],
+          "nonfinite": [bc, bh], "grad_excess_over_rtol": worst,
+          "tol": {"loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+                  "grad_atol": GRAD_ATOL}})
+    if not (loss_rel <= LOSS_RTOL and bc == bh == 0
+            and all(v <= GRAD_ATOL for v in worst.values())):
+        raise AssertionError("card train step differs from the CPU step")
 
 
 def main():
@@ -273,8 +548,11 @@ def main():
     from fovsplat_torch.ops import foveated as fov
     from fovsplat_torch.ops.kernels import _build
     from fovsplat_torch.ops.kernels import blend_fov as bf
+    from fovsplat_torch.ops.kernels import blend_fwd as bfw
     from fovsplat_torch.ops.kernels import build_table as bt
     from fovsplat_torch.ops.kernels import expand_fov as ef
+    from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    from fovsplat_torch.ops.kernels import segment_reduce as sr
     from fovsplat_torch.ops.rasterize import RasterizeConfig
 
     dev = torch.device("cuda")
@@ -292,7 +570,18 @@ def main():
 
     t0 = time.perf_counter()
     _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "sources": list(_build.SOURCES),
+          "seconds": time.perf_counter() - t0})
+
+    # Every kernel wrapper, by the name of its row in the kernels line.
+    frame_kernels = {"build_table": bt.build_table,
+                     "expand_fov": ef.expand_fov,
+                     "blend_fov": bf.blend_fov}
+    train_kernels = {"expand_ps1": ep1.expand_ps1,
+                     "blend_forward": bfw.blend_forward,
+                     "blend_backward": bfw.blend_backward,
+                     "reduce_by_sorted_gid": sr.reduce_by_sorted_gid}
+    all_kernels = {**frame_kernels, **train_kernels}
 
     results = {}
     full = check_table_and_expand(dev, results)
@@ -301,19 +590,19 @@ def main():
     results["blend_fov_150k"] = check_blend(
         "N=150000, 656x528", frame_inputs(150_000, 656, 528, (0.5, 0.5), dev),
         20)
+    st, tcam, gt = train_inputs(N_FULL, W_FULL, H_FULL, 0, dev)
+    check_train_kernels(st, tcam, gt, results)
 
-    # --- main path: the full-width frame over 9 gazes ---
+    # --- the frame path: the full-width frame over 9 gazes ---
     model, cam = full[0], full[1]
     cfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
                           compact_capacity=COMPACT_CAPACITY)
     render = fps.make_fov_render(model, cfg, alpha=ALPHA)
-    for k in (bt.build_table, ef.expand_fov, bf.blend_fov):
-        k.launches = 0
+    for kf in all_kernels.values():
+        kf.launches = 0
     res = fps.fps_benchmark(render, [cam], warmups=3, reps=20,
                             log=lambda *_: None)
-    launches = {"build_table": bt.build_table.launches,
-                "expand_fov": ef.expand_fov.launches,
-                "blend_fov": bf.blend_fov.launches}
+    launches = {k: kf.launches for k, kf in all_kernels.items()}
     per_gaze = []
     for gz, ms in zip(fps.GAZES, res["per_gaze_ms"]):
         out = render(cam, torch.tensor(gz, dtype=torch.float32, device=dev))
@@ -332,11 +621,13 @@ def main():
           "height": H_FULL, "alpha": ALPHA, "warmups": 3, "reps": 20,
           "per_gaze": per_gaze, "avg_ms": res["avg_ms"],
           "avg_fps": res["avg_fps"], "launches": launches})
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} never launched on the main path")
+    for k in frame_kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched on the frame path")
 
-    emit({"phase": "profile", **profile_frame(render, cam, dev)})
+    gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=dev)
+    emit({"phase": "profile", "path": "frame, centre gaze",
+          **profile_window(lambda: render(cam, gaze), 10)})
 
     # --- the frame on the card against the CPU plain path, small input ---
     from fovsplat_torch import convert
@@ -361,13 +652,42 @@ def main():
     if outs[0][1] != outs[1][1] or not frame_err <= FRAME_ATOL:
         raise AssertionError("card frame differs from the CPU frame")
 
+    # --- the train path: the photometric step at full width ---
+    tcfg = train_config()
+    steps, step_ms, wall_ms, tl, peak = run_train_path(st, tcam, gt, tcfg,
+                                                       all_kernels)
+    emit({"phase": "train", "n": N_FULL, "width": W_FULL, "height": H_FULL,
+          "pair_capacity": TRAIN_PAIR_CAPACITY,
+          "compact_capacity": TRAIN_COMPACT_CAPACITY, "warmups": 3,
+          "timed": 10, "step_ms": step_ms, "host_wall_ms_per_step": wall_ms,
+          "peak_mem_bytes": peak, "steps": steps, "launches": tl})
+    for k in train_kernels:
+        if tl[k] <= 0:
+            raise AssertionError(f"{k} never launched on the train path")
+        launches[k] = tl[k]
+    check_determinism(st, tcam, gt, tcfg)
+    train_vs_cpu(train_config(1 << 20, None))
+    from fovsplat_torch.train import loops
+    step = loops.make_photometric_step(tcfg)
+    emit({"phase": "profile", "path": "train step",
+          **profile_window(lambda: step(st, tcam, gt, 0), 3)})
+
     # --- kernels line ---
     src = {"build_table": ("fovsplat_torch/csrc/build_table.cu",
                            "fovsplat/ops/pallas/build_table.py:418"),
            "expand_fov": ("fovsplat_torch/csrc/expand_fov.cu",
                           "fovsplat/ops/pallas/expand_fov.py:906"),
            "blend_fov": ("fovsplat_torch/csrc/blend_fov.cu",
-                         "fovsplat/ops/pallas/blend_fov.py:463")}
+                         "fovsplat/ops/pallas/blend_fov.py:463"),
+           "expand_ps1": ("fovsplat_torch/csrc/expand_ps1.cu",
+                          "fovsplat/ops/pallas/expand_fov.py:819"),
+           "blend_forward": ("fovsplat_torch/csrc/blend_fwd.cu",
+                             "fovsplat/ops/pallas/blend_fwd.py:508"),
+           "blend_backward": ("fovsplat_torch/csrc/blend_fwd.cu",
+                              "fovsplat/ops/pallas/blend_fwd.py:874"),
+           "reduce_by_sorted_gid": (
+               "fovsplat_torch/csrc/segment_reduce.cu",
+               "fovsplat/ops/pallas/segment_reduce.py:175")}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]
@@ -375,13 +695,23 @@ def main():
                      "replaces": replaces, "launches": launches[k],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None,
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms"),
                      "shape": r["shape"]})
     emit({"kernels": rows,
           "blend_fov_150k": results["blend_fov_150k"],
-          "library": [{"name": "torch.sort (i32 fused key, stable)",
+          "library": [{"name": "torch.sort (i32 fused key, stable), frame",
                        "ms": results["torch.sort"]["ms"],
-                       "lanes": results["torch.sort"]["lanes"]}],
+                       "lanes": results["torch.sort"]["lanes"]},
+                      {"name": "torch.sort (i64 fused key and depth bits, "
+                               "stable), train",
+                       "ms": results["torch.sort train"]["ms"],
+                       "lanes": results["torch.sort train"]["lanes"]},
+                      {"name": "index_add_ of the 9 cotangent rows "
+                               "(kernel 7's function)",
+                       "ms": results["reduce_by_sorted_gid"]["library_ms"],
+                       "max_abs_err": results["reduce_by_sorted_gid"][
+                           "library_max_abs_err"]}],
           "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -131,6 +131,23 @@ def bicycle_proxy(n: int = BICYCLE_PNUM[0], seed: int = 0,
     }
 
 
+def train_arrays(sc: dict) -> dict:
+    """Raw single-level parameters of a proxy, as bench.py:355-371 builds
+    them for its train-step leg: rows permuted once by
+    default_rng(12345).permutation(n), log scales, logit opacity, the
+    level-0 DC and the SH rest. Returns the keyword arguments of
+    convert.params_from_numpy."""
+    n = sc["means"].shape[0]
+    perm = np.random.default_rng(12345).permutation(n)
+    sc = {k: (v[perm] if getattr(v, "ndim", 0) and len(v) == n else v)
+          for k, v in sc.items()}
+    return dict(xyz=sc["means"], features_dc=sc["shs_dcs"][:, 0:1, :],
+                features_rest=sc["shs_rest"],
+                scaling=np.log(np.maximum(sc["scales"], 1e-9)),
+                rotation=sc["rotations"],
+                opacity=np.log(sc["opacity"] / (1 - sc["opacity"]))[:, None])
+
+
 def proxy_camera(width: int = EVAL_WIDTH, height: int = EVAL_HEIGHT,
                  device=None):
     """A camera on the Mip360-style capture ring looking at the object."""

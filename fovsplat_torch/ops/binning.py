@@ -1,0 +1,88 @@
+"""Tile binning of the single-level train route (counterpart of
+fovsplat/ops/binning.py: obb_pass and the train=True route of
+bin_fused_ps1 / _ps1_expand_sort).
+
+bin_fused_ps1 is the torch glue around kernel 4 (ops/kernels/expand_ps1):
+valid-masked per-Gaussian columns and their exclusive cumsum, the
+expansion kernel, then the exact two-key tile sort (the fused i32 key,
+then the full depth bits) and the segment bounds. The JAX route's bf16
+split-row table, dummy pair per invalid row and window slack are devices
+of the TPU kernel; the port's table is f32 and has no dummy candidates.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from fovsplat_torch.ops.foveated import fused_key32, sort_pairs
+from fovsplat_torch.ops.kernels.expand_ps1 import expand_ps1, ps1_table
+from fovsplat_torch.ops.projection import TILE
+
+
+@dataclasses.dataclass(frozen=True)
+class Binned:
+    """Sorted pair list of one view. CAP = the kept capacity."""
+    seg_start: torch.Tensor   # (T+1,) i32 segment bounds
+    num_pairs: torch.Tensor   # () i32 kept pairs in the sorted list
+    overflow: torch.Tensor    # () i32 candidates past the pair capacity
+                              # plus kept pairs past the kept capacity
+    candidates: torch.Tensor  # () i32 candidate pairs (no dummy pairs)
+    pair_gauss: torch.Tensor  # (CAP,) i32 Gaussian of each sorted pair;
+                              # lanes at or past num_pairs are unspecified
+
+
+def obb_pass(tile_x, tile_y, center, eigen_vec, eigen_len):
+    """Vectorised OBB / tile separating-axis test (auxiliary.h OBB_check).
+    Per pair: tile_x / tile_y int tiles, center (P, 2) pixel centre,
+    eigen_vec (P, 2, 2) unit axes, eigen_len (P, 2)."""
+    half = TILE / 2.0
+    tpx = tile_x.float() * TILE + half
+    tpy = tile_y.float() * TILE + half
+    v1 = eigen_vec[..., 0, :]
+    v2 = eigen_vec[..., 1, :]
+    d1 = eigen_len[..., 0:1] * v1
+    d2 = eigen_len[..., 1:2] * v2
+    cx = center[..., 0] - tpx
+    cy = center[..., 1] - tpy
+    # Axis tests 1-2: the OBB's AABB against the tile.
+    ext_x = torch.abs(d1[..., 0]) + torch.abs(d2[..., 0])
+    ext_y = torch.abs(d1[..., 1]) + torch.abs(d2[..., 1])
+    pass_x = torch.abs(cx) <= half + ext_x
+    pass_y = torch.abs(cy) <= half + ext_y
+    # Axis tests 3-4: tile corners projected onto the principal axes.
+    base1 = -(cx * v1[..., 0] + cy * v1[..., 1])
+    base2 = -(cx * v2[..., 0] + cy * v2[..., 1])
+    e1 = half * (torch.abs(v1[..., 0]) + torch.abs(v1[..., 1]))
+    e2 = half * (torch.abs(v2[..., 0]) + torch.abs(v2[..., 1]))
+    pass_1 = torch.abs(base1) <= eigen_len[..., 0] + e1
+    pass_2 = torch.abs(base2) <= eigen_len[..., 1] + e2
+    return pass_x & pass_y & pass_1 & pass_2
+
+
+def bin_fused_ps1(cols, valid, depth, grid_x: int, grid_y: int,
+                  pair_capacity: int, compact_capacity: int | None = None,
+                  use_obb: bool = True):
+    """Pair expansion (kernel 4) and the exact tile sort of the train
+    route. cols: the 19 (N,) f32 columns [rx0, ry0, rw, tnum, mx, my, v1x,
+    v1y, v2x, v2y, len1, len2, ca, cb, cc, op, r, g, b].
+
+    Returns (pairs (10, CAP) f32 sorted rows [mx, my, ca, cb, cc, op, r,
+    g, b, gid], Binned). CAP = compact_capacity (None: pair_capacity).
+    overflow counts candidates past pair_capacity and kept pairs past
+    CAP, never silently; the candidate count has no dummy pairs, so it is
+    smaller than the JAX route's by the number of invalid rows."""
+    num_tiles = grid_x * grid_y
+    cap_out = pair_capacity if compact_capacity is None else compact_capacity
+    table, cum, total = ps1_table(cols, valid, depth)
+    ex = expand_ps1(table, cum, grid_x, pair_capacity, cap_out, use_obb)
+    candidates, kept = total[0], ex.kept[0]
+    overflow = (torch.clamp(candidates - pair_capacity, min=0)
+                + torch.clamp(kept - cap_out, min=0))
+    key, dbits = fused_key32(ex.tile, ex.depth,
+                             torch.clamp(kept, max=cap_out), num_tiles)
+    pairs, seg_start = sort_pairs(key, dbits, ex.attrs, num_tiles, exact=True)
+    return pairs, Binned(seg_start=seg_start, num_pairs=seg_start[-1].clone(),
+                         overflow=overflow, candidates=candidates.clone(),
+                         pair_gauss=pairs[9].to(torch.int32))

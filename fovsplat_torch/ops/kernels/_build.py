@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("build_table", "expand_fov", "blend_fov")
+SOURCES = ("build_table", "expand_fov", "blend_fov", "expand_ps1",
+           "blend_fwd", "segment_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -90,6 +91,18 @@ def load(name: str) -> ctypes.CDLL:
 def scan_blocks(n: int) -> int:
     """Blocks of the scan in csrc/common.cuh (its block_sums length)."""
     return (n + SCAN_BLOCK - 1) // SCAN_BLOCK
+
+
+def check_tensors(what: str, dev, specs) -> None:
+    """Raise unless every (name, tensor, dtype, shape) of `specs` is a
+    contiguous tensor of that dtype and shape on `dev`: the kernels take
+    raw pointers and trust the layout."""
+    for name, t, dt, shape in specs:
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -131,16 +131,11 @@ def blend_fov(pairs, seg_start, l1_active, l2_active, grid_x: int,
     if dev.type != "cuda":
         raise ValueError(f"blend_fov: pairs on {dev}; the kernel needs CUDA")
     T = l1_active.shape[0]
-    for name, t, dt, shape in (
-            ("pairs", pairs, torch.float32, (len(ATTR_ROWS), pairs.shape[1])),
-            ("seg_start", seg_start, torch.int32, (T + 1,)),
-            ("l1_active", l1_active, torch.bool, (T, PIX)),
-            ("l2_active", l2_active, torch.bool, (T, PIX))):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"blend_fov: {name} must be a contiguous "
-                             f"{dt} tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _build.check_tensors("blend_fov", dev, (
+        ("pairs", pairs, torch.float32, (len(ATTR_ROWS), pairs.shape[1])),
+        ("seg_start", seg_start, torch.int32, (T + 1,)),
+        ("l1_active", l1_active, torch.bool, (T, PIX)),
+        ("l2_active", l2_active, torch.bool, (T, PIX))))
     out = torch.empty((T, 8, PIX), dtype=torch.float32, device=dev)
     lib = _build.load("blend_fov")
     fn = lib.fs_blend_fov

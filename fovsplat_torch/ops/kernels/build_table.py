@@ -88,20 +88,15 @@ def build_table(model, camera, bbox, sh_degree: int = 3,
     n = model.xyz.shape[0]
     L = model.dc_t.shape[1]
     k_rest = model.rest_t.shape[1]
-    for name, t, dt, shape in (
-            ("xyz", model.xyz, torch.float32, (n, 3)),
-            ("scales", model.scales, torch.float32, (n, 3)),
-            ("rotations", model.rotations, torch.float32, (n, 4)),
-            ("hl", model.hl, torch.float32, (n,)),
-            ("rest_t", model.rest_t, torch.bfloat16, (3, k_rest, n)),
-            ("dc_t", model.dc_t, torch.bfloat16, (3, L, n)),
-            ("opac_t", model.opac_t, torch.bfloat16, (L, n)),
-            ("bbox", bbox, torch.int32, (4, L))):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"build_table: {name} must be a contiguous "
-                             f"{dt} tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _build.check_tensors("build_table", dev, (
+        ("xyz", model.xyz, torch.float32, (n, 3)),
+        ("scales", model.scales, torch.float32, (n, 3)),
+        ("rotations", model.rotations, torch.float32, (n, 4)),
+        ("hl", model.hl, torch.float32, (n,)),
+        ("rest_t", model.rest_t, torch.bfloat16, (3, k_rest, n)),
+        ("dc_t", model.dc_t, torch.bfloat16, (3, L, n)),
+        ("opac_t", model.opac_t, torch.bfloat16, (L, n)),
+        ("bbox", bbox, torch.int32, (4, L))))
     if n < 1 or k_rest < (sh_degree + 1) ** 2:
         raise ValueError(f"build_table: n={n}, rest_t rows {k_rest} for "
                          f"SH degree {sh_degree}")

@@ -125,15 +125,10 @@ def expand_fov(table, cum, levels, L: int, grid_x: int, pair_capacity: int,
     if dev.type != "cuda":
         raise ValueError(f"expand_fov: table on {dev}; the kernel needs CUDA")
     n = table.shape[1]
-    for name, t, dt, shape in (
-            ("table", table, torch.float32, (bt.num_rows(L), n)),
-            ("cum", cum, torch.int32, (n,)),
-            ("levels", levels, torch.float32, (levels.shape[0],))):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"expand_fov: {name} must be a contiguous "
-                             f"{dt} tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _build.check_tensors("expand_fov", dev, (
+        ("table", table, torch.float32, (bt.num_rows(L), n)),
+        ("cum", cum, torch.int32, (n,)),
+        ("levels", levels, torch.float32, (levels.shape[0],))))
     if cap_out < 1 or pair_capacity < 1 or levels.shape[0] % grid_x:
         raise ValueError("expand_fov: capacities must be positive and "
                          "levels a whole number of tile rows")

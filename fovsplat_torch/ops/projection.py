@@ -120,10 +120,20 @@ class PreprocessedCols:
     rx1: torch.Tensor     # int32 tile rect, max exclusive
     ry1: torch.Tensor
     tnum: torch.Tensor    # int32 tiles in the rect (0 when invalid)
+    radius: torch.Tensor  # f32 pixel radius (before the valid mask)
 
 
 def preprocess_cols(means3d, scales, rotations, camera,
-                    scale_modifier: float = 1.0) -> PreprocessedCols:
+                    scale_modifier: float = 1.0,
+                    live_mask=None) -> PreprocessedCols:
+    """live_mask: optional (N,) bool; rows marked False are culled (the
+    capacity-padded training state prunes through it).
+
+    Autograd through the differentiable outputs (mx, my, ca, cb, cc) stays
+    finite on culled rows: every division and square root that a culled
+    row could hit reads a safe operand chosen by torch.where (hw_safe,
+    tz, safe_det), and torch.where sends a zero gradient to the branch it
+    did not take, so no 0 * inf reaches the inputs."""
     W, H = camera.width, camera.height
     grid_x = (W + TILE - 1) // TILE
     grid_y = (H + TILE - 1) // TILE
@@ -166,6 +176,8 @@ def preprocess_cols(means3d, scales, rotations, camera,
     tiles_touched = (rx1 - rx0) * (ry1 - ry0)
 
     valid = in_front & det_ok & (tiles_touched > 0)
+    if live_mask is not None:
+        valid = valid & live_mask
     tiles_touched = torch.where(valid, tiles_touched,
                                 torch.zeros_like(tiles_touched))
 
@@ -188,4 +200,4 @@ def preprocess_cols(means3d, scales, rotations, camera,
         v1x=-cxy * n1, v1y=a1 * n1, v2x=-cxy * n2, v2y=a2 * n2,
         len1=len1, len2=len2,
         rx0=rx0, ry0=ry0, rx1=rx1, ry1=ry1,
-        tnum=tiles_touched)
+        tnum=tiles_touched, radius=radius_f)

@@ -1,5 +1,13 @@
-"""Rasterizer configuration (fovsplat/ops/rasterize.py: RasterizeConfig and
-_grid only).
+"""Rasterizer configuration and the differentiable single-level render
+(fovsplat/ops/rasterize.py: RasterizeConfig, _grid, and rasterize with its
+fused train branch, rasterize.py:157-233, 265-269, 335-407).
+
+rasterize runs projection.preprocess_cols, the SH colours, the pair
+builder (an autograd.Function: kernel 4 and the exact tile sort forward,
+the gid sort and kernel 7 backward) and the blend (kernels 5 and 6). Its
+gradient reaches the means, scales, rotations, opacities and colours (or
+SH coefficients); pair selection (rects, OBB axes, validity) is constant,
+as in the reference. The XLA route and rasterize_ps1_soa are not ported.
 
 The JAX config's Pallas-only fields are left out: the `pallas_*` and
 `expand_*` tuning knobs, `dummy_slack`, `expand_drop_invalid` and
@@ -12,6 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from fovsplat_torch.ops import projection, sh
+from fovsplat_torch.ops.blend import tiles_to_image
+from fovsplat_torch.ops.kernels.blend_fwd import blend
+from fovsplat_torch.ops.kernels.segment_reduce import reduce_by_sorted_gid
 from fovsplat_torch.ops.projection import TILE
 
 
@@ -45,3 +59,118 @@ def _grid(camera):
     gx = (camera.width + TILE - 1) // TILE
     gy = (camera.height + TILE - 1) // TILE
     return gx, gy
+
+
+def train_columns(prep, opacities, colors):
+    """The 19 per-Gaussian columns of the train route, in the table order
+    of ops/kernels/expand_ps1 (rasterize.py:214-226): [rx0, ry0, rw, tnum,
+    mx, my, v1x, v1y, v2x, v2y, len1, len2, ca, cb, cc, op, r, g, b]. The
+    rect and OBB columns are detached: pair selection is constant
+    (rasterize.py:216-226 stop_gradient)."""
+    aux = [prep.rx0.float(), prep.ry0.float(),
+           torch.clamp(prep.rx1 - prep.rx0, min=1).float(),
+           prep.tnum.float(), prep.v1x, prep.v1y, prep.v2x, prep.v2y,
+           prep.len1, prep.len2]
+    aux = [c.detach() for c in aux]
+    return [*aux[0:4], prep.mx, prep.my, *aux[4:10], prep.ca, prep.cb,
+            prep.cc, opacities, colors[:, 0], colors[:, 1], colors[:, 2]]
+
+
+# Columns of train_columns that carry a gradient, in pair-row order.
+_DIFF_COLS = (4, 5, 12, 13, 14, 15, 16, 17, 18)
+
+
+def gid_sorted_stream(d_pairs, gid, num_pairs, n: int):
+    """The gid-sorted cotangent stream kernel 7 reduces
+    (rasterize.py:381-387): lanes past num_pairs, and lanes whose nine
+    cotangents are all zero, carry the sentinel n and sort to the tail.
+    Returns (sorted gid (CAP,) i32, sorted rows (9, CAP) f32)."""
+    lane = torch.arange(d_pairs.shape[1], device=d_pairs.device)
+    vals = torch.where(lane < num_pairs, d_pairs, torch.zeros_like(d_pairs))
+    alive = (vals != 0.0).any(0)
+    key = torch.where(alive, gid, torch.full_like(gid, n))
+    sorted_key, perm = torch.sort(key, stable=True)
+    return sorted_key, vals.index_select(1, perm)
+
+
+class PairBuilder(torch.autograd.Function):
+    """The fused train pair builder (rasterize.py:335-407). Forward:
+    kernel 4 and the exact tile sort over the 19 train_columns. Backward:
+    a generalised gather's transpose. The per-pair cotangent rows are
+    sorted by Gaussian id (gid_sorted_stream) and kernel 7 sums each
+    Gaussian's run: deterministic, no atomics."""
+
+    @staticmethod
+    def forward(ctx, valid, depth, grid_x, grid_y, pair_capacity,
+                compact_capacity, use_obb, *cols):
+        # Imported here: binning imports ops.foveated, which imports this
+        # module.
+        from fovsplat_torch.ops import binning
+        pairs, bn = binning.bin_fused_ps1(list(cols), valid, depth, grid_x,
+                                          grid_y, pair_capacity,
+                                          compact_capacity, use_obb)
+        ctx.save_for_backward(bn.pair_gauss, bn.num_pairs)
+        ctx.n = valid.shape[0]
+        ctx.mark_non_differentiable(bn.pair_gauss, bn.seg_start,
+                                    bn.num_pairs, bn.overflow,
+                                    bn.candidates)
+        return (pairs[:9], bn.pair_gauss, bn.seg_start, bn.num_pairs,
+                bn.overflow, bn.candidates)
+
+    @staticmethod
+    def backward(ctx, d_pairs, *_):
+        gid, num_pairs = ctx.saved_tensors
+        out = reduce_by_sorted_gid(*gid_sorted_stream(d_pairs, gid,
+                                                      num_pairs, ctx.n),
+                                   ctx.n)
+        d_cols = [None] * 19
+        for row, c in enumerate(_DIFF_COLS):
+            d_cols[c] = out[row]
+        return (None,) * 7 + tuple(d_cols)
+
+
+def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
+              shs=None, sh_degree: int = 3, bg_color=None,
+              config: RasterizeConfig = RasterizeConfig(), live_mask=None):
+    """Render one view through the fused train route.
+
+    means3d (N, 3); scales (N, 3) activated; rotations (N, 4) unit
+    quaternions; opacities (N,) activated; colors (N, 3) precomputed RGB,
+    or None to evaluate shs (N, K, 3); bg_color (3,) or None (black);
+    live_mask (N,) bool or None.
+
+    Returns a dict: render (H, W, 3), final_T (H, W), n_contrib (H, W)
+    i32, radii (N,) i32 and binned (ops/binning.Binned: overflow,
+    num_pairs, candidates, seg_start, pair_gauss; 0-d tensors on the
+    device, not synchronised). On CUDA tensors the kernels run; on CPU
+    tensors their plain versions."""
+    from fovsplat_torch.ops.binning import Binned   # see PairBuilder
+    gx, gy = _grid(camera)
+    cfg = config
+    prep = projection.preprocess_cols(means3d, scales, rotations, camera,
+                                      scale_modifier=cfg.scale_modifier,
+                                      live_mask=live_mask)
+    if colors is None:
+        colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
+    pairs, pair_gauss, seg_start, num_pairs, overflow, candidates = \
+        PairBuilder.apply(prep.valid, prep.depth.detach(), gx, gy,
+                          cfg.pair_capacity, cfg.kept_capacity(),
+                          cfg.use_obb,
+                          *train_columns(prep, opacities, colors))
+    tile_color, final_T, n_contrib = blend(pairs, seg_start, gx,
+                                           cfg.power_cutoff, cfg.chunk)
+    image = tiles_to_image(tile_color, gx, gy, camera.width, camera.height)
+    T_img = tiles_to_image(final_T[..., None], gx, gy, camera.width,
+                           camera.height)[..., 0]
+    if bg_color is not None:
+        image = image + T_img[..., None] * torch.as_tensor(
+            bg_color, dtype=image.dtype, device=image.device)
+    nc_img = tiles_to_image(n_contrib[..., None], gx, gy, camera.width,
+                            camera.height)[..., 0]
+    return {"render": image, "final_T": T_img, "n_contrib": nc_img,
+            "radii": torch.where(prep.valid, prep.radius,
+                                 torch.zeros_like(prep.radius)).to(
+                                     torch.int32),
+            "binned": Binned(seg_start=seg_start, num_pairs=num_pairs,
+                             overflow=overflow, candidates=candidates,
+                             pair_gauss=pair_gauss)}

@@ -1,6 +1,6 @@
 """Real spherical harmonics, degree 0..3, with N last
-(fovsplat/ops/sh.py). Constants and basis order follow the reference
-CUDA tables."""
+(fovsplat/ops/sh.py: _eval_sh_nlast, sh_to_rgb, _unit_dirs). Constants
+and basis order follow the reference CUDA tables."""
 
 from __future__ import annotations
 
@@ -44,3 +44,21 @@ def _eval_sh_nlast(degree: int, sh_t: torch.Tensor, x, y, z) -> torch.Tensor:
                           + SH_C3[5] * z * (xx - yy) * s(14)
                           + SH_C3[6] * x * (xx - 3.0 * yy) * s(15))
     return result
+
+
+def _unit_dirs(means, cam_center):
+    dx = means[:, 0] - cam_center[0]
+    dy = means[:, 1] - cam_center[1]
+    dz = means[:, 2] - cam_center[2]
+    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
+    return dx * inv, dy * inv, dz * inv
+
+
+def sh_to_rgb(degree: int, sh: torch.Tensor, means: torch.Tensor,
+              cam_center: torch.Tensor) -> torch.Tensor:
+    """SH (N, K, 3) -> clamped RGB (N, 3) as in the reference preprocess;
+    differentiable in the coefficients and the means."""
+    x, y, z = _unit_dirs(means, cam_center)
+    sh_t = sh.permute(2, 1, 0)              # (3, K, N)
+    out = _eval_sh_nlast(degree, sh_t, x, y, z) + 0.5
+    return torch.clamp(out, min=0.0).T      # (N, 3)

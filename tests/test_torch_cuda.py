@@ -6,17 +6,24 @@ Integer outputs and kept counts must match exactly; tolerances as in
 chip_smoke.py.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from fovsplat_torch import convert
 from fovsplat_torch.data import proxy
-from fovsplat_torch.ops import foveated as fov
-from fovsplat_torch.ops import foveation
+from fovsplat_torch.models import state as S
+from fovsplat_torch.ops import blend, foveated as fov
+from fovsplat_torch.ops import foveation, projection, sh
+from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops.kernels import blend_fov as bf
+from fovsplat_torch.ops.kernels import blend_fwd as bfw
 from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels import expand_fov as ef
+from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+from fovsplat_torch.ops.kernels import segment_reduce as sr
 from fovsplat_torch.ops.rasterize import RasterizeConfig
+from fovsplat_torch.train import loops
 
 pytestmark = pytest.mark.cuda
 W, H, N = 320, 224, 20_000
@@ -100,3 +107,87 @@ def test_wrappers_reject_bad_inputs(cuda):
     tk, ck, _ = bt.build_table(model, cam, bbox)
     with pytest.raises(ValueError, match="cum"):
         ef.expand_fov(tk, ck.long(), levels, 4, 20, 1 << 20, 1 << 20)
+
+
+def _train_state(dev, n, seed):
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=seed))
+    return S.from_params(convert.params_from_numpy(**raw, device=dev),
+                         n + 64)
+
+
+def test_train_kernels_match_plain(cuda):
+    """Kernels 4-7 against their plain versions on the train route's own
+    inputs (tolerances as in chip_smoke.py)."""
+    st = _train_state(cuda, N, 2)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    gx, T = (W + 15) // 16, ((W + 15) // 16) * ((H + 15) // 16)
+    p = st.params
+    with torch.no_grad():
+        prep = projection.preprocess_cols(p.xyz, p.get_scaling(),
+                                          p.get_rotation(), cam,
+                                          live_mask=st.live)
+        colors = sh.sh_to_rgb(3, p.get_features(), p.xyz, cam.cam_center)
+        cols = rast.train_columns(prep, p.get_opacity(), colors)
+        table, cum, _ = ep1.ps1_table(cols, prep.valid, prep.depth)
+        args = (table, cum, gx, 1 << 20, 1 << 20)
+        ek, ep = ep1.expand_ps1(*args), ep1.expand_ps1_plain(*args)
+        k = int(ek.kept)
+        assert k == int(ep.kept) and k > 1000
+        for name in ("tile", "depth", "attrs"):
+            assert torch.equal(getattr(ek, name)[..., :k],
+                               getattr(ep, name)[..., :k]), name
+
+        key, dbits = fov.fused_key32(ek.tile, ek.depth, ek.kept[0], T)
+        full, seg = fov.sort_pairs(key, dbits, ek.attrs, T, True)
+        pairs = full[:9]
+        ck, Tk, nk = bfw.blend_forward(pairs, seg, gx)
+        cp, Tp, np_ = blend.blend_forward_plain(pairs, seg, gx)
+        torch.testing.assert_close(ck, cp, rtol=0, atol=1e-4)
+        torch.testing.assert_close(Tk, Tp, rtol=0, atol=1e-4)
+        assert float((nk != np_).float().mean()) < 1e-3
+
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        g_c = torch.randn(ck.shape, generator=gen, device=cuda)
+        g_T = torch.randn(Tk.shape, generator=gen, device=cuda)
+        gk = bfw.blend_backward(pairs, seg, gx, g_c, g_T, Tk, nk)
+        gp = blend.blend_backward_plain(pairs, seg, gx, g_c, g_T, Tk, nk)
+        row_max = gp.abs().amax(1, keepdim=True)
+        assert bool(((gk - gp).abs() <= 1e-4 * row_max).all())
+        assert torch.equal(gk, bfw.blend_backward(pairs, seg, gx, g_c, g_T,
+                                                  Tk, nk))
+
+        gid, vals = rast.gid_sorted_stream(gk, full[9].to(torch.int32),
+                                           seg[-1], st.capacity)
+        rk = sr.reduce_by_sorted_gid(gid, vals, st.capacity)
+        rp = sr.reduce_by_sorted_gid_plain(gid, vals, st.capacity)
+        torch.testing.assert_close(
+            rk, rp, rtol=1e-5, atol=1e-5 * float(rp.abs().max()))
+
+
+def test_train_step_matches_cpu_and_counts_launches(cuda):
+    """One photometric step's loss and gradients on the card against the
+    CPU plain path, and one launch of each train kernel per step."""
+    n, w, h = 5000, 160, 112
+    gt = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
+    kernels = (ep1.expand_ps1, bfw.blend_forward, bfw.blend_backward,
+               sr.reduce_by_sorted_gid)
+    res = []
+    for d in (cuda, torch.device("cpu")):
+        st = _train_state(d, n, 3)
+        before = [k.launches for k in kernels]
+        loss, grads, n_bad, out = loops.photometric_grads(
+            st, proxy.proxy_camera(w, h, device=d),
+            torch.from_numpy(gt).to(d), cfg)
+        res.append((loss, grads, n_bad, out,
+                    [k.launches - b for k, b in zip(kernels, before)]))
+    (lc, gc, bc, oc, nc), (lh, gh, bh, oh, nh) = res
+    assert nc == [1, 1, 1, 1] and nh == [0, 0, 0, 0]
+    assert int(bc) == int(bh) == 0
+    assert int(oc["binned"].overflow) == int(oh["binned"].overflow) == 0
+    assert int(oc["binned"].num_pairs) == int(oh["binned"].num_pairs) > 1000
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-5, atol=0)
+    for f, g in gh.items():
+        scale = float(g.abs().max())
+        torch.testing.assert_close(gc[f].cpu() / scale, g / scale,
+                                   rtol=2e-3, atol=2e-4, msg=f)

@@ -19,8 +19,14 @@ from fovsplat_torch.eval import fps as tfps
 from fovsplat_torch.ops import foveated as tfov
 from fovsplat_torch.ops.kernels import _build
 from fovsplat_torch.ops.kernels import blend_fov as tblend
+from fovsplat_torch.ops.kernels import blend_fwd as tbfw
 from fovsplat_torch.ops.kernels import build_table as tbt
 from fovsplat_torch.ops.kernels import expand_fov as texp
+from fovsplat_torch.ops.kernels import expand_ps1 as tep1
+from fovsplat_torch.ops.kernels import segment_reduce as tsr
+from fovsplat_torch.ops.rasterize import RasterizeConfig
+from fovsplat_torch.train import loops as tloops
+from fovsplat_torch.train import trainer as ttrainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FIELDS = ("xyz", "scales", "rotations", "rest_t", "dc_t", "opac_t", "hl")
@@ -79,7 +85,11 @@ def _imported_modules(path):
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / "fovsplat_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"fovsplat_torch/ops/binning.py", "fovsplat_torch/train/loops.py",
+            "fovsplat_torch/train/trainer.py",
+            "fovsplat_torch/models/state.py",
+            "fovsplat_torch/ops/kernels/segment_reduce.py"} <= names
     for f in files:
         for m in _imported_modules(f):
             top = m.split(".")[0]
@@ -93,6 +103,11 @@ def test_port_import_leaves_jax_out_of_sys_modules():
         "import fovsplat_torch, fovsplat_torch.convert\n"
         "import fovsplat_torch.ops.foveated, fovsplat_torch.eval.fps\n"
         "import fovsplat_torch.data.proxy, chip_smoke\n"
+        "import fovsplat_torch.train.loops, fovsplat_torch.train.trainer\n"
+        "import fovsplat_torch.ops.rasterize, fovsplat_torch.ops.binning\n"
+        "import fovsplat_torch.ops.kernels.blend_fwd\n"
+        "import fovsplat_torch.ops.kernels.expand_ps1\n"
+        "import fovsplat_torch.ops.kernels.segment_reduce\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fovsplat'))\n"
@@ -120,12 +135,30 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
         tfps.fps_benchmark(lambda c, g: None, [cam])
 
 
+def test_train_steps_need_cuda_or_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tloops.LoopConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tloops.make_photometric_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tloops.make_photometric_step(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrainer.make_train_step(ttrainer.TrainConfig())
+    raw = tproxy.train_arrays(tproxy.bicycle_proxy(n=64, seed=0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.params_from_numpy(**raw)
+    assert callable(tloops.make_photometric_step(cfg, device="cpu"))
+
+
 @pytest.mark.parametrize("wrapper", ["build_table", "expand_fov",
-                                     "blend_fov"])
+                                     "blend_fov", "expand_ps1",
+                                     "blend_forward", "blend_backward",
+                                     "reduce_by_sorted_gid"])
 def test_wrappers_take_only_cpu_or_cuda(wrapper):
     """A tensor that is neither on the CPU nor on a card raises instead of
     reaching the plain version or the kernel."""
     meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, device="meta")
     if wrapper == "build_table":
         m = tfov.pack_fov_model(
             torch.empty(8, 3, **meta), torch.empty(8, 3, **meta),
@@ -136,22 +169,42 @@ def test_wrappers_take_only_cpu_or_cuda(wrapper):
     elif wrapper == "expand_fov":
         call = lambda: texp.expand_fov(                   # noqa: E731
             torch.empty(tbt.num_rows(4), 8, **meta),
-            torch.empty(8, dtype=torch.int32, **meta),
-            torch.empty(24, **meta), 4, 6, 64, 64)
-    else:
+            torch.empty(8, **i32), torch.empty(24, **meta), 4, 6, 64, 64)
+    elif wrapper == "blend_fov":
         call = lambda: tblend.blend_fov(                  # noqa: E731
-            torch.empty(13, 64, **meta),
-            torch.empty(25, dtype=torch.int32, **meta),
+            torch.empty(13, 64, **meta), torch.empty(25, **i32),
             torch.empty(24, 256, dtype=torch.bool, **meta),
             torch.empty(24, 256, dtype=torch.bool, **meta), 6)
+    elif wrapper == "expand_ps1":
+        call = lambda: tep1.expand_ps1(                   # noqa: E731
+            torch.empty(tep1.NUM_ROWS, 8, **meta), torch.empty(8, **i32),
+            6, 64, 64)
+    elif wrapper == "blend_forward":
+        call = lambda: tbfw.blend_forward(                # noqa: E731
+            torch.empty(9, 64, **meta), torch.empty(25, **i32), 6)
+    elif wrapper == "blend_backward":
+        call = lambda: tbfw.blend_backward(               # noqa: E731
+            torch.empty(9, 64, **meta), torch.empty(25, **i32), 6,
+            torch.empty(24, 256, 3, **meta), torch.empty(24, 256, **meta),
+            torch.empty(24, 256, **meta), torch.empty(24, 256, **i32))
+    else:
+        call = lambda: tsr.reduce_by_sorted_gid(          # noqa: E731
+            torch.empty(64, **i32), torch.empty(9, 64, **meta), 8)
     with pytest.raises(ValueError, match="needs CUDA"):
         call()
 
 
 def test_build_without_nvcc_raises(monkeypatch):
+    """Every kernel source needs nvcc: loading any of them without it
+    raises and builds nothing."""
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-cuda"))
     monkeypatch.setattr(_build, "BUILD_DIR", ROOT / "no-such-build")
+    _build.load.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+    for source in _build.SOURCES:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(source)
     assert not (ROOT / "no-such-build").exists()
