@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch / CUDA port renders and trains on the GPU.
+"""Quickest proof that the PyTorch / CUDA port renders, trains, prunes and
+masks on the GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,7 @@ into build/kernels first. Phases, one JSON line each on stdout:
 
   1. device: torch's name for the card and nvidia-smi's name and power
      limit (also printed raw on a line of its own);
-  2. build: nvcc time for the six sources (seven kernels);
+  2. build: nvcc time for the seven sources (eight kernels);
   3. the frame's kernels 1-3 against their plain PyTorch versions on the
      card, at the frame's shapes (the 1,161,358-Gaussian bicycle proxy at
      1237x822, centre gaze, alpha 0.05) and, for the blend, also on the
@@ -37,7 +38,30 @@ into build/kernels first. Phases, one JSON line each on stdout:
      proxy at 320x224: loss within 1e-5 relative, gradients scaled by
      their largest value within rtol 2e-3, atol 2e-4;
  11. a torch.profiler window over 3 train steps;
- 12. the kernels line: per kernel its launches on its path, time, plain
+ 12. kernel 8 (the stats blend) against its plain version on the score
+     pass's own pairs at the train phase's shapes: best_lane, first_trig
+     and the touched and geo_win rows exact, the float rows and best_w
+     within 1e-5 relative, colour and T within T_EPS;
+ 13. the score pass at full width: one score view per metric
+     (max_comp_efficiency, max_contrib, surface), timed, with the launch
+     counters set to 0 just before and read just after; two runs give
+     bit-identical scores; then the card against the CPU at 20k / 320x224
+     (gs_count exact, contribs and scores within 1e-5 relative);
+ 14. the model-building chain at full width (scripts/onchip_pipeline.py's
+     chain, port only): ground truth rendered from the proxy on 6 ring
+     cameras (4 train, 2 test), a seeded perturbation as the student,
+     prune_training to 0.99 of its SSIM and PSNR, three chained
+     mask_training layers at pooling 3, 7 and 12 against PS1's HVS at
+     pooling 1, compose_layers and one foveated frame of the composed
+     model; every counter set to 0 before and read after. Every step must
+     report overflow 0, nonfinite 0 and a finite loss, the live masks
+     must nest, masking must leave xyz, scaling, rotation and
+     features_rest bit-unchanged, and the frame must be finite;
+ 15. one masked HVS step on the card against the CPU at 20k / 320x224:
+     loss within 1e-5 relative, DC and opacity gradients as in phase 10;
+ 16. torch.profiler windows over one score view and one HVS step (with
+     the HVS step's time without the profiler, CUDA events over 3);
+ 17. the kernels line: per kernel its launches on its path, time, plain
      time, bound and error, the index_add_ time of kernel 7's sums as its
      library time, and the torch.sort times of the frame's and the
      train route's keys as library rows.
@@ -46,7 +70,9 @@ so the script exits non-zero without that line; so does a machine
 without CUDA or a checkout without the package.
 """
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -71,6 +97,14 @@ BWD_RTOL = 1e-4                # kernel 6 vs plain, of each row's max
 REDUCE_RTOL = 1e-5             # kernel 7 vs plain
 LOSS_RTOL = 1e-5               # card step vs CPU step
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4   # scaled gradients, card vs CPU
+STATS_RTOL = 1e-5              # kernel 8 float rows vs plain; card scores
+                               # vs CPU scores
+METRICS = ("max_comp_efficiency", "max_contrib", "surface")
+# The chain's capacities: the 6 ring cameras see the proxy from other
+# sides than the train phase's camera, so it gets headroom over the
+# train phase's 1 << 22 + N candidates and 3,145,728 kept pairs.
+CHAIN_PAIR_CAPACITY = 1 << 23
+CHAIN_COMPACT_CAPACITY = 6 << 20
 
 
 def emit(obj):
@@ -538,6 +572,344 @@ def train_vs_cpu(cfg):
         raise AssertionError("card train step differs from the CPU step")
 
 
+def check_stats_kernel(st, cam, results):
+    """Kernel 8 against its plain version on the score pass's own pairs:
+    the train phase's state, camera and capacities, binned by kernel 4."""
+    import torch
+    from fovsplat_torch.ops import binning, blend, projection, sh
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.kernels import blend_stats as bs
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    T, P = gx * gy, blend.PIX
+    p = st.params
+    with torch.no_grad():
+        prep = projection.preprocess_cols(p.xyz, p.get_scaling(),
+                                          p.get_rotation(), cam,
+                                          live_mask=st.live)
+        colors = sh.sh_to_rgb(3, p.get_features(), p.xyz, cam.cam_center)
+        pairs, bn = binning.bin_fused_ps1(
+            rast.train_columns(prep, p.get_opacity(), colors), prep.valid,
+            prep.depth, gx, gy, TRAIN_PAIR_CAPACITY, TRAIN_COMPACT_CAPACITY)
+    seg, num_pairs = bn.seg_start, int(bn.num_pairs)
+    args = (pairs, seg, gx, cam.width, cam.height)
+    k = bs.blend_stats(*args)
+    q = blend.blend_stats_plain(*args, return_walked=True)
+    walked = q[6]
+    exact = {"best_lane": torch.equal(k[3], q[3]),
+             "first_trig": torch.equal(k[5], q[5]),
+             "touched": torch.equal(k[2][1], q[2][1]),
+             "geo_win": torch.equal(k[2][3], q[2][3])}
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+    floats = {"w_sum": rel(k[2][0], q[2][0]), "w_max": rel(k[2][2], q[2][2]),
+              "best_w": rel(k[4], q[4])}
+    # Lanes where both are 0 give 0/1e-30 = 0; a kernel value where the
+    # plain one is 0 shows up as a huge relative error.
+    blend_err = max(float((k[0] - q[0]).abs().max()),
+                    float((k[1] - q[1]).abs().max()))
+    emit({"phase": "check", "kernel": "blend_stats", "num_pairs": num_pairs,
+          "exact": exact, "float_rel_err": floats, "blend_max_abs_err":
+          blend_err, "tol": {"float_rtol": STATS_RTOL,
+                             "blend_atol": BLEND_ATOL},
+          "touched_pixels": int(q[2][1].double().sum())})
+    if not (all(exact.values()) and blend_err <= BLEND_ATOL
+            and all(v <= STATS_RTOL for v in floats.values())):
+        raise AssertionError("blend_stats differs from its plain version")
+    err = max(blend_err, float((k[2] - q[2]).abs().max()),
+              float((k[4] - q[4]).abs().max()))
+    nbytes = num_pairs * (36 + 16) + T * P * 28 + (T + 1) * 4
+    # ~33 FLOP per pair and pixel walked before the pixel freezes, counted
+    # in the header of csrc/blend_stats.cu.
+    b_ms, b_by = bound(nbytes, 33.0 * float(walked.double().sum()))
+    results["blend_stats"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: bs.blend_stats(*args), 20),
+        plain_ms=cuda_ms(lambda: blend.blend_stats_plain(*args), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
+        pair_pixels_walked=int(walked.long().sum()))
+
+
+def run_score_pass(st, cam, cfg, kernels):
+    """The score pass at full width: one score view per metric, with every
+    launch counter set to 0 just before and read just after; then the
+    time of each and a second run that must be bit-identical."""
+    import torch
+    from fovsplat_torch.ops import stats
+    from fovsplat_torch.train import loops
+    fns = {m: loops.make_score_fn(cfg, m) for m in METRICS}
+    for kf in kernels.values():
+        kf.launches = 0
+    first = {m: fn(st, cam) for m, fn in fns.items()}
+    torch.cuda.synchronize()
+    launches = {name: kf.launches for name, kf in kernels.items()}
+    same = {m: bool(torch.equal(first[m], fn(st, cam)))
+            for m, fn in fns.items()}
+    p = st.params
+    out = stats.rasterize_stats(
+        p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(), cam,
+        shs=p.get_features(), mode="loss_weighted_max_count",
+        config=cfg.raster, live_mask=st.live)
+    row = {"phase": "score", "n": st.capacity, "width": cam.width,
+           "height": cam.height, "launches": launches,
+           "bit_identical": same,
+           "ms": {m: cuda_ms(lambda: fn(st, cam), 5) for m, fn in fns.items()},
+           "overflow": int(out["binned"].overflow),
+           "num_pairs": int(out["binned"].num_pairs),
+           "scored": {m: int((v > 0).sum()) for m, v in first.items()}}
+    emit(row)
+    if not all(same.values()):
+        raise AssertionError(f"scores differ between two runs: {same}")
+    if row["overflow"] != 0 or launches["blend_stats"] <= 0:
+        raise AssertionError(f"score pass: {row}")
+    return launches
+
+
+def score_vs_cpu(cfg):
+    """gs_count and contribs of every mode, and the three metrics, on the
+    card against the CPU plain path on the 20k proxy at 320x224."""
+    from fovsplat_torch.ops import stats
+    from fovsplat_torch.train import loops
+    outs = []
+    for d in ("cuda", "cpu"):
+        st, cam, _ = train_inputs(20_000, 320, 224, 1, d)
+        p = st.params
+        res = {}
+        for mode in stats.MODES:
+            o = stats.rasterize_stats(
+                p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(),
+                cam, shs=p.get_features(), mode=mode, config=cfg.raster,
+                live_mask=st.live)
+            res[mode] = (o["gs_count"].cpu(), o["contribs"].cpu(),
+                         int(o["binned"].overflow))
+        res.update({m: loops.make_score_fn(cfg, m)(st, cam).cpu()
+                    for m in METRICS})
+        outs.append(res)
+    card, cpu = outs
+    counts_equal, rel = {}, {}
+    for mode in stats.MODES:
+        counts_equal[mode] = bool((card[mode][0] == cpu[mode][0]).all())
+        rel[mode] = float(((card[mode][1] - cpu[mode][1]).abs()
+                           / cpu[mode][1].abs().clamp(min=1e-30)).max())
+    for m in METRICS:
+        rel[m] = float(((card[m] - cpu[m]).abs()
+                        / cpu[m].abs().clamp(min=1e-30)).max())
+    overflow = [card[m][2] for m in stats.MODES] + [cpu[m][2]
+                                                     for m in stats.MODES]
+    emit({"phase": "score_vs_cpu", "shape": "N=20000, 320x224",
+          "gs_count_equal": counts_equal, "rel_err": rel,
+          "overflow": overflow, "tol": {"rtol": STATS_RTOL}})
+    if not (all(counts_equal.values()) and not any(overflow)
+            and all(v <= STATS_RTOL for v in rel.values())):
+        raise AssertionError("card scores differ from the CPU scores")
+
+
+class View:
+    def __init__(self, camera, image):
+        self.camera = camera
+        self.image = image
+
+
+def ring_cameras(count, width, height, device):
+    """`count` cameras on the proxy camera's capture ring (radius 4, the
+    first at the proxy camera's eye), looking at the object."""
+    from fovsplat_torch.data.cameras import look_at_camera
+    a0 = math.atan2(-2.4, 3.2)
+    return [look_at_camera(
+        [4.0 * math.cos(a0 + 2 * math.pi * i / count), -1.1,
+         4.0 * math.sin(a0 + 2 * math.pi * i / count)], [0.0, 0.0, 0.0],
+        [0, -1, 0], fovx=1.20, fovy=1.20 * height / width * 1.24,
+        width=width, height=height, device=device) for i in range(count)]
+
+
+@contextlib.contextmanager
+def recorded_steps(loops, auxs):
+    """Keep every step's output row while the loops run: the loops' step
+    factories are wrapped for the duration, and restored after."""
+    saved = (loops.make_photometric_step, loops.make_hvs_step)
+
+    def wrap(make):
+        def made(*a, **k):
+            step = make(*a, **k)
+
+            def run(*sa, **sk):
+                new, aux = step(*sa, **sk)
+                auxs.append(aux)
+                return new, aux
+            return run
+        return made
+    loops.make_photometric_step, loops.make_hvs_step = map(wrap, saved)
+    try:
+        yield
+    finally:
+        loops.make_photometric_step, loops.make_hvs_step = saved
+
+
+def chain_inputs(n, width, height, cfg, device):
+    """The teacher (the proxy as the train phase builds it), its renders on
+    6 ring cameras (4 train views, 2 test views) and the student: the
+    teacher perturbed as scripts/onchip_pipeline.py:106-118 does, from
+    default_rng(0)."""
+    import numpy as np
+    import torch
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.train import loops
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=0))
+    teacher = S.from_params(convert.params_from_numpy(**raw, device=device))
+    views = []
+    with torch.no_grad():
+        for c in ring_cameras(6, width, height, device):
+            img = loops.render_state(teacher, c, cfg)["render"]
+            views.append(View(c, torch.clamp(img, 0.0, 1.0)))
+    rng = np.random.default_rng(0)
+    noise = {"xyz": 0.004, "features_dc": 0.08, "scaling": 0.05,
+             "opacity": 0.2}
+    student = {k: (v + rng.normal(0, noise[k], v.shape).astype(np.float32)
+                   if k in noise else v) for k, v in raw.items()}
+    return (S.from_params(convert.params_from_numpy(**student,
+                                                    device=device)),
+            views[:4], views[4:])
+
+
+def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
+              prune_iters=30, mask_iters=12, log=None):
+    """prune_training, three chained mask_training layers (pooling 3, 7,
+    12) against PS1's HVS at pooling 1, compose_layers and one foveated
+    frame of the composed model at the centre gaze, with every launch
+    counter set to 0 just before and read just after. Returns the phase
+    row; raises when a check fails."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.train import compose, loops
+    log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    student, train_views, test_views = chain_inputs(n, width, height, cfg,
+                                                    device)
+    eval_view, hvs_view = loops.make_eval_fns(cfg)
+    ssim0, psnr0 = loops.evaluate(student, test_views, eval_view)
+    sync()
+    seconds = {"inputs": time.perf_counter() - t0}
+    for kf in kernels.values():
+        kf.launches = 0
+    auxs = []
+    with recorded_steps(loops, auxs):
+        t0 = time.perf_counter()
+        ps1 = loops.prune_training(
+            student, train_views, test_views, 0.99 * ssim0, 0.99 * psnr0,
+            cfg, iters=prune_iters, pruning_iters=int(prune_iters * 0.9),
+            prune_interval=10, final_prune_rounds=1, eval_views_cap=2,
+            log=log)
+        sync()
+        seconds["prune"] = time.perf_counter() - t0
+        n_prune_steps = len(auxs)
+        target = float(np.mean([float(hvs_view(ps1, v.camera, v.image, 1.0))
+                                for v in train_views[:2]]))
+        layers = [ps1]
+        for ps in (3.0, 7.0, 12.0):
+            t0 = time.perf_counter()
+            layers.append(loops.mask_training(
+                layers[-1], train_views, ps, target, cfg, iters=mask_iters,
+                masking_iters=mask_iters - 2, prune_interval=4,
+                prune_ratio=0.035, per_prune_times=6, eval_views_cap=2,
+                log=log))
+            sync()
+            seconds[f"mask_ps{int(ps)}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = compose.compose_layers(layers)
+    frame = fov.rasterize_fov_soa(
+        compose.pack_composed(model), train_views[0].camera,
+        torch.tensor((0.5, 0.5), dtype=torch.float32,
+                     device=model.live.device), ALPHA, config=frame_cfg)
+    img = frame["render"]
+    finite = bool(torch.isfinite(img).all())
+    sync()
+    seconds["compose_and_frame"] = time.perf_counter() - t0
+    launches = {name: kf.launches for name, kf in kernels.items()}
+
+    steps = [{k: (float(v) if k == "loss" else int(v))
+              for k, v in a.items()} for a in auxs]
+    bad_steps = [i for i, r in enumerate(steps)
+                 if not (r["overflow"] == 0 and r["nonfinite"] == 0
+                         and math.isfinite(r["loss"]))]
+    counts = compose.layer_counts(layers)
+    nested = [not bool((b.live & ~a.live).any())
+              for a, b in zip(layers, layers[1:])]
+    frozen = {f: all(torch.equal(getattr(L.params, f), getattr(ps1.params, f))
+                     for L in layers[1:])
+              for f in ("xyz", "scaling", "rotation", "features_rest")}
+    eval_after = loops.evaluate(ps1, test_views, eval_view)
+    row = {"phase": "chain", "n": n, "width": width, "height": height,
+           "views": {"train": len(train_views), "test": len(test_views)},
+           "student": {"ssim": ssim0, "psnr": psnr0},
+           "targets": {"ssim": 0.99 * ssim0, "psnr": 0.99 * psnr0,
+                       "hvs_ps1_at_1": target},
+           "ps1": {"ssim": eval_after[0], "psnr": eval_after[1]},
+           "live": {"student": int(student.live_count()),
+                    "ps1": counts[0], "ps3": counts[1], "ps7": counts[2],
+                    "ps12": counts[3]},
+           "seconds": seconds,
+           "steps": {"prune": n_prune_steps,
+                     "mask": len(steps) - n_prune_steps,
+                     "losses_first_last": [steps[0]["loss"],
+                                           steps[-1]["loss"]],
+                     "max_num_pairs": max(r["num_pairs"] for r in steps),
+                     "bad": bad_steps},
+           "nested": nested, "frozen_bit_unchanged": frozen,
+           "frame": {"finite": finite, "num_pairs": int(frame["num_pairs"]),
+                     "overflow": int(frame["overflow"]),
+                     "mean": float(img.mean())},
+           "launches": launches}
+    emit(row)
+    if (bad_steps or not all(nested) or not all(frozen.values())
+            or not finite or row["frame"]["overflow"] != 0):
+        raise AssertionError("the model-building chain failed a check")
+    for k in ("expand_ps1", "blend_forward", "blend_backward",
+              "reduce_by_sorted_gid", "blend_stats"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched in the chain")
+    return launches
+
+
+def hvs_vs_cpu(cfg):
+    """One masked HVS step (pooling 3) on the card against the CPU plain
+    path on the 20k proxy at 320x224: loss within 1e-5 relative, the DC
+    and opacity gradients (the first Adam moments) scaled by their
+    largest value within rtol 2e-3, atol 2e-4."""
+    from fovsplat_torch.train import loops
+    outs = []
+    for d in ("cuda", "cpu"):
+        st, cam, gt = train_inputs(20_000, 320, 224, 1, d)
+        new, aux = loops.make_hvs_step(cfg, 3.0, masking=True, device=d)(
+            st, cam, gt, 1)
+        outs.append((float(aux["loss"]), int(aux["nonfinite"]),
+                     int(aux["overflow"]),
+                     {f: new.opt.mu[f].cpu()
+                      for f in ("features_dc", "opacity")}))
+    (lc, bc, oc, mc), (lh, bh, oh, mh) = outs
+    loss_rel = abs(lc - lh) / abs(lh)
+    worst = {}
+    for f, g in mh.items():
+        scale = float(g.abs().max()) or 1.0
+        d = (mc[f] - g).abs() / scale
+        worst[f] = float((d - GRAD_RTOL * (g.abs() / scale)).max())
+    emit({"phase": "hvs_vs_cpu", "shape": "N=20000, 320x224, pooling 3",
+          "loss": [lc, lh], "loss_rel_err": loss_rel, "nonfinite": [bc, bh],
+          "overflow": [oc, oh], "grad_excess_over_rtol": worst,
+          "tol": {"loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+                  "grad_atol": GRAD_ATOL}})
+    if not (loss_rel <= LOSS_RTOL and bc == bh == 0 and oc == oh == 0
+            and all(v <= GRAD_ATOL for v in worst.values())):
+        raise AssertionError("card HVS step differs from the CPU step")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -549,6 +921,7 @@ def main():
     from fovsplat_torch.ops.kernels import _build
     from fovsplat_torch.ops.kernels import blend_fov as bf
     from fovsplat_torch.ops.kernels import blend_fwd as bfw
+    from fovsplat_torch.ops.kernels import blend_stats as bs
     from fovsplat_torch.ops.kernels import build_table as bt
     from fovsplat_torch.ops.kernels import expand_fov as ef
     from fovsplat_torch.ops.kernels import expand_ps1 as ep1
@@ -581,7 +954,8 @@ def main():
                      "blend_forward": bfw.blend_forward,
                      "blend_backward": bfw.blend_backward,
                      "reduce_by_sorted_gid": sr.reduce_by_sorted_gid}
-    all_kernels = {**frame_kernels, **train_kernels}
+    all_kernels = {**frame_kernels, **train_kernels,
+                   "blend_stats": bs.blend_stats}
 
     results = {}
     full = check_table_and_expand(dev, results)
@@ -672,6 +1046,23 @@ def main():
     emit({"phase": "profile", "path": "train step",
           **profile_window(lambda: step(st, tcam, gt, 0), 3)})
 
+    # --- the score pass, the model-building chain, the HVS step ---
+    check_stats_kernel(st, tcam, results)
+    run_score_pass(st, tcam, tcfg, all_kernels)
+    score_vs_cpu(train_config(1 << 20, None))
+    chain_cfg = train_config(CHAIN_PAIR_CAPACITY, CHAIN_COMPACT_CAPACITY)
+    cl = run_chain(N_FULL, W_FULL, H_FULL, chain_cfg, chain_cfg.raster,
+                   all_kernels, dev)
+    launches["blend_stats"] = cl["blend_stats"]
+    hvs_vs_cpu(train_config(1 << 20, None))
+    score = loops.make_score_fn(tcfg)
+    emit({"phase": "profile", "path": "score view (max_comp_efficiency)",
+          **profile_window(lambda: score(st, tcam), 3)})
+    hvs_step = loops.make_hvs_step(tcfg, 3.0, masking=True)
+    emit({"phase": "profile", "path": "masked HVS step, pooling 3",
+          "step_ms_unprofiled": cuda_ms(lambda: hvs_step(st, tcam, gt, 1), 3),
+          **profile_window(lambda: hvs_step(st, tcam, gt, 1), 3)})
+
     # --- kernels line ---
     src = {"build_table": ("fovsplat_torch/csrc/build_table.cu",
                            "fovsplat/ops/pallas/build_table.py:418"),
@@ -687,7 +1078,9 @@ def main():
                               "fovsplat/ops/pallas/blend_fwd.py:874"),
            "reduce_by_sorted_gid": (
                "fovsplat_torch/csrc/segment_reduce.cu",
-               "fovsplat/ops/pallas/segment_reduce.py:175")}
+               "fovsplat/ops/pallas/segment_reduce.py:175"),
+           "blend_stats": ("fovsplat_torch/csrc/blend_stats.cu",
+                           "fovsplat/ops/pallas/blend_stats.py:234")}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]

@@ -1,9 +1,12 @@
 """Capacity-padded training state with a live mask (counterpart of
-fovsplat/models/state.py: TrainerState and from_params).
+fovsplat/models/state.py).
 
 Parameters stay at a fixed capacity and pruning flips rows of the boolean
 `live` mask, which the rasterizer's cull consumes (preprocess_cols
-live_mask). The prune functions are not ported yet.
+live_mask). The prune functions (prune_mask, opacity_prune,
+reset_opacity_max, metric_prune) are functional: each returns a new
+state and writes into no tensor of the old one, so a state kept as a
+rollback snapshot by the prune and mask loops stays as it was.
 """
 
 from __future__ import annotations
@@ -12,8 +15,9 @@ import dataclasses
 
 import torch
 
-from fovsplat_torch.models.gaussians import GaussianParams
+from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.train import optim
+from fovsplat_torch.utils.general import inverse_sigmoid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +29,9 @@ class TrainerState:
     @property
     def capacity(self) -> int:
         return self.params.num_points
+
+    def live_count(self):
+        return self.live.sum()
 
 
 def from_params(params: GaussianParams, capacity: int | None = None
@@ -51,3 +58,61 @@ def from_params(params: GaussianParams, capacity: int | None = None
     live = torch.arange(cap, device=params.xyz.device) < n
     return TrainerState(params=params, opt=optim.init_state(params),
                         live=live)
+
+
+def compact(state: TrainerState):
+    """Drop dead rows. Returns (params, original row indices (M,) i64)."""
+    idx = torch.nonzero(state.live).reshape(-1)
+    return GaussianParams(**{f: getattr(state.params, f)[idx]
+                             for f in FIELDS}), idx
+
+
+def prune_mask(state: TrainerState, kill: torch.Tensor) -> TrainerState:
+    """Deactivate rows where `kill` is True and zero their Adam moments
+    (_prune_optimizer keeps only the survivors' state)."""
+    def zero(x):
+        k = kill.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(k, torch.zeros_like(x), x)
+    opt = optim.AdamState(mu={f: zero(v) for f, v in state.opt.mu.items()},
+                          nu={f: zero(v) for f, v in state.opt.nu.items()},
+                          count=state.opt.count)
+    return TrainerState(params=state.params, opt=opt,
+                        live=state.live & ~kill)
+
+
+def opacity_prune(state: TrainerState, threshold: float = 0.005
+                  ) -> TrainerState:
+    """prune(prune_method="opacity"): kill live rows whose activated
+    opacity is below threshold (prune.py:280)."""
+    op = torch.sigmoid(state.params.opacity[:, 0].detach())
+    return prune_mask(state, state.live & (op < threshold))
+
+
+def reset_opacity_max(state: TrainerState, max_val: float = 0.1
+                      ) -> TrainerState:
+    """reset_opacity_max with replace_tensor_to_optimizer: opacities
+    capped at max_val and fresh moments for the opacity group
+    (gaussian_model.py:427-431, 609-622)."""
+    p = state.params
+    new_op = inverse_sigmoid(torch.clamp(torch.sigmoid(p.opacity.detach()),
+                                         max=max_val))
+    params = GaussianParams(**{**p.fields(), "opacity": new_op})
+    return TrainerState(params=params,
+                        opt=optim.replace_field(state.opt, "opacity"),
+                        live=state.live)
+
+
+def metric_prune(state: TrainerState, scores: torch.Tensor,
+                 ratio: float) -> TrainerState:
+    """Kill exactly floor(n_live * ratio) live rows, those of lowest score
+    (metric_pruning, prune.py:101-110). Rank-based, as the JAX package's
+    (fovsplat/models/state.py:101-119): a stable sort, so ties break by
+    row index, and a threshold never kills every row of a tied score."""
+    cap = state.live.shape[0]
+    k = (state.live.sum().to(torch.float32) * ratio).to(torch.int32)
+    s = torch.where(state.live, scores,
+                    torch.full_like(scores, float("inf")))
+    order = torch.argsort(s, stable=True)
+    rank = torch.empty(cap, dtype=torch.int32, device=s.device)
+    rank[order] = torch.arange(cap, dtype=torch.int32, device=s.device)
+    return prune_mask(state, state.live & (rank < k))

@@ -2,9 +2,10 @@
 single-chain blend (fovsplat/ops/blend.py).
 
 blend_forward_plain and blend_backward_plain are the plain PyTorch twins
-of kernels 5 and 6 (csrc/blend_fwd.cu): the tile-sorted pair list is cut
-into groups of consecutive tiles whose segments, padded to the group's
-longest, are evaluated as (tiles, pairs, pixels) tensors."""
+of kernels 5 and 6 (csrc/blend_fwd.cu), blend_stats_plain that of kernel
+8 (csrc/blend_stats.cu): the tile-sorted pair list is cut into groups of
+consecutive tiles whose segments, padded to the group's longest, are
+evaluated as (tiles, pairs, pixels) tensors."""
 
 from __future__ import annotations
 
@@ -58,8 +59,9 @@ def _tile_groups(seg_start, chunk: int):
 
 def _pair_pixel(pairs, idx, in_seg, t0: int, t1: int, grid_x: int,
                 power_cutoff: float):
-    """Rows, offsets, power, G, alpha and the static test for a tile group:
-    (a (9, G, S), dx, dy, G, alpha, ok), the last five (G, S, PIX)."""
+    """Rows, offsets, G, alpha and the static tests for a tile group:
+    (a (9, G, S), dx, dy, G, alpha, ok, geo), the last six (G, S, PIX);
+    geo is the power window alone, ok adds alpha >= ALPHA_MIN."""
     dev = pairs.device
     pix = torch.arange(PIX, device=dev)
     tiles = torch.arange(t0, t1, device=dev)
@@ -73,9 +75,8 @@ def _pair_pixel(pairs, idx, in_seg, t0: int, t1: int, grid_x: int,
              - a[_CB][..., None] * dx * dy)
     G = torch.exp(torch.clamp(power, max=0.0))
     alpha = torch.clamp(a[_OP][..., None] * G, max=ALPHA_MAX)
-    ok = ((power <= 0.0) & (power >= power_cutoff) & (alpha >= ALPHA_MIN)
-          & in_seg[..., None])
-    return a, dx, dy, G, alpha, ok
+    geo = (power <= 0.0) & (power >= power_cutoff) & in_seg[..., None]
+    return a, dx, dy, G, alpha, geo & (alpha >= ALPHA_MIN), geo
 
 
 def blend_forward_plain(pairs, seg_start, grid_x: int,
@@ -97,8 +98,8 @@ def blend_forward_plain(pairs, seg_start, grid_x: int,
     n_contrib = torch.zeros((T, PIX), dtype=torch.int32, device=dev)
     walked = torch.zeros((T, PIX), dtype=torch.int32, device=dev)
     for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk):
-        a, _, _, _, alpha, ok = _pair_pixel(pairs, idx, in_seg, t0, t1,
-                                            grid_x, power_cutoff)
+        a, _, _, _, alpha, ok, _ = _pair_pixel(pairs, idx, in_seg, t0, t1,
+                                               grid_x, power_cutoff)
         a_eff = torch.where(ok, alpha, torch.zeros_like(alpha))
         om = 1.0 - a_eff
         T_incl = torch.cumprod(om, 1)
@@ -137,8 +138,8 @@ def blend_backward_plain(pairs, seg_start, grid_x: int, g_color, g_T,
     grads = torch.zeros((9, pairs.shape[1]), dtype=torch.float32,
                         device=pairs.device)
     for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk):
-        a, dx, dy, G, alpha, ok = _pair_pixel(pairs, idx, in_seg, t0, t1,
-                                              grid_x, power_cutoff)
+        a, dx, dy, G, alpha, ok, _ = _pair_pixel(pairs, idx, in_seg, t0,
+                                                 t1, grid_x, power_cutoff)
         rank = torch.arange(idx.shape[1], device=pairs.device)
         contrib = ok & (rank[None, :, None] < n_contrib[t0:t1, None, :])
         a_eff = torch.where(contrib, alpha, torch.zeros_like(alpha))
@@ -168,3 +169,87 @@ def blend_backward_plain(pairs, seg_start, grid_x: int, g_color, g_T,
             (w * g[..., 2]).sum(-1)])                         # (9, G, S)
         grads[:, idx[in_seg]] = rows[:, in_seg]
     return grads
+
+
+BIG = 1 << 30          # first_trig of a pixel that never freezes
+STAT_ROWS = 4          # w_sum, touched, w_max, geo_win
+
+
+def tile_inside_mask(grid_x: int, grid_y: int, width: int, height: int,
+                     device=None) -> torch.Tensor:
+    """(T, PIX) bool: the pixel lies inside the image. Edge tiles carry
+    padding pixels, which the reference starts as done (forward.cu:326)."""
+    t = torch.arange(grid_x * grid_y, device=device)
+    pix = torch.arange(PIX, device=device)
+    px = (t % grid_x)[:, None] * TILE + (pix % TILE)[None, :]
+    py = (t // grid_x)[:, None] * TILE + (pix // TILE)[None, :]
+    return (px < width) & (py < height)
+
+
+def blend_stats_plain(pairs, seg_start, grid_x: int, width: int,
+                      height: int, power_cutoff: float = -4.5,
+                      chunk: int = 1 << 16, return_walked: bool = False):
+    """Plain blend forward with per-pair and per-pixel statistics
+    (fovsplat/ops/pallas/blend_stats.py:88-141), the function of kernel 8.
+
+    pairs (>= 9, CAP) f32 sorted rows; seg_start (T+1,) i32. The blend is
+    blend_forward_plain's, with padding pixels (outside width x height)
+    frozen from the start. Returns (colour (T, PIX, 3), final T (T, PIX),
+    stats (4, CAP) f32, best_lane (T, PIX) i32, best_w (T, PIX) f32,
+    first_trig (T, PIX) i32):
+      stats rows, per pair over its tile's pixels: w_sum (sum of the
+        blend weights alpha * T of the pixels it contributes to), touched
+        (their number), w_max (their largest weight), geo_win (pixels not
+        frozen before the pair whose power lies in the window, the pair
+        that freezes a pixel included); zero on every other lane;
+      best_lane: the lane of the pixel's largest weight, the lowest lane
+        on ties, CAP if it has none; best_w: that weight, else 0;
+      first_trig: the rank in the tile's segment of the pair that froze
+        the pixel, BIG if none did.
+    With return_walked, also the (T, PIX) count of pairs each pixel walks
+    before it freezes."""
+    dev = pairs.device
+    T = seg_start.shape[0] - 1
+    cap = pairs.shape[1]
+    color = torch.zeros((T, PIX, 3), dtype=torch.float32, device=dev)
+    final_T = torch.ones((T, PIX), dtype=torch.float32, device=dev)
+    stats = torch.zeros((STAT_ROWS, cap), dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    best_lane = torch.full((T, PIX), cap, **i32)
+    best_w = torch.zeros((T, PIX), dtype=torch.float32, device=dev)
+    first_trig = torch.full((T, PIX), BIG, **i32)
+    walked = torch.zeros((T, PIX), **i32)
+    inside = tile_inside_mask(grid_x, T // grid_x, width, height, dev)
+    for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk):
+        a, _, _, _, alpha, ok, geo = _pair_pixel(pairs, idx, in_seg, t0, t1,
+                                                 grid_x, power_cutoff)
+        ins = inside[t0:t1, None, :]
+        a_eff = torch.where(ok & ins, alpha, torch.zeros_like(alpha))
+        om = 1.0 - a_eff
+        T_incl = torch.cumprod(om, 1)
+        T_row = torch.cat([torch.ones_like(om[:, :1]), T_incl[:, :-1]], 1)
+        trigger = (a_eff > 0) & (T_row * om < T_EPS)
+        trig = trigger.int()
+        done_before = (torch.cumsum(trig, 1) - trig) > 0
+        contrib = (a_eff > 0) & ~trigger & ~done_before
+        w = torch.where(contrib, a_eff * T_row, torch.zeros_like(a_eff))
+        color[t0:t1] = torch.einsum("gsp,cgs->gpc", w, a[_R:_B + 1])
+        final_T[t0:t1] = torch.cumprod(
+            torch.where(contrib, om, torch.ones_like(om)), 1)[:, -1]
+        rows = torch.stack([w.sum(-1), contrib.sum(-1).float(), w.amax(-1),
+                            (geo & ins & ~done_before).sum(-1).float()])
+        stats[:, idx[in_seg]] = rows[:, in_seg]
+        wmax = w.amax(1)                                        # (G, PIX)
+        first = ((w == wmax[:, None]) & (w > 0)).int().argmax(1)
+        has = wmax > 0
+        best_lane[t0:t1] = torch.where(
+            has, torch.gather(idx, 1, first).to(torch.int32), cap)
+        best_w[t0:t1] = wmax
+        fired = trigger.any(1)
+        first_trig[t0:t1] = torch.where(fired, trig.argmax(1), BIG).int()
+        if return_walked:
+            walked[t0:t1] = torch.where(
+                fired, trig.argmax(1) + 1,
+                torch.where(inside[t0:t1], in_seg.sum(1)[:, None], 0)).int()
+    out = (color, final_T, stats, best_lane, best_w, first_trig)
+    return out + (walked,) if return_walked else out

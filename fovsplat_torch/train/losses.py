@@ -50,8 +50,13 @@ def _depthwise_blur(img, g):
     return out.reshape(b, c, h, w).permute(0, 2, 3, 1)
 
 
-def ssim(a, b, size: int = 11, sigma: float = 1.5):
-    """Mean SSIM (loss_utils.py:36-76: per-channel window, same padding)."""
+def ssim(a, b, size: int = 11, sigma: float = 1.5, robust: bool = False):
+    """Mean SSIM (loss_utils.py:36-76: per-channel window, same padding).
+
+    robust=True clamps the variances at 0 and the covariance by
+    Cauchy-Schwarz, which bounds each pixel's SSIM to [-1, 1]; the quality
+    gates of the prune and mask loops use it (fovsplat/train/losses.py:
+    66-95), the training loss does not."""
     if a.dim() == 3:
         a = a[None]
         b = b[None]
@@ -62,6 +67,11 @@ def ssim(a, b, size: int = 11, sigma: float = 1.5):
     s1 = _depthwise_blur(a * a, w) - mu1_sq
     s2 = _depthwise_blur(b * b, w) - mu2_sq
     s12 = _depthwise_blur(a * b, w) - mu12
+    if robust:
+        s1 = torch.clamp(s1, min=0.0)
+        s2 = torch.clamp(s2, min=0.0)
+        lim = torch.sqrt(s1 * s2)
+        s12 = torch.clamp(s12, -lim, lim)
     c1, c2 = 0.01 ** 2, 0.03 ** 2
     m = (((2 * mu12 + c1) * (2 * s12 + c2))
          / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2)))

@@ -4,9 +4,10 @@ The reference's torch.optim.Adam param groups (scene/gaussian_model.py:
 273-301: per-tensor learning rates, eps=1e-15, xyz on an exponential
 schedule), written out by hand with the JAX package's formula so that the
 moments stay plain tensors keyed like the parameters: the row surgery of
-pruning and densification (select_rows, concat_rows, replace_field, not
-ported yet) gathers them in lockstep with the parameters, which
-torch.optim.Adam's per-parameter state does not allow.
+pruning (models/state.prune_mask, replace_field) and densification
+(select_rows, concat_rows, not ported yet) edits them in lockstep with
+the parameters, which torch.optim.Adam's per-parameter state does not
+allow.
 """
 
 from __future__ import annotations
@@ -68,9 +69,15 @@ def learning_rates(params: GaussianParams, step, cfg: OptimConfig,
 
 @torch.no_grad()
 def apply_updates(params: GaussianParams, grads: dict, state: AdamState,
-                  lrs: dict, cfg: OptimConfig = OptimConfig()):
+                  lrs: dict, cfg: OptimConfig = OptimConfig(),
+                  freeze_mask: dict | None = None):
     """One Adam step. grads: field -> gradient. Returns (new params,
-    new state); the inputs are left as they were."""
+    new state); the inputs are left as they were.
+
+    freeze_mask (field -> 0 or 1) keeps the fields marked 0 as they were
+    and zeroes their moments: masking trains only DC-SH and opacity
+    (gaussian_renderer/__init__.py:71-82; fovsplat/train/optim.py:92-97).
+    A frozen field's new tensor is the old one, bit for bit."""
     count = state.count + 1
     b1, b2 = cfg.beta1, cfg.beta2
     c = count.to(torch.float32)
@@ -81,7 +88,22 @@ def apply_updates(params: GaussianParams, grads: dict, state: AdamState,
         g = grads[f]
         mu[f] = b1 * state.mu[f] + (1 - b1) * g
         nu[f] = b2 * state.nu[f] + (1 - b2) * g * g
+        old = getattr(params, f).detach()
+        if freeze_mask is not None and not freeze_mask[f]:
+            new[f] = old
+            mu[f] = mu[f] * 0.0
+            nu[f] = nu[f] * 0.0
+            continue
         step = lrs[f] * (mu[f] * mu_hat_scale) / (
             torch.sqrt(nu[f] * nu_hat_scale) + cfg.eps)
-        new[f] = getattr(params, f).detach() - step
+        new[f] = old - step
     return GaussianParams(**new), AdamState(mu=mu, nu=nu, count=count)
+
+
+def replace_field(state: AdamState, field: str) -> AdamState:
+    """Zero the moments of one field (replace_tensor_to_optimizer, used by
+    reset_opacity_max)."""
+    return AdamState(
+        mu={**state.mu, field: torch.zeros_like(state.mu[field])},
+        nu={**state.nu, field: torch.zeros_like(state.nu[field])},
+        count=state.count)

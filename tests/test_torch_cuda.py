@@ -14,10 +14,12 @@ from fovsplat_torch import convert
 from fovsplat_torch.data import proxy
 from fovsplat_torch.models import state as S
 from fovsplat_torch.ops import blend, foveated as fov
-from fovsplat_torch.ops import foveation, projection, sh
+from fovsplat_torch.ops import foveation, projection, sh, stats
 from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops.kernels import blend_fov as bf
+from fovsplat_torch.ops import binning
 from fovsplat_torch.ops.kernels import blend_fwd as bfw
+from fovsplat_torch.ops.kernels import blend_stats as bs
 from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels import expand_fov as ef
 from fovsplat_torch.ops.kernels import expand_ps1 as ep1
@@ -190,4 +192,75 @@ def test_train_step_matches_cpu_and_counts_launches(cuda):
     for f, g in gh.items():
         scale = float(g.abs().max())
         torch.testing.assert_close(gc[f].cpu() / scale, g / scale,
+                                   rtol=2e-3, atol=2e-4, msg=f)
+
+
+def test_blend_stats_matches_plain(cuda):
+    """Kernel 8 against its plain version on the score route's pairs:
+    integer rows, best_lane and first_trig exact, float rows 1e-5
+    relative, the blend within T_EPS; two launches bit-identical."""
+    st = _train_state(cuda, N, 2)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    p = st.params
+    with torch.no_grad():
+        prep = projection.preprocess_cols(p.xyz, p.get_scaling(),
+                                          p.get_rotation(), cam,
+                                          live_mask=st.live)
+        colors = sh.sh_to_rgb(3, p.get_features(), p.xyz, cam.cam_center)
+        pairs, bn = binning.bin_fused_ps1(
+            rast.train_columns(prep, p.get_opacity(), colors), prep.valid,
+            prep.depth, gx, gy, 1 << 20)
+        seg = bn.seg_start
+        k = bs.blend_stats(pairs, seg, gx, W, H)
+        q = blend.blend_stats_plain(pairs, seg, gx, W, H)
+        torch.testing.assert_close(k[0], q[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(k[1], q[1], rtol=0, atol=1e-4)
+        assert torch.equal(k[2][1], q[2][1]) and torch.equal(k[2][3], q[2][3])
+        torch.testing.assert_close(k[2][0::2], q[2][0::2], rtol=1e-5,
+                                   atol=1e-7)
+        assert torch.equal(k[3], q[3]) and torch.equal(k[5], q[5])
+        torch.testing.assert_close(k[4], q[4], rtol=1e-5, atol=1e-7)
+        assert float(k[2][1].sum()) > 1e4
+        again = bs.blend_stats(pairs, seg, gx, W, H)
+        assert all(torch.equal(a, b) for a, b in zip(k, again))
+
+
+def test_score_and_hvs_step_match_cpu(cuda):
+    """The score pass (its gs_count exact, contribs and the three metrics
+    within 1e-5 relative) and one masked HVS step on the card against
+    the CPU plain path."""
+    n, w, h = 5000, 160, 128
+    gt = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
+    res = []
+    for d in (cuda, torch.device("cpu")):
+        st = _train_state(d, n, 3)
+        cam = proxy.proxy_camera(w, h, device=d)
+        p = st.params
+        outs = [stats.rasterize_stats(
+            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(), cam,
+            shs=p.get_features(), mode=m, config=cfg.raster,
+            live_mask=st.live) for m in stats.MODES]
+        scores = [loops.make_score_fn(cfg, m)(st, cam).cpu()
+                  for m in ("max_comp_efficiency", "max_contrib", "surface")]
+        new, aux = loops.make_hvs_step(cfg, 3.0, masking=True, device=d)(
+            st, cam, torch.from_numpy(gt).to(d), 1)
+        res.append((outs, scores, new, aux))
+    (oc, sc, nc, ac), (oh, sh_, nh, ah) = res
+    for a, b in zip(oc, oh):
+        assert int(a["binned"].overflow) == int(b["binned"].overflow) == 0
+        assert torch.equal(a["gs_count"].cpu(), b["gs_count"])
+        torch.testing.assert_close(a["contribs"].cpu(), b["contribs"],
+                                   rtol=1e-5, atol=1e-7)
+    for a, b in zip(sc, sh_):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    assert int(ac["overflow"]) == int(ah["overflow"]) == 0
+    assert int(ac["nonfinite"]) == int(ah["nonfinite"]) == 0
+    torch.testing.assert_close(ac["loss"].cpu(), ah["loss"], rtol=1e-5,
+                               atol=0)
+    for f in ("features_dc", "opacity"):
+        g = nh.opt.mu[f]
+        scale = float(g.abs().max())
+        torch.testing.assert_close(nc.opt.mu[f].cpu() / scale, g / scale,
                                    rtol=2e-3, atol=2e-4, msg=f)

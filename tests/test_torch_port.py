@@ -20,6 +20,7 @@ from fovsplat_torch.ops import foveated as tfov
 from fovsplat_torch.ops.kernels import _build
 from fovsplat_torch.ops.kernels import blend_fov as tblend
 from fovsplat_torch.ops.kernels import blend_fwd as tbfw
+from fovsplat_torch.ops.kernels import blend_stats as tbs
 from fovsplat_torch.ops.kernels import build_table as tbt
 from fovsplat_torch.ops.kernels import expand_fov as texp
 from fovsplat_torch.ops.kernels import expand_ps1 as tep1
@@ -89,7 +90,13 @@ def test_port_sources_import_no_jax():
     assert {"fovsplat_torch/ops/binning.py", "fovsplat_torch/train/loops.py",
             "fovsplat_torch/train/trainer.py",
             "fovsplat_torch/models/state.py",
-            "fovsplat_torch/ops/kernels/segment_reduce.py"} <= names
+            "fovsplat_torch/ops/kernels/segment_reduce.py",
+            "fovsplat_torch/ops/stats.py",
+            "fovsplat_torch/ops/kernels/blend_stats.py",
+            "fovsplat_torch/perception/color.py",
+            "fovsplat_torch/perception/pyramid.py",
+            "fovsplat_torch/perception/metameric.py",
+            "fovsplat_torch/train/compose.py"} <= names
     for f in files:
         for m in _imported_modules(f):
             top = m.split(".")[0]
@@ -108,6 +115,8 @@ def test_port_import_leaves_jax_out_of_sys_modules():
         "import fovsplat_torch.ops.kernels.blend_fwd\n"
         "import fovsplat_torch.ops.kernels.expand_ps1\n"
         "import fovsplat_torch.ops.kernels.segment_reduce\n"
+        "import fovsplat_torch.ops.stats, fovsplat_torch.train.compose\n"
+        "import fovsplat_torch.perception.metameric\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fovsplat'))\n"
@@ -147,13 +156,16 @@ def test_train_steps_need_cuda_or_cpu(monkeypatch):
     raw = tproxy.train_arrays(tproxy.bicycle_proxy(n=64, seed=0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.params_from_numpy(**raw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tloops.make_hvs_step(cfg, 3.0, masking=True)
     assert callable(tloops.make_photometric_step(cfg, device="cpu"))
+    assert callable(tloops.make_hvs_step(cfg, 3.0, device="cpu"))
 
 
 @pytest.mark.parametrize("wrapper", ["build_table", "expand_fov",
                                      "blend_fov", "expand_ps1",
                                      "blend_forward", "blend_backward",
-                                     "reduce_by_sorted_gid"])
+                                     "reduce_by_sorted_gid", "blend_stats"])
 def test_wrappers_take_only_cpu_or_cuda(wrapper):
     """A tensor that is neither on the CPU nor on a card raises instead of
     reaching the plain version or the kernel."""
@@ -187,6 +199,9 @@ def test_wrappers_take_only_cpu_or_cuda(wrapper):
             torch.empty(9, 64, **meta), torch.empty(25, **i32), 6,
             torch.empty(24, 256, 3, **meta), torch.empty(24, 256, **meta),
             torch.empty(24, 256, **meta), torch.empty(24, 256, **i32))
+    elif wrapper == "blend_stats":
+        call = lambda: tbs.blend_stats(                   # noqa: E731
+            torch.empty(9, 64, **meta), torch.empty(25, **i32), 6, 96, 64)
     else:
         call = lambda: tsr.reduce_by_sorted_gid(          # noqa: E731
             torch.empty(64, **i32), torch.empty(9, 64, **meta), 8)
@@ -208,3 +223,13 @@ def test_build_without_nvcc_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(source)
     assert not (ROOT / "no-such-build").exists()
+
+
+def test_filter_data_is_the_ports_own_copy():
+    """The pyramid reads the port's copy of the NYU filters, a byte copy
+    of the JAX package's file."""
+    from fovsplat_torch.perception import pyramid as tpyr
+    assert tpyr._DATA.is_relative_to(ROOT / "fovsplat_torch")
+    assert tpyr._DATA.read_bytes() == (
+        ROOT / "fovsplat" / "perception" / "data" /
+        "sp_filters_nyu.npz").read_bytes()
