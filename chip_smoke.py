@@ -608,26 +608,34 @@ def check_stats_kernel(st, cam, results):
     # plain one is 0 shows up as a huge relative error.
     blend_err = max(float((k[0] - q[0]).abs().max()),
                     float((k[1] - q[1]).abs().max()))
+    # Operations counted in the header of csrc/blend_stats.cu, each on the
+    # pair-pixels that need it: 13 FLOP per pair-pixel walked before the
+    # pixel freezes, 5 more where the power lies in the window (geo_win),
+    # 14 more where the pair contributes (touched), 3 per freezing pair.
+    counts = {"pair_pixels_walked": int(walked.long().sum()),
+              "pair_pixels_in_window": int(q[2][3].double().sum()),
+              "pair_pixels_touched": int(q[2][1].double().sum()),
+              "pixels_frozen": int((q[5] != blend.BIG).sum())}
+    flop = (13 * counts["pair_pixels_walked"]
+            + 5 * counts["pair_pixels_in_window"]
+            + 14 * counts["pair_pixels_touched"] + 3 * counts["pixels_frozen"])
+    nbytes = num_pairs * (36 + 16) + T * P * 28 + (T + 1) * 4
     emit({"phase": "check", "kernel": "blend_stats", "num_pairs": num_pairs,
           "exact": exact, "float_rel_err": floats, "blend_max_abs_err":
           blend_err, "tol": {"float_rtol": STATS_RTOL,
                              "blend_atol": BLEND_ATOL},
-          "touched_pixels": int(q[2][1].double().sum())})
+          **counts, "flop": flop, "bytes": nbytes})
     if not (all(exact.values()) and blend_err <= BLEND_ATOL
             and all(v <= STATS_RTOL for v in floats.values())):
         raise AssertionError("blend_stats differs from its plain version")
     err = max(blend_err, float((k[2] - q[2]).abs().max()),
               float((k[4] - q[4]).abs().max()))
-    nbytes = num_pairs * (36 + 16) + T * P * 28 + (T + 1) * 4
-    # ~33 FLOP per pair and pixel walked before the pixel freezes, counted
-    # in the header of csrc/blend_stats.cu.
-    b_ms, b_by = bound(nbytes, 33.0 * float(walked.double().sum()))
+    b_ms, b_by = bound(nbytes, float(flop))
     results["blend_stats"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: bs.blend_stats(*args), 20),
         plain_ms=cuda_ms(lambda: blend.blend_stats_plain(*args), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
-        pair_pixels_walked=int(walked.long().sum()))
+        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}")
 
 
 def run_score_pass(st, cam, cfg, kernels):

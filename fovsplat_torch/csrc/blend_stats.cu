@@ -27,12 +27,15 @@
 // block stops once every pixel is frozen (__syncthreads_count) and zeroes
 // the rest of its segment; lanes past the last segment are zeroed too,
 // where the TPU kernel leaves them unwritten.
-// Bound: operations. Per pair and pixel walked before the pixel freezes
-// ~33 FLOP: power 11; the window, expf, alpha and its test 6; T and its
-// test 3; the weight 1; the colour 6; the argmax compare 1; the four
-// statistics' reductions over the tile's pixels 4 (the butterfly does 5
-// shuffles and operations per value where one is needed). Bytes: 36 B per
-// pair in and 16 B out, 28 B per pixel out.
+// Bound: the larger of bytes and operations, each operation counted only
+// on the pair-pixels that need it. Per pair and pixel walked before the
+// pixel freezes 13 FLOP: power 11, the window test 2. Where the power lies
+// in the window (geo_win) 5 more: expf, alpha and its test 4, the geo_win
+// sum 1. Where the pair contributes (touched) 14 more: T and its test 3,
+// the weight 1, the colour 6, the argmax compare 1, the w_sum, touched and
+// w_max reductions 3 (the butterfly does 5 shuffles and operations per
+// value where one is needed). Per freezing pair 3: T and its test. Bytes:
+// 36 B per pair in and 16 B out, 28 B per pixel out.
 
 #include <cuda_runtime.h>
 

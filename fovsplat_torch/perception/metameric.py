@@ -151,15 +151,13 @@ def _find_stats(band, pooling_size, eps=1e-7):
 
 
 def statsmaps(image, pooling_size, n_levels: int = 5,
-              n_orientations: int = 6, colorspace: str = "RGB"):
-    """image (B, H, W, C) or (H, W, C); returns the list of stats maps."""
+              n_orientations: int = 6):
+    """image (B, H, W, 3) or (H, W, 3) in RGB, taken to YCrCb; returns the
+    list of stats maps."""
     if image.dim() == 3:
         image = image[None]
-    if image.shape[-1] == 3 and colorspace == "RGB":
-        image = color.rgb_to_ycrcb(image)
-    pyr = pyramid.construct_pyramid(image, n_levels, n_orientations,
-                                    filter_type="cropped",
-                                    use_bilinear_downup=True)
+    pyr = pyramid.construct_pyramid(color.rgb_to_ycrcb(image), n_levels,
+                                    n_orientations)
     out = list(_find_stats(pyr[0]["h"], pooling_size))
     ps = pooling_size
     for level in pyr[:-1]:

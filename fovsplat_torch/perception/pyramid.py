@@ -29,11 +29,11 @@ _DATA = Path(__file__).resolve().parent / "data" / "sp_filters_nyu.npz"
 
 
 @functools.lru_cache(maxsize=None)
-def load_filters(n_orientations: int = 6, filter_type: str = "cropped"):
-    """{'h0': (k, k), 'l0': (k, k), 'l': (m, m), 'b': (O, k, k)} f32
-    numpy arrays."""
+def load_filters(n_orientations: int = 6):
+    """The cropped filters, which the HVS loss uses: {'h0': (k, k), 'l0':
+    (k, k), 'l': (m, m), 'b': (O, k, k)} f32 numpy arrays."""
     z = np.load(_DATA)
-    pre = f"o{n_orientations}_{filter_type}_"
+    pre = f"o{n_orientations}_cropped_"
     return {k: np.asarray(z[pre + k], np.float32)
             for k in ("h0", "l0", "l", "b")}
 
@@ -71,29 +71,20 @@ def area_downsample_2x(x):
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 
-def construct_pyramid(image, n_levels: int = 5, n_orientations: int = 6,
-                      filter_type: str = "cropped",
-                      use_bilinear_downup: bool = True,
-                      multiple_highpass: bool = False):
+def construct_pyramid(image, n_levels: int = 5, n_orientations: int = 6):
     """image (B, H, W, C), H and W divisible by 2^n_levels (callers resize
-    first: metameric.resize_for_pyramid).
+    first: metameric.resize_for_pyramid). The HVS loss's configuration of
+    the JAX construct_pyramid: cropped filters, 2x area downsampling
+    between levels, one highpass band at the top.
 
     Returns [{'h', 'l', 'b' (list)}, ..., {'l'}], largest first."""
-    f = load_filters(n_orientations, filter_type)
-
-    def down(lowpass):
-        if use_bilinear_downup:
-            return area_downsample_2x(lowpass)
-        return depthwise_conv(lowpass, f["l"])[:, ::2, ::2, :]
-
+    f = load_filters(n_orientations)
     h0, lowpass = filter_bank(image, np.stack([f["h0"], f["l0"]]))
     pyramid = [{"h": h0, "l": lowpass, "b": list(filter_bank(lowpass,
                                                               f["b"]))}]
     for _ in range(n_levels - 2):
-        lowpass = down(lowpass)
-        level = {"l": lowpass, "b": list(filter_bank(lowpass, f["b"]))}
-        if multiple_highpass:
-            level["h"] = depthwise_conv(lowpass, f["h0"])
-        pyramid.append(level)
-    pyramid.append({"l": down(lowpass)})
+        lowpass = area_downsample_2x(lowpass)
+        pyramid.append({"l": lowpass,
+                        "b": list(filter_bank(lowpass, f["b"]))})
+    pyramid.append({"l": area_downsample_2x(lowpass)})
     return pyramid

@@ -272,6 +272,18 @@ def test_perception_pieces_match_jax(images):
         assert np.abs(ut.numpy() - x).max() > 1e-3
 
 
+@pytest.mark.parametrize("name", ["h0", "l"])
+def test_depthwise_conv_matches_jax(images, name):
+    """The shift-add filter against the JAX package's grouped convolution,
+    for a 5x5 and the larger lowpass filter (reflection padding)."""
+    a, _ = images
+    k = jpyr.load_filters()[name]
+    np.testing.assert_allclose(
+        tpyr.depthwise_conv(t(a), k).numpy(),
+        np.asarray(jpyr.depthwise_conv(jnp.asarray(a), jnp.asarray(k))),
+        rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("out_hw", [(5, 7), (20, 13)])
 def test_resampling_matches_torch_and_its_gradient(out_hw):
     """The gather resampling equals adaptive_avg_pool2d and bilinear
