@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch / CUDA port renders, trains, prunes and
-masks on the GPU.
+"""Quickest proof that the PyTorch / CUDA port renders (the foveated
+"ours" frame and the PS1, SM-FR and MM-FR inference frames), trains,
+prunes and masks on the GPU.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,7 @@ into build/kernels first. Phases, one JSON line each on stdout:
 
   1. device: torch's name for the card and nvidia-smi's name and power
      limit (also printed raw on a line of its own);
-  2. build: nvcc time for the seven sources (eight kernels);
+  2. build: nvcc time for the eight sources (nine kernels);
   3. the frame's kernels 1-3 against their plain PyTorch versions on the
      card, at the frame's shapes (the 1,161,358-Gaussian bicycle proxy at
      1237x822, centre gaze, alpha 0.05) and, for the blend, also on the
@@ -28,26 +29,49 @@ into build/kernels first. Phases, one JSON line each on stdout:
      kernel and the device's idle share;
   7. the frame on the card against the same frame on the CPU (plain
      versions) on a small input;
-  8. the train path: the photometric train step at full width, 3 warm-up
+  8. the inference kernels against their plain versions at the PS1
+     frame's full-width shapes (the proxy as a PS1 model, 1237x822, the
+     train capacities): kernel 1's ps1 mode (integer rows and cum exact,
+     floats 1e-5 relative), kernel 4's quantized rows (kept count, tiles,
+     depths, sorted keys and the five rows bit-identical), kernel 5q
+     within T_EPS on the full and on emptied segments, kernel 9
+     bit-identical on the ps1 table and on the frame's fov table;
+  9. the PS1 frame at full width, compaction off and on, 3 warm-ups and
+     20 timed frames each, counters set to 0 before and read after: both
+     images bit-identical with equal num_pairs, overflow 0, kernels 1p,
+     4q, 5q (and 9 with compaction) launched; then a profiler window over
+     10 frames;
+ 10. the PS1 frame on the card against the CPU at 20k / 320x224 (within
+     1e-4) and against the port's f32 train-route rasterize of the same
+     model (above 40 dB);
+ 11. the SM-FR frame over the 9 gazes at full width (the frame's proxy
+     and capacities, shared colours), counters set to 0 before and read
+     after; at the centre gaze the shared and broadcast packings render
+     bit-identical images;
+ 12. the MM-FR frame over the 9 gazes at full width: the four level
+     models of bench.py:255-268, per-level capacities sized from probe
+     runs as bench.py:299-331 does, overflow 0 on every pass; then a
+     profiler window over 3 centre-gaze frames;
+ 13. the train path: the photometric train step at full width, 3 warm-up
      and 10 timed steps (CUDA events), with every launch counter set to 0
      just before and read just after; kernels 4-7 must have launched, and
      every step must report overflow 0, nonfinite 0 and a finite loss;
-  9. determinism: two gradient evaluations of the same state on the card
+ 14. determinism: two gradient evaluations of the same state on the card
      are bit-identical;
- 10. the train step on the card against the CPU plain path on the 20k
+ 15. the train step on the card against the CPU plain path on the 20k
      proxy at 320x224: loss within 1e-5 relative, gradients scaled by
      their largest value within rtol 2e-3, atol 2e-4;
- 11. a torch.profiler window over 3 train steps;
- 12. kernel 8 (the stats blend) against its plain version on the score
+ 16. a torch.profiler window over 3 train steps;
+ 17. kernel 8 (the stats blend) against its plain version on the score
      pass's own pairs at the train phase's shapes: best_lane, first_trig
      and the touched and geo_win rows exact, the float rows and best_w
      within 1e-5 relative, colour and T within T_EPS;
- 13. the score pass at full width: one score view per metric
+ 18. the score pass at full width: one score view per metric
      (max_comp_efficiency, max_contrib, surface), timed, with the launch
      counters set to 0 just before and read just after; two runs give
      bit-identical scores; then the card against the CPU at 20k / 320x224
      (gs_count exact, contribs and scores within 1e-5 relative);
- 14. the model-building chain at full width (scripts/onchip_pipeline.py's
+ 19. the model-building chain at full width (scripts/onchip_pipeline.py's
      chain, port only): ground truth rendered from the proxy on 6 ring
      cameras (4 train, 2 test), a seeded perturbation as the student,
      prune_training to 0.99 of its SSIM and PSNR, three chained
@@ -57,14 +81,14 @@ into build/kernels first. Phases, one JSON line each on stdout:
      report overflow 0, nonfinite 0 and a finite loss, the live masks
      must nest, masking must leave xyz, scaling, rotation and
      features_rest bit-unchanged, and the frame must be finite;
- 15. one masked HVS step on the card against the CPU at 20k / 320x224:
-     loss within 1e-5 relative, DC and opacity gradients as in phase 10;
- 16. torch.profiler windows over one score view and one HVS step (with
+ 20. one masked HVS step on the card against the CPU at 20k / 320x224:
+     loss within 1e-5 relative, DC and opacity gradients as in phase 15;
+ 21. torch.profiler windows over one score view and one HVS step (with
      the HVS step's time without the profiler, CUDA events over 3);
- 17. the kernels line: per kernel its launches on its path, time, plain
-     time, bound and error, the index_add_ time of kernel 7's sums as its
-     library time, and the torch.sort times of the frame's and the
-     train route's keys as library rows.
+ 22. the kernels line: per kernel (1-9, and 1p, 4q, 5q) its launches on
+     its path, time, plain time, bound and error, the index_add_ time
+     of kernel 7's sums as its library time, and the torch.sort times of
+     the frame's and the train route's keys as library rows.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero without that line; so does a machine
 without CUDA or a checkout without the package.
@@ -918,6 +942,381 @@ def hvs_vs_cpu(cfg):
         raise AssertionError("card HVS step differs from the CPU step")
 
 
+def ps1_inputs(n, width, height, seed, device):
+    """The proxy as a PS1 model (level-0 DC, SH rest, the shared opacity)
+    and its camera."""
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import proxy
+    sc = proxy.bicycle_proxy(n=n, seed=seed)
+    model = convert.ps1_model_from_numpy(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacity"],
+        sc["shs_dcs"][:, 0:1], sc["shs_rest"], device=device)
+    return model, proxy.proxy_camera(width=width, height=height,
+                                     device=device)
+
+
+def check_inference_kernels(dev, fov_table, results):
+    """Kernel 1's ps1 mode, kernel 4's quantized rows, kernel 5q and
+    kernel 9 against their plain versions at the PS1 frame's full-width
+    shapes (the proxy as a PS1 model, 1237x822, the train capacities);
+    kernel 9 also on the "ours" frame's table at the centre gaze."""
+    import torch
+    from fovsplat_torch.ops import blend, foveated as fov
+    from fovsplat_torch.ops.kernels import blend_fwd as bfw
+    from fovsplat_torch.ops.kernels import build_table as bt
+    from fovsplat_torch.ops.kernels import compact_table as ct
+    from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    model, cam = ps1_inputs(N_FULL, W_FULL, H_FULL, 0, dev)
+    gx, gy = (W_FULL + 15) // 16, (H_FULL + 15) // 16
+    T, n, P = gx * gy, N_FULL, blend.PIX
+    shape = f"N={n}, {W_FULL}x{H_FULL}"
+
+    # --- 1p
+    tk, ck, totk = bt.build_table_ps1(model, cam)
+    tp, cp, totp = bt.build_table_ps1_plain(model, cam)
+    int_rows = [ep1.ROW_RX0, ep1.ROW_RY0, ep1.ROW_RW, ep1.ROW_TNUM]
+    bad = {r: int((tk[r] != tp[r]).sum()) for r in int_rows}
+    if any(bad.values()) or not (torch.equal(ck, cp)
+                                 and torch.equal(totk, totp)):
+        raise AssertionError(f"build_table_ps1: integer rows differ {bad}")
+    fl = [r for r in range(tk.shape[0]) if r not in int_rows]
+    err = (tk[fl] - tp[fl]).abs()
+    rel = float((err / tp[fl].abs().clamp(min=1.0)).max())
+    if not rel <= TABLE_RTOL:
+        raise AssertionError(f"build_table_ps1 float rows: rel err {rel}")
+    cand = int(totk)
+    # Bytes: 40 B of geometry and 98 B of bf16 SH and opacity in, the
+    # 20-row table and cum out. ~530 FLOP a Gaussian (projection, EWA,
+    # rect and OBB ~290, degree-3 SH ~230, colours).
+    b_ms, b_by = bound(n * (40 + 2 * 49) + n * 4 * (ep1.NUM_ROWS + 1),
+                       530.0 * n)
+    results["build_table_ps1"] = dict(
+        max_abs_err=float(err.max()),
+        ms=cuda_ms(lambda: bt.build_table_ps1(model, cam), 20),
+        plain_ms=cuda_ms(lambda: bt.build_table_ps1_plain(model, cam), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{shape}, candidates={cand}")
+    emit({"phase": "check", "kernel": "build_table_ps1", "rows_exact":
+          int_rows, "float_rel_err": rel, "candidates": cand,
+          "tol": TABLE_RTOL})
+
+    # --- 4q
+    args = (tk, ck, gx, TRAIN_PAIR_CAPACITY, TRAIN_COMPACT_CAPACITY)
+    ek = ep1.expand_ps1(*args, quantize=True)
+    ep = ep1.expand_ps1_plain(*args, quantize=True)
+    kept = int(ek.kept)
+    k = min(kept, TRAIN_COMPACT_CAPACITY)
+    same = {"kept": kept == int(ep.kept),
+            "tile": torch.equal(ek.tile[:k], ep.tile[:k]),
+            "depth": torch.equal(ek.depth[:k], ep.depth[:k]),
+            "rows_bits": torch.equal(ek.attrs[:, :k].view(torch.int32),
+                                     ep.attrs[:, :k].view(torch.int32))}
+    key, dbits = fov.fused_key32(ek.tile, ek.depth, ek.kept[0], T)
+    key_p, _ = fov.fused_key32(ep.tile, ep.depth, ep.kept[0], T)
+    same["sorted_keys"] = torch.equal(torch.sort(key).values,
+                                      torch.sort(key_p).values)
+    emit({"phase": "check", "kernel": "expand_ps1_q", "candidates": cand,
+          "kept": kept, "exact": same})
+    if not all(same.values()):
+        raise AssertionError(f"expand_ps1 quantized differs: {same}")
+    b_ms, b_by = bound(tk.numel() * 4 + n * 4 + k * 28,
+                       30.0 * min(cand, TRAIN_PAIR_CAPACITY))
+    results["expand_ps1_q"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ep1.expand_ps1(*args, quantize=True), 20),
+        plain_ms=cuda_ms(lambda: ep1.expand_ps1_plain(*args, quantize=True),
+                         3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{shape}, candidates={cand}, kept={kept}")
+
+    # --- 5q, on the frame's fused-key sort; checked on the full segments
+    # and with every third tile's segment emptied (MM-FR's masking)
+    pairs, seg = fov.sort_pairs(key, dbits, ek.attrs, T, False)
+    num_pairs = int(seg[-1])
+    ss = seg[:-1]
+    errs = {}
+    for tag, se in (("full", seg[1:]),
+                    ("emptied", torch.where(torch.arange(T, device=dev) % 3
+                                            != 0, seg[1:], ss))):
+        ko = bfw.blend_forward_q(pairs, ss, se, gx)
+        po = blend.blend_forward_q_plain(pairs, ss, se, gx,
+                                         return_walked=True)
+        errs[tag] = max(float((ko[0] - po[0]).abs().max()),
+                        float((ko[1] - po[1]).abs().max()))
+        if tag == "full":
+            walked = po[3]
+    emit({"phase": "check", "kernel": "blend_forward_q",
+          "num_pairs": num_pairs, "max_abs_err": errs, "tol": BLEND_ATOL})
+    if not all(e <= BLEND_ATOL for e in errs.values()):
+        raise AssertionError(f"blend_forward_q: {errs}")
+    # 25 FLOP per pair-pixel walked (as kernel 5); bytes: 20 B per pair
+    # read, the segment bounds, colour, T and n_contrib out.
+    b_ms, b_by = bound(num_pairs * 20 + 2 * T * 4 + T * P * 20,
+                       25.0 * float(walked.double().sum()))
+    se = seg[1:]
+    results["blend_forward_q"] = dict(
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: bfw.blend_forward_q(pairs, ss, se, gx), 20),
+        plain_ms=cuda_ms(lambda: blend.blend_forward_q_plain(pairs, ss, se,
+                                                             gx), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{W_FULL}x{H_FULL}, pairs={num_pairs}",
+        pair_pixels_walked=int(walked.long().sum()))
+
+    # --- 9, on the ps1 table (timed) and on the "ours" frame's table
+    checks = {}
+    for tag, table, flag, tn in (
+            ("ps1", tk, ep1.ROW_TNUM, ep1.ROW_TNUM),
+            ("fov", fov_table, bt.ROW_VALID, bt.ROW_TNUM)):
+        ko = ct.compact_table(table, flag, 0.5, tn)
+        po = ct.compact_table_plain(table, flag, 0.5, tn)
+        checks[tag] = {"bit_identical": all(torch.equal(a, b)
+                                            for a, b in zip(ko, po)),
+                       "live": int(ko[2]), "columns": table.shape[1],
+                       "total": int(ko[3])}
+    emit({"phase": "check", "kernel": "compact_table", **checks})
+    if not all(c["bit_identical"] for c in checks.values()):
+        raise AssertionError(f"compact_table differs: {checks}")
+    live = checks["ps1"]["live"]
+    b_ms, b_by = bound(tk.numel() * 4 + tk.shape[0] * 4 * live + n * 4, 0.0)
+    results["compact_table"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ct.compact_table(tk, ep1.ROW_TNUM, 0.5,
+                                            ep1.ROW_TNUM), 20),
+        plain_ms=cuda_ms(lambda: ct.compact_table_plain(
+            tk, ep1.ROW_TNUM, 0.5, ep1.ROW_TNUM), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"ps1 table {tk.shape[0]}x{n}, live={live}")
+    return model, cam
+
+
+def run_ps1_frame(model, cam, kernels):
+    """The PS1 frame at full width, compaction off and on: per setting
+    every counter set to 0 just before 3 warm-up and 20 timed frames
+    (CUDA events) and read just after. The two images must be
+    bit-identical with equal num_pairs and overflow 0. Returns the
+    launches per setting."""
+    import torch
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    outs, launches, rows = [], {}, {}
+    for flag in (False, True):
+        cfg = RasterizeConfig(pair_capacity=TRAIN_PAIR_CAPACITY,
+                              compact_capacity=TRAIN_COMPACT_CAPACITY,
+                              compact_table=flag)
+        for kf in kernels.values():
+            kf.launches = 0
+        for _ in range(3):
+            rast.rasterize_ps1_soa(model, cam, config=cfg)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            out = rast.rasterize_ps1_soa(model, cam, config=cfg)
+        end.record()
+        end.synchronize()
+        tag = "compact_table" if flag else "plain_table"
+        launches[tag] = {k: kf.launches for k, kf in kernels.items()}
+        img = out["render"]
+        rows[tag] = {"ms": start.elapsed_time(end) / 20,
+                     "num_pairs": int(out["num_pairs"]),
+                     "candidates": int(out["candidates"]),
+                     "overflow": int(out["overflow"]),
+                     "finite": bool(torch.isfinite(img).all()),
+                     "mean": float(img.mean())}
+        outs.append(img)
+    same = bool(torch.equal(outs[0], outs[1]))
+    emit({"phase": "ps1_frame", "n": N_FULL, "width": W_FULL,
+          "height": H_FULL, "pair_capacity": TRAIN_PAIR_CAPACITY,
+          "compact_capacity": TRAIN_COMPACT_CAPACITY, "warmups": 3,
+          "timed": 20, **rows, "bit_identical": same, "launches": launches})
+    r0, r1 = rows["plain_table"], rows["compact_table"]
+    if not (same and r0["num_pairs"] == r1["num_pairs"]
+            and r0["overflow"] == r1["overflow"] == 0 and r0["finite"]):
+        raise AssertionError("the PS1 frame failed a check")
+    for tag, need in (("plain_table", ("build_table_ps1", "expand_ps1",
+                                       "blend_forward_q")),
+                      ("compact_table", ("build_table_ps1", "expand_ps1",
+                                         "blend_forward_q",
+                                         "compact_table"))):
+        for k in need:
+            if launches[tag][k] <= 0:
+                raise AssertionError(f"{k} never launched on the PS1 frame "
+                                     f"({tag})")
+    return launches
+
+
+def ps1_vs_cpu_and_f32():
+    """The PS1 frame on the card against the CPU plain path (within
+    FRAME_ATOL), and against the port's own f32 train-route rasterize of
+    the same model (above 40 dB), on the 20k proxy at 320x224."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    cfg = RasterizeConfig(pair_capacity=1 << 20, sort_exact_depth=True)
+    outs = []
+    for d in ("cuda", "cpu"):
+        model, cam = ps1_inputs(20_000, 320, 224, 1, d)
+        o = rast.rasterize_ps1_soa(model, cam, bg_color=[0.1, 0.2, 0.3],
+                                   config=cfg)
+        outs.append((o["render"].cpu(), int(o["num_pairs"])))
+    err = float((outs[0][0] - outs[1][0]).abs().max())
+    sc = proxy.bicycle_proxy(n=20_000, seed=1)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32),    # noqa: E731
+                                  device="cuda")
+    with torch.no_grad():
+        f32 = rast.rasterize(
+            t(sc["means"]), t(sc["scales"]), t(sc["rotations"]),
+            t(sc["opacity"]), proxy.proxy_camera(320, 224, device="cuda"),
+            shs=torch.cat([t(sc["shs_dcs"][:, 0:1]), t(sc["shs_rest"])], 1),
+            bg_color=[0.1, 0.2, 0.3], config=cfg)["render"].cpu()
+    mse = float(((outs[0][0] - f32).double() ** 2).mean())
+    psnr = -10.0 * math.log10(max(mse, 1e-30))
+    emit({"phase": "ps1_vs_cpu", "shape": "N=20000, 320x224",
+          "num_pairs": [outs[0][1], outs[1][1]], "max_abs_err": err,
+          "tol": FRAME_ATOL, "psnr_vs_f32_route_db": psnr,
+          "max_abs_err_vs_f32_route": float((outs[0][0] - f32).abs().max())})
+    if outs[0][1] != outs[1][1] or not err <= FRAME_ATOL or not psnr > 40.0:
+        raise AssertionError("card PS1 frame differs from the CPU frame or "
+                             "from the f32 route")
+
+
+def gaze_rows(render, cam, extra=None):
+    """One more frame per gaze: its num_pairs, candidates and overflow
+    (and `extra` per pass), checking a finite image of the full shape."""
+    import torch
+    from fovsplat_torch.eval import fps
+    rows = []
+    for gz in fps.GAZES:
+        out = render(cam, torch.tensor(gz, dtype=torch.float32,
+                                       device=cam.device))
+        img = out["render"]
+        row = {"gaze": gz, "num_pairs": int(out["num_pairs"]),
+               "overflow": int(out["overflow"])}
+        if extra:
+            row.update(extra(out))
+        rows.append(row)
+        if row["overflow"] != 0:
+            raise AssertionError(f"overflow at gaze {gz}: {row}")
+        if tuple(img.shape) != (cam.height, cam.width, 3) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"bad image at gaze {gz}")
+    return rows
+
+
+def run_smfr(cam, kernels):
+    """The SM-FR (naive) frame over the 9 gazes at full width on the
+    "ours" frame's proxy and capacities, packed with shared colours; at
+    the centre gaze the shared and broadcast packings must render
+    bit-identical images."""
+    import numpy as np
+    import torch
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
+    arrays = (sc["means"], sc["scales"], sc["rotations"])
+    shared = convert.fov_model_from_numpy(
+        *arrays, sc["opacities4"], sc["shs_dcs"], sc["shs_rest"],
+        sc["highest_levels"], device=cam.device, shared_colors=True)
+    cfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
+                          compact_capacity=COMPACT_CAPACITY)
+    render = fps.make_fov_render(shared, cfg, alpha=ALPHA, mode="naive")
+    for kf in kernels.values():
+        kf.launches = 0
+    res = fps.fps_benchmark(render, [cam], warmups=3, reps=20,
+                            log=lambda *_: None)
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    rows = gaze_rows(render, cam, lambda o: {
+        "candidates": int(o["candidates"])})
+    for r, ms in zip(rows, res["per_gaze_ms"]):
+        r["ms"] = ms
+    n = N_FULL
+    bcast = convert.fov_model_from_numpy(
+        *arrays, np.broadcast_to(sc["opacities4"][:, :1], (n, 4)),
+        np.broadcast_to(sc["shs_dcs"][:, :1], (n, 4, 3)), sc["shs_rest"],
+        sc["highest_levels"], device=cam.device)
+    gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device)
+    imgs = [fov.rasterize_fov_soa(m, cam, gaze, ALPHA, config=cfg)["render"]
+            for m in (shared, bcast)]
+    same = bool(torch.equal(*imgs))
+    emit({"phase": "smfr_frame", "n": N_FULL, "width": W_FULL,
+          "height": H_FULL, "alpha": ALPHA, "warmups": 3, "reps": 20,
+          "per_gaze": rows, "avg_ms": res["avg_ms"],
+          "avg_fps": res["avg_fps"], "shared_vs_broadcast_bit_identical":
+          same, "launches": launches})
+    if not same:
+        raise AssertionError("SM-FR shared and broadcast packings differ")
+    for k in ("build_table", "expand_fov", "blend_fov"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched on the SM-FR frame")
+
+
+def run_mmfr(cam, kernels):
+    """The MM-FR baseline over the 9 gazes at full width: the four level
+    models of bench.py:255-268, per-level capacities sized as
+    bench.py:299-331 does (the largest kept and candidate counts over the
+    9 gazes at probe capacities, rounded up), overflow 0 on every pass."""
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    import torch
+    sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
+    models = convert.mmfr_models_from_numpy(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+        sc["shs_dcs"], sc["highest_levels"], device=cam.device)
+    probe = RasterizeConfig(pair_capacity=CHAIN_PAIR_CAPACITY,
+                            compact_capacity=CHAIN_COMPACT_CAPACITY)
+    need = [[0, 0] for _ in models]
+    probe_render = fps.make_mmfr_render(models, probe, alpha=ALPHA)
+    for gz in fps.GAZES:
+        out = probe_render(cam, torch.tensor(gz, dtype=torch.float32,
+                                             device=cam.device))
+        for li, d in enumerate(out["passes"]):
+            if int(d["overflow"]) != 0:
+                raise AssertionError(f"MM-FR probe overflow {gz} {li}")
+            need[li][0] = max(need[li][0], int(d["candidates"]))
+            need[li][1] = max(need[li][1], int(d["num_pairs"]))
+
+    def up(v, gran):
+        return (max(v, 1) + gran - 1) // gran * gran
+    caps = [(min(up(c, 786_432), CHAIN_PAIR_CAPACITY),
+             min(up(k, 524_288), CHAIN_COMPACT_CAPACITY)) for c, k in need]
+    cfgs = [RasterizeConfig(pair_capacity=c, compact_capacity=k)
+            for c, k in caps]
+    render = fps.make_mmfr_render(models, cfgs, alpha=ALPHA)
+    for kf in kernels.values():
+        kf.launches = 0
+    res = fps.fps_benchmark(render, [cam], warmups=3, reps=20,
+                            log=lambda *_: None)
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    rows = gaze_rows(render, cam, lambda o: {
+        "pass_num_pairs": [int(d["num_pairs"]) for d in o["passes"]],
+        "pass_overflow": [int(d["overflow"]) for d in o["passes"]]})
+    for r, ms in zip(rows, res["per_gaze_ms"]):
+        r["ms"] = ms
+        if any(r["pass_overflow"]):
+            raise AssertionError(f"MM-FR pass overflow: {r}")
+    emit({"phase": "mmfr_frame", "n": N_FULL, "width": W_FULL,
+          "height": H_FULL, "alpha": ALPHA, "warmups": 3, "reps": 20,
+          "level_points": [int((m["opacity"] > 0).sum()) for m in models],
+          "probe_need_candidates_kept": need, "level_caps": caps,
+          "per_gaze": rows, "avg_ms": res["avg_ms"],
+          "avg_fps": res["avg_fps"], "launches": launches})
+    for k in ("expand_ps1", "blend_forward_q"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched on the MM-FR frame")
+    gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device)
+    emit({"phase": "profile", "path": "MM-FR frame, centre gaze",
+          **profile_window(lambda: render(cam, gaze), 3)})
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -930,7 +1329,9 @@ def main():
     from fovsplat_torch.ops.kernels import blend_fov as bf
     from fovsplat_torch.ops.kernels import blend_fwd as bfw
     from fovsplat_torch.ops.kernels import blend_stats as bs
+    from fovsplat_torch.ops import rasterize as rast
     from fovsplat_torch.ops.kernels import build_table as bt
+    from fovsplat_torch.ops.kernels import compact_table as ct
     from fovsplat_torch.ops.kernels import expand_fov as ef
     from fovsplat_torch.ops.kernels import expand_ps1 as ep1
     from fovsplat_torch.ops.kernels import segment_reduce as sr
@@ -1034,6 +1435,28 @@ def main():
     if outs[0][1] != outs[1][1] or not frame_err <= FRAME_ATOL:
         raise AssertionError("card frame differs from the CPU frame")
 
+    # --- the inference frames: PS1, SM-FR, MM-FR ---
+    all_kernels.update({"build_table_ps1": bt.build_table_ps1,
+                        "blend_forward_q": bfw.blend_forward_q,
+                        "compact_table": ct.compact_table})
+    ps1_model, ps1_cam = check_inference_kernels(
+        dev, bt.build_table(model, cam, full[3])[0], results)
+    pl = run_ps1_frame(ps1_model, ps1_cam, all_kernels)
+    for row, k in (("build_table_ps1", "build_table_ps1"),
+                   ("expand_ps1_q", "expand_ps1"),
+                   ("blend_forward_q", "blend_forward_q")):
+        launches[row] = pl["plain_table"][k] + pl["compact_table"][k]
+    launches["compact_table"] = pl["compact_table"]["compact_table"]
+    emit({"phase": "profile", "path": "PS1 frame",
+          **profile_window(lambda: rast.rasterize_ps1_soa(
+              ps1_model, ps1_cam, config=RasterizeConfig(
+                  pair_capacity=TRAIN_PAIR_CAPACITY,
+                  compact_capacity=TRAIN_COMPACT_CAPACITY)), 10)})
+    ps1_vs_cpu_and_f32()
+    run_smfr(cam, all_kernels)
+    run_mmfr(cam, all_kernels)
+    del ps1_model
+
     # --- the train path: the photometric step at full width ---
     tcfg = train_config()
     steps, step_ms, wall_ms, tl, peak = run_train_path(st, tcam, gt, tcfg,
@@ -1088,7 +1511,15 @@ def main():
                "fovsplat_torch/csrc/segment_reduce.cu",
                "fovsplat/ops/pallas/segment_reduce.py:175"),
            "blend_stats": ("fovsplat_torch/csrc/blend_stats.cu",
-                           "fovsplat/ops/pallas/blend_stats.py:234")}
+                           "fovsplat/ops/pallas/blend_stats.py:234"),
+           "build_table_ps1": ("fovsplat_torch/csrc/build_table.cu",
+                               "fovsplat/ops/pallas/build_table.py:418"),
+           "expand_ps1_q": ("fovsplat_torch/csrc/expand_ps1.cu",
+                            "fovsplat/ops/pallas/expand_fov.py:819"),
+           "blend_forward_q": ("fovsplat_torch/csrc/blend_fwd.cu",
+                               "fovsplat/ops/pallas/blend_fwd.py:508"),
+           "compact_table": ("fovsplat_torch/csrc/compact_table.cu",
+                             "fovsplat/ops/pallas/compact_table.py:218")}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]

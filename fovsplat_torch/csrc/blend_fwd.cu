@@ -17,6 +17,20 @@
 // pair and pixel walked); the pair list is read once per tile, one
 // coalesced read per staged pair instead of 256.
 //
+// Forward-only inference variant (kernel 5q), replaces the same _forward
+// as blend_pallas_fwd_only runs it (blend_fwd.py:947-956, mxu_power=True,
+// :349-377). The same block and walk over the quantized rows [mx, my,
+// P_caca, P_cbcc, OPRGB] of expand_ps1.cu's inference mode, with tile t's
+// pairs [seg_start[t], seg_end[t]) (MM-FR empties segments). Each pair is
+// decoded once, while it is staged: ca = hi + lo of P_caca, cb and cc the
+// halves of P_cbcc, opacity u8 / 255, colour u8 * 2 / 255, and the mean
+// moved to tile-local coordinates. The power is then computed directly in
+// f32 from the local offsets; the JAX kernel's bf16x2 bilinear MXU form
+// (blend_fwd.py:182-212, ~2e-4 absolute) is a device of the TPU's matrix
+// unit. Its geometry test is kept: power_cutoff <= power <= 3e-3 (the
+// decoded bf16 conic need not be positive definite), G = exp(min(power,
+// 0)). Bound as the train forward: operations, plus 20 B per pair read.
+//
 // Backward, replaces fovsplat/ops/pallas/blend_fwd.py:833 _backward. One
 // block per tile walks back to front from the tile's deepest contributing
 // pair (max n_contrib) and recovers T by division by (1 - alpha), clamped
@@ -56,6 +70,16 @@ enum Attr { A_MX = 0, A_MY, A_CA, A_CB, A_CC, A_OP, A_R, A_G, A_B };
 // Fin rows of the backward: cotangents of r, g, b and T, and the final T.
 enum Fin { F_GR = 0, F_GG, F_GB, F_GT, F_TF, NFIN };
 constexpr int BWD_BATCH = 32;   // pairs staged per backward step
+// Quantized rows (ops/kernels/expand_ps1.py Q_ROWS) and their decoding.
+enum QRow { Q_MX = 0, Q_MY, Q_CACA, Q_CBCC, Q_OPRGB };
+constexpr float C_OP = 1.0f / 255.0f;
+constexpr float C_COL = 2.0f / 255.0f;
+constexpr float POWER_MAX_Q = 3e-3f;
+
+__device__ inline float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+__device__ inline float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
 
 template <int W>
 __device__ inline float pair_power(float (*sm)[W], int j, float px, float py,
@@ -66,17 +90,29 @@ __device__ inline float pair_power(float (*sm)[W], int j, float px, float py,
          sm[A_CB][j] * *dx * *dy;
 }
 
+// Q = false: the train forward over f32 rows, tile t's pairs
+// [seg_start[t], seg_start[t + 1]). Q = true: kernel 5q over the quantized
+// rows, tile t's pairs [seg_start[t], seg_end[t]), in tile-local
+// coordinates.
+template <bool Q>
 __global__ void __launch_bounds__(PIX)
 blend_fwd_kernel(const float* __restrict__ pairs, int cap,
-                 const int* __restrict__ seg_start, int grid_x,
+                 const int* __restrict__ seg_start,
+                 const int* __restrict__ seg_end, int grid_x,
                  float power_cutoff, float* __restrict__ out,
                  int* __restrict__ n_contrib) {
   __shared__ float sm[NROWS][PIX];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const float px = static_cast<float>((t % grid_x) * TILE + p % TILE);
-  const float py = static_cast<float>((t / grid_x) * TILE + p / TILE);
-  const int start = seg_start[t], end = seg_start[t + 1];
+  const float tx0 = static_cast<float>((t % grid_x) * TILE);
+  const float ty0 = static_cast<float>((t / grid_x) * TILE);
+  const float px = Q ? static_cast<float>(p % TILE)
+                     : static_cast<float>((t % grid_x) * TILE + p % TILE);
+  const float py = Q ? static_cast<float>(p / TILE)
+                     : static_cast<float>((t / grid_x) * TILE + p / TILE);
+  const int start = seg_start[t];
+  const int end = Q ? seg_end[t] : seg_start[t + 1];
+  constexpr float power_max = Q ? POWER_MAX_Q : 0.0f;
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
   int nc = 0;
   bool done = false;
@@ -85,17 +121,34 @@ blend_fwd_kernel(const float* __restrict__ pairs, int cap,
     if (__syncthreads_count(!done) == 0) break;
     const int i = base + p;
     if (i < end) {
+      if (Q) {
+        const unsigned* u = reinterpret_cast<const unsigned*>(pairs);
+        const unsigned caca = u[static_cast<size_t>(Q_CACA) * cap + i];
+        const unsigned cbcc = u[static_cast<size_t>(Q_CBCC) * cap + i];
+        const unsigned q = u[static_cast<size_t>(Q_OPRGB) * cap + i];
+        sm[A_MX][p] = pairs[static_cast<size_t>(Q_MX) * cap + i] - tx0;
+        sm[A_MY][p] = pairs[static_cast<size_t>(Q_MY) * cap + i] - ty0;
+        sm[A_CA][p] = bf16_hi(caca) + bf16_lo(caca);
+        sm[A_CB][p] = bf16_hi(cbcc);
+        sm[A_CC][p] = bf16_lo(cbcc);
+        sm[A_OP][p] = static_cast<float>(q >> 24) * C_OP;
+        sm[A_R][p] = static_cast<float>((q >> 16) & 255u) * C_COL;
+        sm[A_G][p] = static_cast<float>((q >> 8) & 255u) * C_COL;
+        sm[A_B][p] = static_cast<float>(q & 255u) * C_COL;
+      } else {
 #pragma unroll
-      for (int a = 0; a < NROWS; ++a)
-        sm[a][p] = pairs[static_cast<size_t>(a) * cap + i];
+        for (int a = 0; a < NROWS; ++a)
+          sm[a][p] = pairs[static_cast<size_t>(a) * cap + i];
+      }
     }
     __syncthreads();
     const int m = min(PIX, end - base);
     for (int j = 0; j < m && !done; ++j) {
       float dx, dy;
       const float power = pair_power(sm, j, px, py, &dx, &dy);
-      if (!(power <= 0.0f && power >= power_cutoff)) continue;  // NaN too
-      const float a = fminf(ALPHA_MAX, sm[A_OP][j] * expf(power));
+      if (!(power <= power_max && power >= power_cutoff)) continue;  // NaN
+      const float a = fminf(ALPHA_MAX,
+                            sm[A_OP][j] * expf(fminf(power, 0.0f)));
       if (!(a >= ALPHA_MIN)) continue;
       const float test = T * (1.0f - a);
       if (test < T_EPS) {
@@ -240,8 +293,21 @@ __global__ void zero_tail_kernel(float* __restrict__ grads, int cap,
 FS_EXPORT int fs_blend_fwd(const float* pairs, int cap, const int* seg_start,
                            int num_tiles, int grid_x, float power_cutoff,
                            float* out, int* n_contrib, void* stream) {
-  blend_fwd_kernel<<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      pairs, cap, seg_start, grid_x, power_cutoff, out, n_contrib);
+  blend_fwd_kernel<false>
+      <<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
+          pairs, cap, seg_start, nullptr, grid_x, power_cutoff, out,
+          n_contrib);
+  return cudaGetLastError();
+}
+
+FS_EXPORT int fs_blend_fwd_q(const float* pairs, int cap,
+                             const int* seg_start, const int* seg_end,
+                             int num_tiles, int grid_x, float power_cutoff,
+                             float* out, int* n_contrib, void* stream) {
+  blend_fwd_kernel<true>
+      <<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
+          pairs, cap, seg_start, seg_end, grid_x, power_cutoff, out,
+          n_contrib);
   return cudaGetLastError();
 }
 

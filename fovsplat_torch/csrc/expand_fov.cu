@@ -15,6 +15,12 @@
 // Kept pairs at or past `cap_out` and candidates at or past `pair_cap`
 // are dropped; the wrapper counts both into `overflow`.
 //
+// The table holds L_lay colour levels: chain 1 reads level min(p1, L_lay
+// - 1) and chain 2 level min(p1 + 1, L_lay - 1), p1 the tile's integer
+// level. L_lay = 1 is the SM-FR shared layout (foveated.py:755-760): one
+// colour and opacity per Gaussian, while the cull still runs at every
+// level.
+//
 // Bound: bytes (a few dozen FLOP per candidate). Pass 1 reads 12 table
 // rows per Gaussian and the 16 KB level table (L1-resident); pass 2
 // re-reads them plus the 4L level rows and writes 64 B per kept pair.
@@ -115,7 +121,8 @@ count_kernel(const float* __restrict__ table, const int* __restrict__ cum,
 __global__ void __launch_bounds__(fs::SCAN_BLOCK)
 write_kernel(const float* __restrict__ table, const int* __restrict__ cum,
              const float* __restrict__ levels, const int* __restrict__ offsets,
-             int n, int L, int grid_x, int pair_cap, int cap_out, int use_obb,
+             int n, int L_lay, int grid_x, int pair_cap, int cap_out,
+             int use_obb,
              int* __restrict__ tile_out, float* __restrict__ depth_out,
              int* __restrict__ gid_out, float* __restrict__ attrs) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -131,8 +138,8 @@ write_kernel(const float* __restrict__ table, const int* __restrict__ cum,
   for (int j = 0; j < m && o < cap_out; ++j) {
     const int ty = q.ry0 + j / q.rw, tx = q.rx0 + j % q.rw;
     if (!keep_pair(q, tx, ty, levels, grid_x, use_obb, &lv)) continue;
-    const int p1 = static_cast<int>(lv);
-    const int p2 = min(p1 + 1, L - 1);
+    const int p1 = min(static_cast<int>(lv), L_lay - 1);
+    const int p2 = min(static_cast<int>(lv) + 1, L_lay - 1);
     auto put = [&](int a, float v) {
       attrs[static_cast<size_t>(a) * cap_out + o] = v;
     };
@@ -148,12 +155,12 @@ write_kernel(const float* __restrict__ table, const int* __restrict__ cum,
     // The L2 cull folds into the sign of op2: the blend's alpha >= 1/255
     // test then rejects the pair in the second chain.
     put(A_OP2, (q.hl + 1.0f) < (lv + 1.0f) ? -1.0f : row(R_LEVEL + p2));
-    put(A_R1, row(R_LEVEL + L + p1));
-    put(A_G1, row(R_LEVEL + 2 * L + p1));
-    put(A_B1, row(R_LEVEL + 3 * L + p1));
-    put(A_R2, row(R_LEVEL + L + p2));
-    put(A_G2, row(R_LEVEL + 2 * L + p2));
-    put(A_B2, row(R_LEVEL + 3 * L + p2));
+    put(A_R1, row(R_LEVEL + L_lay + p1));
+    put(A_G1, row(R_LEVEL + 2 * L_lay + p1));
+    put(A_B1, row(R_LEVEL + 3 * L_lay + p1));
+    put(A_R2, row(R_LEVEL + L_lay + p2));
+    put(A_G2, row(R_LEVEL + 2 * L_lay + p2));
+    put(A_B2, row(R_LEVEL + 3 * L_lay + p2));
     ++o;
   }
 }
@@ -161,7 +168,8 @@ write_kernel(const float* __restrict__ table, const int* __restrict__ cum,
 }  // namespace
 
 FS_EXPORT int fs_expand_fov(const float* table, const int* cum,
-                            const float* levels, int n, int L, int grid_x,
+                            const float* levels, int n, int L_lay,
+                            int grid_x,
                             int pair_cap, int cap_out, int use_obb,
                             int* counts, int* offsets, int* block_sums,
                             int* kept, int* tile_out, float* depth_out,
@@ -181,7 +189,8 @@ FS_EXPORT int fs_expand_fov(const float* table, const int* cum,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   write_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(
-      table, cum, levels, offsets, n, L, grid_x, pair_cap, cap_out, use_obb,
+      table, cum, levels, offsets, n, L_lay, grid_x, pair_cap, cap_out,
+      use_obb,
       tile_out, depth_out, gid_out, attrs);
   return cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Foveated FPS benchmark, "ours" mode (fovsplat/eval/fps.py).
+"""Foveated FPS benchmark (fovsplat/eval/fps.py): the "ours" and SM-FR
+("naive") frames of a composed model and the MM-FR baseline.
 
 The reference's compose_gazes harness shape: a 3x3 grid of gazes
 (0.2 / 0.5 / 0.8 on each axis), warm-ups, then timed repetitions of the
@@ -12,23 +13,79 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fovsplat_torch.eval import mmfr as emm
 from fovsplat_torch.ops import foveated as fov
+from fovsplat_torch.ops import sh as sh_mod
 from fovsplat_torch.ops.foveation import FoveationConfig
 
 GAZES = [(x, y) for y in (0.2, 0.5, 0.8) for x in (0.2, 0.5, 0.8)]
+MODES = ("ours", "naive")
 
 
-def make_fov_render(model: fov.FovModelSoA, config, fov_cfg=None,
-                    alpha: float = 0.05, blending: bool = True):
-    """render(camera, gaze (2,) f32 tensor) -> the rasterize_fov_soa dict
-    for a packed "ours" model (fold a live mask in as hl = -1)."""
+def make_fov_render(model, config, fov_cfg=None, alpha: float = 0.05,
+                    blending: bool = True, mode: str = "ours"):
+    """render(camera, gaze (2,) f32 tensor) -> the rasterize_fov_soa dict.
+
+    model: a train/compose.ComposedModel, packed here for `mode` ("ours":
+    per-level DC and opacity; "naive", SM-FR: one shared colour and
+    opacity, the levels only gate participation, fps.py:62-76), its live
+    mask folded in as hl = -1; or a FovModelSoA packed already, whose
+    colour layout must match `mode`."""
+    from fovsplat_torch.train import compose
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     fov_cfg = fov_cfg or FoveationConfig()
+    if isinstance(model, compose.ComposedModel):
+        model = compose.pack_composed(model, shared_colors=mode == "naive")
+    elif (model.dc_t.shape[1] == 1) != (mode == "naive"):
+        raise ValueError(f"a model with {model.dc_t.shape[1]} colour levels "
+                         f"is not a {mode!r} model")
 
     def render(camera, gaze):
         return fov.rasterize_fov_soa(model, camera, gaze=gaze, alpha=alpha,
                                      blending=blending, config=config,
                                      fov_cfg=fov_cfg)
     return render
+
+
+def make_mmfr_render(models, config, fov_cfg=None, alpha: float = 0.05):
+    """render(camera, gaze) -> {"render", "overflow", "num_pairs",
+    "passes"} for the MM-FR baseline (fps.py:96): four single-level
+    models, one pass per level restricted to that level's tiles
+    (eval/mmfr.render_mmfr). config: one RasterizeConfig or one per level.
+    overflow and num_pairs sum the passes; "passes" lists each pass's
+    diagnostics."""
+    fov_cfg = fov_cfg or FoveationConfig()
+
+    def render(camera, gaze):
+        img, diags = emm.render_mmfr(models, camera, gaze, alpha, config,
+                                     fov_cfg=fov_cfg, return_diag=True)
+        return {"render": img,
+                "overflow": sum(d["overflow"] for d in diags),
+                "num_pairs": sum(d["num_pairs"] for d in diags),
+                "passes": diags}
+    return render
+
+
+def mmfr_models_from_composed(composed):
+    """Four single-level model dicts from a composed "ours" model
+    (fps.py:117): level li keeps the live Gaussians with highest_level >=
+    li, with their level-li opacity and the DC-only colour max(SH_C0 dc +
+    0.5, 0); the rest get opacity 0."""
+    p = composed.params
+    L = composed.opacities.shape[1]
+    models = []
+    for li in range(L):
+        keep = composed.live & (composed.highest_levels >= li)
+        models.append({
+            "xyz": p.xyz.detach(), "scaling": p.get_scaling().detach(),
+            "rotation": p.get_rotation().detach(),
+            "opacity": torch.where(keep, composed.opacities[:, li],
+                                   torch.zeros_like(composed.opacities[:,
+                                                                       li])),
+            "colors": torch.clamp(sh_mod.SH_C0 * composed.shs_dcs[:, li, :]
+                                  + 0.5, min=0.0)})
+    return models
 
 
 def fps_benchmark(render_fn, cameras, gazes=GAZES, warmups: int = 3,

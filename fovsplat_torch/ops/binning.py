@@ -1,13 +1,17 @@
-"""Tile binning of the single-level train route (counterpart of
-fovsplat/ops/binning.py: obb_pass and the train=True route of
-bin_fused_ps1 / _ps1_expand_sort).
+"""Tile binning of the single-level routes (counterpart of
+fovsplat/ops/binning.py: obb_pass, bin_fused_ps1 / _ps1_expand_sort and
+compact_prebuilt).
 
 bin_fused_ps1 is the torch glue around kernel 4 (ops/kernels/expand_ps1):
-valid-masked per-Gaussian columns and their exclusive cumsum, the
-expansion kernel, then the exact two-key tile sort (the fused i32 key,
-then the full depth bits) and the segment bounds. The JAX route's bf16
-split-row table, dummy pair per invalid row and window slack are devices
-of the TPU kernel; the port's table is f32 and has no dummy candidates.
+valid-masked per-Gaussian columns and their exclusive cumsum (or a
+prebuilt table from kernel 1's ps1 mode, optionally compacted by kernel
+9), the expansion kernel, then the tile sort and the segment bounds. The
+train route writes exact f32 rows and sorts on two keys (the fused i32
+key, then the full depth bits); the inference route writes the quantized
+rows and sorts on the fused key alone unless `sort_exact`. The JAX
+route's bf16 split-row table, dummy pair per invalid row and window
+slack are devices of the TPU kernel; the port's table is f32 and has no
+dummy candidates.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import dataclasses
 import torch
 
 from fovsplat_torch.ops.foveated import fused_key32, sort_pairs
+from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+from fovsplat_torch.ops.kernels.compact_table import compact_table
 from fovsplat_torch.ops.kernels.expand_ps1 import expand_ps1, ps1_table
 from fovsplat_torch.ops.projection import TILE
 
@@ -29,8 +35,10 @@ class Binned:
     overflow: torch.Tensor    # () i32 candidates past the pair capacity
                               # plus kept pairs past the kept capacity
     candidates: torch.Tensor  # () i32 candidate pairs (no dummy pairs)
-    pair_gauss: torch.Tensor  # (CAP,) i32 Gaussian of each sorted pair;
-                              # lanes at or past num_pairs are unspecified
+    pair_gauss: torch.Tensor | None  # (CAP,) i32 Gaussian of each sorted
+                              # pair (train route; None on the inference
+                              # route); lanes at or past num_pairs are
+                              # unspecified
 
 
 def obb_pass(tile_x, tile_y, center, eigen_vec, eigen_len):
@@ -63,26 +71,48 @@ def obb_pass(tile_x, tile_y, center, eigen_vec, eigen_len):
 
 def bin_fused_ps1(cols, valid, depth, grid_x: int, grid_y: int,
                   pair_capacity: int, compact_capacity: int | None = None,
-                  use_obb: bool = True):
-    """Pair expansion (kernel 4) and the exact tile sort of the train
-    route. cols: the 19 (N,) f32 columns [rx0, ry0, rw, tnum, mx, my, v1x,
-    v1y, v2x, v2y, len1, len2, ca, cb, cc, op, r, g, b].
+                  use_obb: bool = True, train: bool = True,
+                  sort_exact: bool = False, prebuilt=None):
+    """Pair expansion (kernel 4) and the tile sort. cols: the 19 (N,) f32
+    columns [rx0, ry0, rw, tnum, mx, my, v1x, v1y, v2x, v2y, len1, len2,
+    ca, cb, cc, op, r, g, b]; or prebuilt = (table, cum, total) from
+    kernel 1's ps1 mode (or compact_prebuilt), when cols, valid and depth
+    are ignored.
 
-    Returns (pairs (10, CAP) f32 sorted rows [mx, my, ca, cb, cc, op, r,
-    g, b, gid], Binned). CAP = compact_capacity (None: pair_capacity).
-    overflow counts candidates past pair_capacity and kept pairs past
-    CAP, never silently; the candidate count has no dummy pairs, so it is
-    smaller than the JAX route's by the number of invalid rows."""
+    train: returns (pairs (10, CAP) f32 sorted rows [mx, my, ca, cb, cc,
+    op, r, g, b, gid], Binned), sorted on the exact two keys. Else the
+    inference route: (pairs (5, CAP) sorted bit containers [mx, my,
+    P_caca, P_cbcc, OPRGB], Binned with pair_gauss None), sorted on the
+    fused key, or on both keys with `sort_exact`. CAP = compact_capacity
+    (None: pair_capacity). overflow counts candidates past pair_capacity
+    and kept pairs past CAP, never silently; the candidate count has no
+    dummy pairs, so it is smaller than the JAX route's by the number of
+    invalid rows."""
     num_tiles = grid_x * grid_y
     cap_out = pair_capacity if compact_capacity is None else compact_capacity
-    table, cum, total = ps1_table(cols, valid, depth)
-    ex = expand_ps1(table, cum, grid_x, pair_capacity, cap_out, use_obb)
+    table, cum, total = (ps1_table(cols, valid, depth) if prebuilt is None
+                         else prebuilt)
+    ex = expand_ps1(table, cum, grid_x, pair_capacity, cap_out, use_obb,
+                    quantize=not train)
     candidates, kept = total[0], ex.kept[0]
     overflow = (torch.clamp(candidates - pair_capacity, min=0)
                 + torch.clamp(kept - cap_out, min=0))
     key, dbits = fused_key32(ex.tile, ex.depth,
                              torch.clamp(kept, max=cap_out), num_tiles)
-    pairs, seg_start = sort_pairs(key, dbits, ex.attrs, num_tiles, exact=True)
+    pairs, seg_start = sort_pairs(key, dbits, ex.attrs, num_tiles,
+                                  exact=train or sort_exact)
     return pairs, Binned(seg_start=seg_start, num_pairs=seg_start[-1].clone(),
                          overflow=overflow, candidates=candidates.clone(),
-                         pair_gauss=pairs[9].to(torch.int32))
+                         pair_gauss=(pairs[9].to(torch.int32) if train
+                                     else None))
+
+
+def compact_prebuilt(table):
+    """Kernel 9 on a ps1 table (binning.py:346 compact_prebuilt): the
+    columns with tiles (ROW_TNUM > 0.5; valid implies tnum >= 1) packed to
+    the front, the cumsum rebuilt from the table's tnum row. Returns
+    (table, cum, total, live), the first three the prebuilt contract of
+    bin_fused_ps1."""
+    table, cum, live, total = compact_table(table, ep1.ROW_TNUM, 0.5,
+                                            ep1.ROW_TNUM)
+    return table, cum, total, live

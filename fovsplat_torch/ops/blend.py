@@ -2,10 +2,12 @@
 single-chain blend (fovsplat/ops/blend.py).
 
 blend_forward_plain and blend_backward_plain are the plain PyTorch twins
-of kernels 5 and 6 (csrc/blend_fwd.cu), blend_stats_plain that of kernel
-8 (csrc/blend_stats.cu): the tile-sorted pair list is cut into groups of
-consecutive tiles whose segments, padded to the group's longest, are
-evaluated as (tiles, pairs, pixels) tensors."""
+of kernels 5 and 6 (csrc/blend_fwd.cu), blend_forward_q_plain that of the
+forward-only blend of the quantized inference rows (kernel 5q, the same
+source), blend_stats_plain that of kernel 8 (csrc/blend_stats.cu): the
+tile-sorted pair list is cut into groups of consecutive tiles whose
+segments, padded to the group's longest, are evaluated as (tiles, pairs,
+pixels) tensors."""
 
 from __future__ import annotations
 
@@ -33,14 +35,18 @@ def tiles_to_image(tile_img: torch.Tensor, grid_x: int, grid_y: int,
 _MX, _MY, _CA, _CB, _CC, _OP, _R, _G, _B = range(9)
 
 
-def _tile_groups(seg_start, chunk: int):
+def _tile_groups(seg_start, chunk: int, seg_end=None):
     """Consecutive tiles grouped so that each group's segments, padded to
-    the group's longest, hold at most `chunk` pairs (or one tile). Yields
-    (t0, t1, idx (G, S) lane index, in_seg (G, S) bool)."""
+    the group's longest, hold at most `chunk` pairs (or one tile). Tile t's
+    segment is [seg_start[t], seg_start[t + 1]) or, given seg_end (T,),
+    [seg_start[t], seg_end[t]). Yields (t0, t1, idx (G, S) lane index,
+    in_seg (G, S) bool)."""
     dev = seg_start.device
-    T = seg_start.shape[0] - 1
-    starts = seg_start[:-1].tolist()
-    counts = (seg_start[1:] - seg_start[:-1]).tolist()
+    if seg_end is None:
+        seg_start, seg_end = seg_start[:-1], seg_start[1:]
+    T = seg_start.shape[0]
+    starts = seg_start.tolist()
+    counts = torch.clamp(seg_end - seg_start, min=0).tolist()
     t0 = 0
     while t0 < T:
         t1, smax = t0 + 1, counts[t0]
@@ -58,24 +64,30 @@ def _tile_groups(seg_start, chunk: int):
 
 
 def _pair_pixel(pairs, idx, in_seg, t0: int, t1: int, grid_x: int,
-                power_cutoff: float):
+                power_cutoff: float, power_max: float = 0.0,
+                local: bool = False):
     """Rows, offsets, G, alpha and the static tests for a tile group:
     (a (9, G, S), dx, dy, G, alpha, ok, geo), the last six (G, S, PIX);
-    geo is the power window alone, ok adds alpha >= ALPHA_MIN."""
+    geo is the power window [power_cutoff, power_max] alone, ok adds
+    alpha >= ALPHA_MIN. `local` takes the offsets in tile-local
+    coordinates: (mx - tile x0) - pixel x, as kernel 5q does."""
     dev = pairs.device
     pix = torch.arange(PIX, device=dev)
     tiles = torch.arange(t0, t1, device=dev)
-    px = ((tiles % grid_x).float() * TILE)[:, None, None] + (pix % TILE).float()
-    py = ((tiles // grid_x).float() * TILE)[:, None, None] \
-        + torch.floor(pix.float() / TILE)
     a = pairs[:9, idx]
-    dx = a[_MX][..., None] - px
-    dy = a[_MY][..., None] - py
+    tx0 = ((tiles % grid_x).float() * TILE)[:, None, None]
+    ty0 = ((tiles // grid_x).float() * TILE)[:, None, None]
+    lx, ly = (pix % TILE).float(), torch.floor(pix.float() / TILE)
+    mx, my = a[_MX][..., None], a[_MY][..., None]
+    if local:
+        dx, dy = (mx - tx0) - lx, (my - ty0) - ly
+    else:
+        dx, dy = mx - (tx0 + lx), my - (ty0 + ly)
     power = (-0.5 * (a[_CA][..., None] * dx * dx + a[_CC][..., None] * dy * dy)
              - a[_CB][..., None] * dx * dy)
     G = torch.exp(torch.clamp(power, max=0.0))
     alpha = torch.clamp(a[_OP][..., None] * G, max=ALPHA_MAX)
-    geo = (power <= 0.0) & (power >= power_cutoff) & in_seg[..., None]
+    geo = (power <= power_max) & (power >= power_cutoff) & in_seg[..., None]
     return a, dx, dy, G, alpha, geo & (alpha >= ALPHA_MIN), geo
 
 
@@ -91,15 +103,68 @@ def blend_forward_plain(pairs, seg_start, grid_x: int,
     (colour (T, PIX, 3), final T (T, PIX), n_contrib (T, PIX) i32) and,
     with return_walked, the (T, PIX) count of pairs each pixel walks
     before it freezes (the data-dependent work of the kernel)."""
+    return _blend_forward(pairs, seg_start, None, grid_x, power_cutoff,
+                          chunk, return_walked)
+
+
+C_OP = 1.0 / 255.0     # u8 opacity step (blend_fwd.py:70)
+C_COL = 2.0 / 255.0    # u8 colour step on [0, 2]
+POWER_MAX_Q = 3e-3     # kernel 5q's upper power bound (blend_fwd.py:377)
+
+
+def decode_q_rows(pairs):
+    """The quantized inference rows [mx, my, P_caca, P_cbcc, OPRGB]
+    (ops/kernels/expand_ps1.Q_ROWS) decoded as blend_fwd.py:353-377 does:
+    (9, CAP) f32 [mx, my, ca, cb, cc, op, r, g, b] with ca = hi + lo of
+    P_caca, cb and cc the halves of P_cbcc, opacity u8 / 255 and colours
+    u8 * 2 / 255."""
+    bits = pairs[2:5].contiguous().view(torch.int32)
+
+    def hi(b):
+        return (b & -65536).view(torch.float32)
+
+    def lo(b):
+        return (b << 16).view(torch.float32)
+
+    def u8(sh):
+        return ((bits[2] >> sh) & 255).float()
+    return torch.stack([pairs[0], pairs[1], hi(bits[0]) + lo(bits[0]),
+                        hi(bits[1]), lo(bits[1]), u8(24) * C_OP,
+                        u8(16) * C_COL, u8(8) * C_COL, u8(0) * C_COL])
+
+
+def blend_forward_q_plain(pairs, seg_start, seg_end, grid_x: int,
+                          power_cutoff: float = -4.5, chunk: int = 1 << 16,
+                          return_walked: bool = False):
+    """Plain forward-only blend of the quantized inference rows, the
+    function of kernel 5q (fovsplat/ops/pallas/blend_fwd.py:947
+    blend_pallas_fwd_only, _forward with mxu_power=True).
+
+    pairs (>= 5, CAP) f32 bit containers (decode_q_rows); seg_start and
+    seg_end (T,) i32, tile t's pairs [seg_start[t], seg_end[t]) (MM-FR
+    empties segments). The power is evaluated in tile-local coordinates
+    and the window is power_cutoff <= power <= 3e-3, as the JAX kernel's
+    (blend_fwd.py:377): the decoded bf16 conic need not be positive
+    definite. Returns (colour (T, PIX, 3), final T (T, PIX), n_contrib
+    (T, PIX) i32) and, with return_walked, the walked counts."""
+    return _blend_forward(decode_q_rows(pairs), seg_start, seg_end, grid_x,
+                          power_cutoff, chunk, return_walked,
+                          power_max=POWER_MAX_Q, local=True)
+
+
+def _blend_forward(pairs, seg_start, seg_end, grid_x: int,
+                   power_cutoff: float, chunk: int, return_walked: bool,
+                   power_max: float = 0.0, local: bool = False):
     dev = pairs.device
-    T = seg_start.shape[0] - 1
+    T = seg_start.shape[0] - (1 if seg_end is None else 0)
     color = torch.zeros((T, PIX, 3), dtype=torch.float32, device=dev)
     final_T = torch.ones((T, PIX), dtype=torch.float32, device=dev)
     n_contrib = torch.zeros((T, PIX), dtype=torch.int32, device=dev)
     walked = torch.zeros((T, PIX), dtype=torch.int32, device=dev)
-    for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk):
+    for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk, seg_end):
         a, _, _, _, alpha, ok, _ = _pair_pixel(pairs, idx, in_seg, t0, t1,
-                                               grid_x, power_cutoff)
+                                               grid_x, power_cutoff,
+                                               power_max, local)
         a_eff = torch.where(ok, alpha, torch.zeros_like(alpha))
         om = 1.0 - a_eff
         T_incl = torch.cumprod(om, 1)

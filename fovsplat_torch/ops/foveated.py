@@ -11,8 +11,13 @@ rasterize_fov_soa renders one frame in five stages:
   5. kernel 3, the dual-transmittance blend (ops/kernels/blend_fov), then
      the background, the smoothstep merge and tiles_to_image (torch).
 
-On a model on the card the three kernels run; on a CPU model the same
-wrappers take their plain versions.
+With config.compact_table, kernel 9 (ops/kernels/compact_table) packs
+the valid columns of the table before stage 3. A shared-colour model
+(pack_fov_model(shared_colors=True), the SM-FR baseline) has one colour
+and opacity per Gaussian; the cull still runs at every level.
+
+On a model on the card the kernels run; on a CPU model the same wrappers
+take their plain versions.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from fovsplat_torch.ops import foveation, projection, sh
 from fovsplat_torch.ops.blend import PIX, tiles_to_image
 from fovsplat_torch.ops.foveation import FoveationConfig
 from fovsplat_torch.ops.kernels.blend_fov import blend_fov
+from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels.build_table import build_table
+from fovsplat_torch.ops.kernels.compact_table import compact_table
 from fovsplat_torch.ops.kernels.expand_fov import expand_fov
 from fovsplat_torch.ops.projection import TILE
 from fovsplat_torch.ops.rasterize import RasterizeConfig, _grid
@@ -41,17 +48,24 @@ class FovModelSoA:
     scales: torch.Tensor     # (N, 3) activated
     rotations: torch.Tensor  # (N, 4) unit quaternions (w, x, y, z)
     rest_t: torch.Tensor     # (3, K, N) bf16 SH coefficients, zero at k=0
-    dc_t: torch.Tensor       # (3, L, N) bf16 per-level DC
-    opac_t: torch.Tensor     # (L, N) bf16 activated per-level opacity
+    dc_t: torch.Tensor       # (3, L_lay, N) bf16 per-level DC
+    opac_t: torch.Tensor     # (L_lay, N) bf16 activated per-level opacity
+                             # (L_lay = L, or 1 for shared colours)
     hl: torch.Tensor         # (N,) f32 highest level; < 0 marks a dead row
 
 
 def pack_fov_model(means3d, scales, rotations, opacities, shs_dcs, shs_rest,
-                   highest_levels) -> FovModelSoA:
+                   highest_levels, shared_colors: bool = False) -> FovModelSoA:
     """Layout conversion of (N, ...) tensors on one device: opacities
     (N, L), shs_dcs (N, L, 3), shs_rest (N, K-1, 3), highest_levels
-    (N,)."""
+    (N,). shared_colors packs the SM-FR layout (foveated.py:648-670): one
+    DC and opacity per Gaussian (opacities (N,) or (N, L) column 0,
+    shs_dcs level 0), while highest_levels still drive the cull."""
     n = means3d.shape[0]
+    if shared_colors:
+        opacities = (opacities[:, :1] if opacities.dim() == 2
+                     else opacities[:, None])
+        shs_dcs = shs_dcs[:, :1, :]
     bf = torch.bfloat16
     rest_t = torch.cat([
         torch.zeros((3, 1, n), dtype=bf, device=means3d.device),
@@ -92,10 +106,12 @@ def level_bboxes(levels, grid_x: int, grid_y: int, L: int,
 def fov_soa_cols(xyz, scales, rotations, rest_t, dc_t, opac_t, hl, camera,
                  bbox, L: int, sh_degree: int, scale_modifier: float = 1.0):
     """Per-Gaussian preprocess, level-rect clip and per-level colour and
-    opacity columns (fovsplat/ops/foveated.py:705). bbox: (4, L) i32.
+    opacity columns (fovsplat/ops/foveated.py:705). bbox: (4, L) i32 for
+    the L levels of the cull; the colour layout has L_lay =
+    dc_t.shape[1] levels (L, or 1 for the SM-FR shared layout).
     Returns (t1cols, t2cols, valid, depth): t1cols the 16 columns [rx0,
     ry0, rw, tnum, mx, my, v1x, v1y, v2x, v2y, len1, len2, ca, cb, cc,
-    hl] and t2cols the 4L columns [op_0..op_L-1, r_*, g_*, b_*]."""
+    hl] and t2cols the 4 L_lay columns [op_0.., r_*, g_*, b_*]."""
     pc = projection.preprocess_cols(xyz, scales, rotations, camera,
                                     scale_modifier=scale_modifier)
     hli = torch.clamp(hl.to(torch.int32), 0, L - 1).long()
@@ -122,10 +138,11 @@ def fov_soa_cols(xyz, scales, rotations, rest_t, dc_t, opac_t, hl, camera,
               torch.clamp(rx1 - rx0, min=1).float(), tnum.float(),
               pc.mx, pc.my, pc.v1x, pc.v1y, pc.v2x, pc.v2y, pc.len1,
               pc.len2, pc.ca, pc.cb, pc.cc, hl]
-    t2cols = ([opac_t[l].float() for l in range(L)]
+    L_lay = dc_t.shape[1]
+    t2cols = ([opac_t[l].float() for l in range(L_lay)]
               + [torch.clamp(sh.SH_C0 * dc_t[c, l].float() + rest_c[c],
                              min=0.0)
-                 for c in range(3) for l in range(L)])
+                 for c in range(3) for l in range(L_lay)])
     return t1cols, t2cols, valid, pc.depth
 
 
@@ -200,12 +217,13 @@ def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
     Returns a dict: render (H, W, 3), tile_levels (T,), tile_blend (T,),
     num_pairs, overflow and candidates (0-d i32 tensors, on the device,
     not synchronised). overflow counts candidates past pair_capacity plus
-    kept pairs past the compact capacity; candidates has no dummy pairs."""
+    kept pairs past the compact capacity; candidates has no dummy pairs.
+    The model's colour levels are fov_cfg.fov_num or 1 (shared)."""
     dev = model.xyz.device
     gx, gy = _grid(camera)
     num_tiles = gx * gy
     L = fov_cfg.fov_num
-    if model.dc_t.shape[1] != L:
+    if model.dc_t.shape[1] not in (1, L):
         raise ValueError(f"model has {model.dc_t.shape[1]} colour levels, "
                          f"fov_cfg.fov_num is {L}")
     cap_out = config.kept_capacity()
@@ -220,6 +238,9 @@ def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
 
     table, cum, total = build_table(model, camera, bbox, sh_degree,
                                     config.scale_modifier)
+    if config.compact_table:
+        table, cum, _, total = compact_table(table, bt.ROW_VALID, 0.5,
+                                             bt.ROW_TNUM)
     ex = expand_fov(table, cum, levels, L, gx, config.pair_capacity,
                     cap_out, config.use_obb)
     candidates, kept = total[0], ex.kept[0]

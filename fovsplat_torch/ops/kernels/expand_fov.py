@@ -10,6 +10,10 @@ not from the TPU kernel's per-pair trig series. Kept pairs come out in
 the JAX kernel's pre-sort order (Gaussian, then tile row-major), as f32
 rows; the TPU's u8/bf16 inference packing is not carried over.
 
+The table may hold fewer colour levels than the cull has (L_lay = 1, the
+SM-FR shared layout, foveated.py:755-760): chain 1 then reads colour
+level min(p1, L_lay - 1) and chain 2 min(p1 + 1, L_lay - 1).
+
 Capacities: candidates whose index in the cumsum is at or past
 `pair_capacity`, and kept pairs at or past `cap_out`, are dropped; the
 caller counts both into `overflow`. The candidate count has no dummy
@@ -52,6 +56,7 @@ def expand_fov_plain(table, cum, levels, L: int, grid_x: int,
     """The kernel's function in plain PyTorch (vectorised over pairs)."""
     dev = table.device
     n = table.shape[1]
+    L_lay = (table.shape[0] - bt.ROW_LEVEL) // 4
     row = lambda r: table[r]                                # noqa: E731
     tnum = row(bt.ROW_TNUM).long()
     m = torch.clamp(torch.minimum(tnum, pair_capacity - cum.long()), min=0)
@@ -90,9 +95,9 @@ def expand_fov_plain(table, cum, levels, L: int, grid_x: int,
     kept = g.numel()
     k = min(kept, cap_out)
     g, tile, lv, hl = g[:k], tile[:k], lv[:k], hl[:k]
-    p1 = lv.long()
-    p2 = torch.clamp(p1 + 1, max=L - 1)
-    lvl = table[bt.ROW_LEVEL:].reshape(4, L, n)    # op, r, g, b per level
+    p1 = torch.clamp(lv.long(), max=L_lay - 1)
+    p2 = torch.clamp(lv.long() + 1, max=L_lay - 1)
+    lvl = table[bt.ROW_LEVEL:].reshape(4, L_lay, n)  # op, r, g, b by level
     op2 = torch.where((hl + 1.0) < (lv + 1.0), torch.full_like(hl, -1.0),
                       lvl[0, p2, g])
     vals = torch.stack([row(bt.ROW_MX)[g], row(bt.ROW_MY)[g],
@@ -116,8 +121,9 @@ def expand_fov(table, cum, levels, L: int, grid_x: int, pair_capacity: int,
                cap_out: int, use_obb: bool = True) -> Expanded:
     """Kernel 2 on CUDA tensors, its plain version on CPU tensors.
 
-    table (R, N) f32 and cum (N,) i32 from build_table; levels (T,) f32
-    per-tile foveation levels."""
+    table (num_rows(L_lay), N) f32 and cum (N,) i32 from build_table,
+    L_lay in {1, L}; levels (T,) f32 per-tile foveation levels of the L
+    cull levels."""
     if table.device.type == "cpu":
         return expand_fov_plain(table, cum, levels, L, grid_x,
                                 pair_capacity, cap_out, use_obb)
@@ -125,8 +131,9 @@ def expand_fov(table, cum, levels, L: int, grid_x: int, pair_capacity: int,
     if dev.type != "cuda":
         raise ValueError(f"expand_fov: table on {dev}; the kernel needs CUDA")
     n = table.shape[1]
+    L_lay = 1 if table.shape[0] == bt.num_rows(1) else L
     _build.check_tensors("expand_fov", dev, (
-        ("table", table, torch.float32, (bt.num_rows(L), n)),
+        ("table", table, torch.float32, (bt.num_rows(L_lay), n)),
         ("cum", cum, torch.int32, (n,)),
         ("levels", levels, torch.float32, (levels.shape[0],))))
     if cap_out < 1 or pair_capacity < 1 or levels.shape[0] % grid_x:
@@ -148,7 +155,7 @@ def expand_fov(table, cum, levels, L: int, grid_x: int, pair_capacity: int,
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [P] * 3 + [I] * 6 + [P] * 9
     fn.restype = I
-    err = fn(table.data_ptr(), cum.data_ptr(), levels.data_ptr(), n, L,
+    err = fn(table.data_ptr(), cum.data_ptr(), levels.data_ptr(), n, L_lay,
              grid_x, pair_capacity, cap_out, int(use_obb),
              counts.data_ptr(), offsets.data_ptr(), block_sums.data_ptr(),
              kept.data_ptr(), tile.data_ptr(), depth.data_ptr(),

@@ -1,15 +1,18 @@
-"""Kernel 4: single-level pair expansion, OBB cull and compaction with exact
-f32 attribute rows (csrc/expand_ps1.cu), the train route.
+"""Kernel 4: single-level pair expansion, OBB cull and compaction
+(csrc/expand_ps1.cu), with exact f32 rows for the train route or the
+quantized rows of the inference route.
 
 Replaces fovsplat/ops/pallas/expand_fov.py:768 expand_ps1_pallas with
-train=True. Each Gaussian's tile rect is walked in row-major order and a
-(Gaussian, tile) pair is kept when it passes the OBB separating-axis test
-(skipped when len1 <= 0, the single-tile rects). Kept pairs come out in
-the JAX kernel's pre-sort order (Gaussian, then tile row-major) as the
-tile, the view depth and ten f32 rows ATTR_ROWS; the gid row holds exact
-f32 integers. The TPU's bf16 split-row table, its one-hot matmuls and the
-quantized inference variant are not carried over: the table is the f32
-SoA of ps1_table.
+train=True and train=False. Each Gaussian's tile rect is walked in
+row-major order and a (Gaussian, tile) pair is kept when it passes the
+OBB separating-axis test (skipped when len1 <= 0, the single-tile rects).
+Kept pairs come out in the JAX kernel's pre-sort order (Gaussian, then
+tile row-major) as the tile, the view depth and the attribute rows:
+ATTR_ROWS, ten exact f32 rows whose gid row holds exact f32 integers, or
+with `quantize` Q_ROWS, five 32-bit containers bit-identical to the JAX
+inference rows (quantized_rows). The TPU's bf16 split-row table and its
+one-hot matmuls are not carried over: the table is the f32 SoA of
+ps1_table (or kernel 1's ps1 mode, which writes the same layout).
 
 Capacities: candidates whose index in the cumsum is at or past
 `pair_capacity`, and kept pairs at or past `cap_out`, are dropped; the
@@ -36,6 +39,8 @@ from fovsplat_torch.ops.kernels import _build
 NUM_ROWS = 20
 # Output attribute rows; the first nine are the blend's pair rows.
 ATTR_ROWS = ("mx", "my", "ca", "cb", "cc", "op", "r", "g", "b", "gid")
+# Quantized inference rows (expand_fov.py:697-730), 32-bit containers.
+Q_ROWS = ("mx", "my", "P_caca", "P_cbcc", "OPRGB")
 MAX_GAUSSIANS = 1 << 24   # gid rides as an exact f32 integer
 
 
@@ -57,18 +62,59 @@ def ps1_table(cols, valid, depth):
     return table, incl - tnum, incl[-1:].clone()
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _pack2(a, b):
+    """Two f32 -> (bf16(a) << 16 | bf16(b)) as f32 bits, each half rounded
+    by +0x8000 then truncated (expand_fov.py:151-159)."""
+    ua = (_bits(a) + 0x8000) & -65536
+    ub = ((_bits(b) + 0x8000) >> 16) & 0xFFFF
+    return (ua | ub).view(torch.float32)
+
+
+def _q8(v, scale):
+    return torch.clamp(torch.floor(v * scale + 0.5), 0.0, 255.0).long()
+
+
+def quantized_rows(table):
+    """(5, N) f32 bit containers [mx, my, P_caca, P_cbcc, OPRGB] of each
+    Gaussian of a ps1 table, the JAX inference encoding bit for bit
+    (expand_fov.py:697-730): the TPU kernel stages cb, cc, op, r, g and b
+    through one bf16 matmul, so each is rounded to bf16 (nearest even)
+    first; ca rides as exact split parts. P_caca = pack2(ca_hi, ca -
+    ca_hi), ca_hi = ca with its low 16 bits cleared; P_cbcc = pack2(cb,
+    cc); OPRGB = op_u8 << 24 | r_u8 << 16 | g_u8 << 8 | b_u8 with
+    op_u8 = q8(op, 255), colours q8(c, 127.5), q8(v, s) = clip(floor(v s
+    + 0.5), 0, 255)."""
+    def bf16(r):
+        return table[r].to(torch.bfloat16).float()
+    ca = table[ROW_CA]
+    ca_hi = (_bits(ca) & -65536).view(torch.float32)
+    oprgb = ((_q8(bf16(ROW_OP), 255.0) << 24) | (_q8(bf16(ROW_R), 127.5) << 16)
+             | (_q8(bf16(ROW_G), 127.5) << 8) | _q8(bf16(ROW_B), 127.5))
+    oprgb = torch.where(oprgb >= 1 << 31, oprgb - (1 << 32), oprgb)
+    return torch.stack([table[ROW_MX], table[ROW_MY],
+                        _pack2(ca_hi, ca - ca_hi),
+                        _pack2(bf16(ROW_CB), bf16(ROW_CC)),
+                        oprgb.to(torch.int32).view(torch.float32)])
+
+
 @dataclasses.dataclass(frozen=True)
 class Expanded:
     """Kept pairs in pre-sort order; lanes at or past min(kept, cap_out)
     are unspecified."""
     tile: torch.Tensor    # (cap_out,) i32
     depth: torch.Tensor   # (cap_out,) f32 view-space depth
-    attrs: torch.Tensor   # (10, cap_out) f32, rows ATTR_ROWS
+    attrs: torch.Tensor   # (10, cap_out) f32 rows ATTR_ROWS, or
+                          # (5, cap_out) bit containers Q_ROWS
     kept: torch.Tensor    # (1,) i32 kept pairs, before the cap_out cut
 
 
 def expand_ps1_plain(table, cum, grid_x: int, pair_capacity: int,
-                     cap_out: int, use_obb: bool = True) -> Expanded:
+                     cap_out: int, use_obb: bool = True,
+                     quantize: bool = False) -> Expanded:
     """The kernel's function in plain PyTorch (vectorised over pairs)."""
     dev = table.device
     n = table.shape[1]
@@ -95,8 +141,11 @@ def expand_ps1_plain(table, cum, grid_x: int, pair_capacity: int,
     kept = g.numel()
     k = min(kept, cap_out)
     g, tile = g[:k], tile[:k]
-    vals = torch.cat([table[ROW_MX:ROW_MY + 1, g], table[ROW_CA:ROW_B + 1, g],
-                      g.float()[None]])
+    if quantize:
+        vals = quantized_rows(table)[:, g]
+    else:
+        vals = torch.cat([table[ROW_MX:ROW_MY + 1, g],
+                          table[ROW_CA:ROW_B + 1, g], g.float()[None]])
 
     def pad(x):
         out = torch.zeros((*x.shape[:-1], cap_out), dtype=x.dtype,
@@ -109,13 +158,14 @@ def expand_ps1_plain(table, cum, grid_x: int, pair_capacity: int,
 
 
 def expand_ps1(table, cum, grid_x: int, pair_capacity: int, cap_out: int,
-               use_obb: bool = True) -> Expanded:
+               use_obb: bool = True, quantize: bool = False) -> Expanded:
     """Kernel 4 on CUDA tensors, its plain version on CPU tensors.
 
-    table (NUM_ROWS, N) f32 and cum (N,) i32 from ps1_table."""
+    table (NUM_ROWS, N) f32 and cum (N,) i32 from ps1_table or kernel 1's
+    ps1 mode; `quantize` writes the inference rows Q_ROWS."""
     if table.device.type == "cpu":
         return expand_ps1_plain(table, cum, grid_x, pair_capacity, cap_out,
-                                use_obb)
+                                use_obb, quantize)
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"expand_ps1: table on {dev}; the kernel needs CUDA")
@@ -133,18 +183,19 @@ def expand_ps1(table, cum, grid_x: int, pair_capacity: int, cap_out: int,
     kept = torch.empty(1, **i32)
     tile = torch.empty(cap_out, **i32)
     depth = torch.empty(cap_out, dtype=torch.float32, device=dev)
-    attrs = torch.empty((len(ATTR_ROWS), cap_out), dtype=torch.float32,
-                        device=dev)
+    attrs = torch.empty((len(Q_ROWS if quantize else ATTR_ROWS), cap_out),
+                        dtype=torch.float32, device=dev)
 
     lib = _build.load("expand_ps1")
     fn = lib.fs_expand_ps1
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P] + [I] * 5 + [P] * 8
+    fn.argtypes = [P, P] + [I] * 6 + [P] * 8
     fn.restype = I
     err = fn(table.data_ptr(), cum.data_ptr(), n, grid_x, pair_capacity,
-             cap_out, int(use_obb), counts.data_ptr(), offsets.data_ptr(),
-             block_sums.data_ptr(), kept.data_ptr(), tile.data_ptr(),
-             depth.data_ptr(), attrs.data_ptr(), _build.stream_ptr(dev))
+             cap_out, int(use_obb), int(quantize), counts.data_ptr(),
+             offsets.data_ptr(), block_sums.data_ptr(), kept.data_ptr(),
+             tile.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "expand_ps1")
     expand_ps1.launches += 1
     return Expanded(tile=tile, depth=depth, attrs=attrs, kept=kept)

@@ -1,19 +1,26 @@
-"""Rasterizer configuration and the differentiable single-level render
-(fovsplat/ops/rasterize.py: RasterizeConfig, _grid, and rasterize with its
-fused train branch, rasterize.py:157-233, 265-269, 335-407).
+"""Rasterizer configuration, the single-level render and the packed PS1
+inference frame (fovsplat/ops/rasterize.py: RasterizeConfig, _grid,
+rasterize with its fused train and forward-only branches,
+rasterize.py:157-274, 335-407, and Ps1ModelSoA, pack_ps1_model,
+rasterize_ps1_soa, rasterize.py:412-495).
 
 rasterize runs projection.preprocess_cols, the SH colours, the pair
 builder (an autograd.Function: kernel 4 and the exact tile sort forward,
 the gid sort and kernel 7 backward) and the blend (kernels 5 and 6). Its
 gradient reaches the means, scales, rotations, opacities and colours (or
 SH coefficients); pair selection (rects, OBB axes, validity) is constant,
-as in the reference. The XLA route and rasterize_ps1_soa are not ported.
+as in the reference. With config.fwd_only it takes the inference route
+instead: kernel 4's quantized rows, the fused-key sort and the
+forward-only blend (kernel 5q), not differentiable. rasterize_ps1_soa
+renders a packed model through kernel 1's ps1 mode, optionally kernel 9,
+then the same inference route. The XLA route is not ported.
 
 The JAX config's Pallas-only fields are left out: the `pallas_*` and
-`expand_*` tuning knobs, `dummy_slack`, `expand_drop_invalid` and
-`compact_table` size TPU grids, windows and the dummy-pair scheme, none
-of which the CUDA kernels have. `backend` is gone too: a tensor on the
-card runs the kernels, a tensor on the CPU their plain versions.
+`expand_*` tuning knobs, `dummy_slack` and `expand_drop_invalid` size
+TPU grids, windows and the dummy-pair scheme, none of which the CUDA
+kernels have. `pallas_fwd_only` is `fwd_only` here. `backend` is gone
+too: a tensor on the card runs the kernels, a tensor on the CPU their
+plain versions.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 
 from fovsplat_torch.ops import projection, sh
 from fovsplat_torch.ops.blend import tiles_to_image
-from fovsplat_torch.ops.kernels.blend_fwd import blend
+from fovsplat_torch.ops.kernels.blend_fwd import blend, blend_forward_q
+from fovsplat_torch.ops.kernels.build_table import build_table_ps1
 from fovsplat_torch.ops.kernels.segment_reduce import reduce_by_sorted_gid
 from fovsplat_torch.ops.projection import TILE
 
@@ -49,6 +57,12 @@ class RasterizeConfig:
     clip_level_rects: bool = True     # clip each rect to the bbox of the
                                       # tiles its level reaches before
                                       # expansion (output-invariant)
+    compact_table: bool = False       # pack the table's live columns to
+                                      # the front (kernel 9) before
+                                      # expansion (output-invariant)
+    fwd_only: bool = False            # rasterize: the forward-only
+                                      # inference route (quantized rows,
+                                      # kernel 5q), not differentiable
 
     def kept_capacity(self) -> int:
         return (self.pair_capacity if self.compact_capacity is None
@@ -59,6 +73,17 @@ def _grid(camera):
     gx = (camera.width + TILE - 1) // TILE
     gy = (camera.height + TILE - 1) // TILE
     return gx, gy
+
+
+def _images(tile_color, final_T, gx: int, gy: int, camera, bg_color):
+    """(image (H, W, 3) with the background, final T (H, W))."""
+    image = tiles_to_image(tile_color, gx, gy, camera.width, camera.height)
+    T_img = tiles_to_image(final_T[..., None], gx, gy, camera.width,
+                           camera.height)[..., 0]
+    if bg_color is not None:
+        image = image + T_img[..., None] * torch.as_tensor(
+            bg_color, dtype=image.dtype, device=image.device)
+    return image, T_img
 
 
 def train_columns(prep, opacities, colors):
@@ -141,10 +166,10 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
 
     Returns a dict: render (H, W, 3), final_T (H, W), n_contrib (H, W)
     i32, radii (N,) i32 and binned (ops/binning.Binned: overflow,
-    num_pairs, candidates, seg_start, pair_gauss; 0-d tensors on the
-    device, not synchronised). On CUDA tensors the kernels run; on CPU
-    tensors their plain versions."""
-    from fovsplat_torch.ops.binning import Binned   # see PairBuilder
+    num_pairs, candidates, seg_start, pair_gauss (None with fwd_only);
+    0-d tensors on the device, not synchronised). On CUDA tensors the
+    kernels run; on CPU tensors their plain versions."""
+    from fovsplat_torch.ops import binning   # see PairBuilder
     gx, gy = _grid(camera)
     cfg = config
     prep = projection.preprocess_cols(means3d, scales, rotations, camera,
@@ -152,25 +177,87 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
                                       live_mask=live_mask)
     if colors is None:
         colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
-    pairs, pair_gauss, seg_start, num_pairs, overflow, candidates = \
-        PairBuilder.apply(prep.valid, prep.depth.detach(), gx, gy,
-                          cfg.pair_capacity, cfg.kept_capacity(),
-                          cfg.use_obb,
-                          *train_columns(prep, opacities, colors))
-    tile_color, final_T, n_contrib = blend(pairs, seg_start, gx,
-                                           cfg.power_cutoff, cfg.chunk)
-    image = tiles_to_image(tile_color, gx, gy, camera.width, camera.height)
-    T_img = tiles_to_image(final_T[..., None], gx, gy, camera.width,
-                           camera.height)[..., 0]
-    if bg_color is not None:
-        image = image + T_img[..., None] * torch.as_tensor(
-            bg_color, dtype=image.dtype, device=image.device)
+    if cfg.fwd_only:
+        # The inference route (rasterize.py:234-254, 270-274).
+        pairs, bn = binning.bin_fused_ps1(
+            [c.detach() for c in train_columns(prep, opacities, colors)],
+            prep.valid, prep.depth.detach(), gx, gy, cfg.pair_capacity,
+            cfg.kept_capacity(), cfg.use_obb, train=False,
+            sort_exact=cfg.sort_exact_depth)
+        tile_color, final_T, n_contrib = blend_forward_q(
+            pairs, bn.seg_start[:-1], bn.seg_start[1:], gx, cfg.power_cutoff,
+            cfg.chunk)
+    else:
+        pairs, pair_gauss, seg_start, num_pairs, overflow, candidates = \
+            PairBuilder.apply(prep.valid, prep.depth.detach(), gx, gy,
+                              cfg.pair_capacity, cfg.kept_capacity(),
+                              cfg.use_obb,
+                              *train_columns(prep, opacities, colors))
+        bn = binning.Binned(seg_start=seg_start, num_pairs=num_pairs,
+                            overflow=overflow, candidates=candidates,
+                            pair_gauss=pair_gauss)
+        tile_color, final_T, n_contrib = blend(pairs, seg_start, gx,
+                                               cfg.power_cutoff, cfg.chunk)
+    image, T_img = _images(tile_color, final_T, gx, gy, camera, bg_color)
     nc_img = tiles_to_image(n_contrib[..., None], gx, gy, camera.width,
                             camera.height)[..., 0]
     return {"render": image, "final_T": T_img, "n_contrib": nc_img,
             "radii": torch.where(prep.valid, prep.radius,
                                  torch.zeros_like(prep.radius)).to(
                                      torch.int32),
-            "binned": Binned(seg_start=seg_start, num_pairs=num_pairs,
-                             overflow=overflow, candidates=candidates,
-                             pair_gauss=pair_gauss)}
+            "binned": bn}
+
+
+@dataclasses.dataclass(frozen=True)
+class Ps1ModelSoA:
+    """A single-level model packed once for the inference render loop
+    (rasterize.py:412-423): geometry f32, SH and opacity bf16."""
+    xyz: torch.Tensor        # (N, 3)
+    scales: torch.Tensor     # (N, 3) activated
+    rotations: torch.Tensor  # (N, 4) unit quaternions (w, x, y, z)
+    sh_t: torch.Tensor       # (3, K, N) bf16 SH coefficients, DC at k=0
+    opac: torch.Tensor       # (N,) bf16 activated opacity
+
+
+def pack_ps1_model(means3d, scales, rotations, opacities, features_dc,
+                   features_rest) -> Ps1ModelSoA:
+    """Layout conversion of (N, ...) tensors on one device (rasterize.py:
+    426-448): scales, rotations and opacities (N,) activated,
+    features_dc (N, 1, 3), features_rest (N, K-1, 3)."""
+    bf = torch.bfloat16
+    sh_t = torch.cat([features_dc.to(bf).permute(2, 1, 0),
+                      features_rest.to(bf).permute(2, 1, 0)], dim=1)
+    return Ps1ModelSoA(xyz=means3d.float().contiguous(),
+                       scales=scales.float().contiguous(),
+                       rotations=rotations.float().contiguous(),
+                       sh_t=sh_t.contiguous(),
+                       opac=opacities.reshape(-1).to(bf).contiguous())
+
+
+def rasterize_ps1_soa(model: Ps1ModelSoA, camera, bg_color=None,
+                      sh_degree: int = 3,
+                      config: RasterizeConfig = RasterizeConfig()):
+    """The PS1 inference frame over a packed model (rasterize.py:451):
+    kernel 1's ps1 mode, kernel 9 with config.compact_table, kernel 4's
+    quantized rows and the fused-key sort (exact two-key with
+    sort_exact_depth), kernel 5q, tiles_to_image and the background.
+
+    Returns a dict: render (H, W, 3), final_T (H, W), num_pairs, overflow
+    and candidates (0-d i32 tensors on the device, not synchronised)."""
+    from fovsplat_torch.ops import binning   # see PairBuilder
+    gx, gy = _grid(camera)
+    cfg = config
+    table, cum, total = build_table_ps1(model, camera, sh_degree,
+                                        cfg.scale_modifier)
+    if cfg.compact_table:
+        table, cum, total, _ = binning.compact_prebuilt(table)
+    pairs, bn = binning.bin_fused_ps1(
+        None, None, None, gx, gy, cfg.pair_capacity, cfg.kept_capacity(),
+        cfg.use_obb, train=False, sort_exact=cfg.sort_exact_depth,
+        prebuilt=(table, cum, total))
+    tile_color, final_T, _ = blend_forward_q(
+        pairs, bn.seg_start[:-1], bn.seg_start[1:], gx, cfg.power_cutoff,
+        cfg.chunk)
+    image, T_img = _images(tile_color, final_T, gx, gy, camera, bg_color)
+    return {"render": image, "final_T": T_img, "num_pairs": bn.num_pairs,
+            "overflow": bn.overflow, "candidates": bn.candidates}

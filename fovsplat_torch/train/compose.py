@@ -83,14 +83,17 @@ def layer_counts(layer_states: list[S.TrainerState]) -> list[int]:
     return [int(st.live.sum()) for st in layer_states]
 
 
-def pack_composed(model: ComposedModel) -> FovModelSoA:
+def pack_composed(model: ComposedModel,
+                  shared_colors: bool = False) -> FovModelSoA:
     """The composed model packed for rasterize_fov_soa; dead rows get
-    highest level -1, which no tile's level reaches."""
+    highest level -1, which no tile's level reaches. shared_colors packs
+    the SM-FR layout: the level-0 (PS1) DC and opacity for every level."""
     p = model.params
     return pack_fov_model(
         p.xyz.detach(), p.get_scaling().detach(), p.get_rotation().detach(),
         model.opacities, model.shs_dcs, p.features_rest.detach(),
-        torch.where(model.live, model.highest_levels, -1.0))
+        torch.where(model.live, model.highest_levels, -1.0),
+        shared_colors=shared_colors)
 
 
 def save_composed(path_prefix: str, model: ComposedModel) -> None:

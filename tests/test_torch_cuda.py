@@ -12,6 +12,7 @@ import torch
 
 from fovsplat_torch import convert
 from fovsplat_torch.data import proxy
+from fovsplat_torch.eval import mmfr
 from fovsplat_torch.models import state as S
 from fovsplat_torch.ops import blend, foveated as fov
 from fovsplat_torch.ops import foveation, projection, sh, stats
@@ -21,6 +22,7 @@ from fovsplat_torch.ops import binning
 from fovsplat_torch.ops.kernels import blend_fwd as bfw
 from fovsplat_torch.ops.kernels import blend_stats as bs
 from fovsplat_torch.ops.kernels import build_table as bt
+from fovsplat_torch.ops.kernels import compact_table as ct
 from fovsplat_torch.ops.kernels import expand_fov as ef
 from fovsplat_torch.ops.kernels import expand_ps1 as ep1
 from fovsplat_torch.ops.kernels import segment_reduce as sr
@@ -264,3 +266,117 @@ def test_score_and_hvs_step_match_cpu(cuda):
         scale = float(g.abs().max())
         torch.testing.assert_close(nc.opt.mu[f].cpu() / scale, g / scale,
                                    rtol=2e-3, atol=2e-4, msg=f)
+
+
+def _ps1_model(dev, n=N, seed=2):
+    sc = proxy.bicycle_proxy(n=n, seed=seed)
+    return convert.ps1_model_from_numpy(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacity"],
+        sc["shs_dcs"][:, 0:1], sc["shs_rest"], device=dev)
+
+
+def test_inference_kernels_match_plain(cuda):
+    """Kernel 1's ps1 mode (integer rows and cum exact, floats 1e-5
+    relative), kernel 4's quantized rows (bit-identical), kernel 5q over
+    segments with every third tile emptied (within T_EPS) and kernel 9 on
+    the ps1 table (bit-identical) against their plain versions."""
+    model = _ps1_model(cuda)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    gx, T = (W + 15) // 16, ((W + 15) // 16) * ((H + 15) // 16)
+    tk, ck, totk = bt.build_table_ps1(model, cam)
+    tp, cp, totp = bt.build_table_ps1_plain(model, cam)
+    assert torch.equal(ck, cp) and torch.equal(totk, totp)
+    for r in (ep1.ROW_RX0, ep1.ROW_RY0, ep1.ROW_RW, ep1.ROW_TNUM):
+        assert torch.equal(tk[r], tp[r]), r
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+
+    args = (tk, ck, gx, 1 << 20, 1 << 20)
+    ek = ep1.expand_ps1(*args, quantize=True)
+    ep = ep1.expand_ps1_plain(*args, quantize=True)
+    k = int(ek.kept)
+    assert k == int(ep.kept) and k > 1000
+    assert torch.equal(ek.tile[:k], ep.tile[:k])
+    assert torch.equal(ek.depth[:k], ep.depth[:k])
+    assert torch.equal(ek.attrs[:, :k].view(torch.int32),
+                       ep.attrs[:, :k].view(torch.int32))
+
+    key, dbits = fov.fused_key32(ek.tile, ek.depth, ek.kept[0], T)
+    pairs, seg = fov.sort_pairs(key, dbits, ek.attrs, T, False)
+    ss = seg[:-1]
+    se = torch.where(torch.arange(T, device=cuda) % 3 != 0, seg[1:], ss)
+    for a, b in zip(bfw.blend_forward_q(pairs, ss, se, gx),
+                    blend.blend_forward_q_plain(pairs, ss, se, gx)):
+        if a.dtype == torch.int32:
+            assert float((a != b).float().mean()) < 1e-3
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+    ok_ = ct.compact_table(tk, ep1.ROW_TNUM, 0.5, ep1.ROW_TNUM)
+    op_ = ct.compact_table_plain(tk, ep1.ROW_TNUM, 0.5, ep1.ROW_TNUM)
+    assert all(torch.equal(a, b) for a, b in zip(ok_, op_))
+    assert 0 < int(ok_[2]) < model.xyz.shape[0]
+
+
+def test_shared_layout_and_fov_compaction_match_plain(cuda):
+    """Kernels 1 and 2 on the SM-FR shared layout (L_lay = 1), and kernel
+    9 on the fov table, against their plain versions."""
+    sc = proxy.bicycle_proxy(n=N, seed=2)
+    model = convert.fov_model_from_numpy(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+        sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"], device=cuda,
+        shared_colors=True)
+    _, cam, levels, bbox = _scene(cuda, (0.5, 0.5))
+    gx = (W + 15) // 16
+    tk, ck, totk = bt.build_table(model, cam, bbox)
+    tp, cp, totp = bt.build_table_plain(model, cam, bbox)
+    assert tk.shape[0] == bt.num_rows(1)
+    assert torch.equal(ck, cp) and torch.equal(totk, totp)
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+    args = (tk, ck, levels, 4, gx, 1 << 20, 1 << 20)
+    ek, ep = ef.expand_fov(*args), ef.expand_fov_plain(*args)
+    k = int(ek.kept)
+    assert k == int(ep.kept) and k > 1000
+    assert torch.equal(ek.tile[:k], ep.tile[:k])
+    assert torch.equal(ek.attrs[:, :k], ep.attrs[:, :k])
+
+    ok_ = ct.compact_table(tk, bt.ROW_VALID, 0.5, bt.ROW_TNUM)
+    op_ = ct.compact_table_plain(tk, bt.ROW_VALID, 0.5, bt.ROW_TNUM)
+    assert all(torch.equal(a, b) for a, b in zip(ok_, op_))
+    assert int(ok_[3]) == int(totk)
+
+
+def test_inference_frames_match_cpu_and_count_launches(cuda):
+    """The PS1, SM-FR and MM-FR frames on the card against the CPU plain
+    path (within 1e-4), and their kernels launched on the card only."""
+    sc = proxy.bicycle_proxy(n=N, seed=2)
+    gaze = (0.4, 0.6)
+    kernels = (bt.build_table_ps1, bt.build_table, ef.expand_fov,
+               bf.blend_fov, ep1.expand_ps1, bfw.blend_forward_q,
+               ct.compact_table)
+    res = []
+    for d in (cuda, torch.device("cpu")):
+        cam = proxy.proxy_camera(W, H, device=d)
+        g = torch.tensor(gaze, device=d)
+        before = [k.launches for k in kernels]
+        cfg = RasterizeConfig(pair_capacity=1 << 20, compact_table=True)
+        ps1 = rast.rasterize_ps1_soa(_ps1_model(d), cam, bg_color=[0.1] * 3,
+                                     config=cfg)
+        shared = convert.fov_model_from_numpy(
+            sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+            sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"], device=d,
+            shared_colors=True)
+        smfr = fov.rasterize_fov_soa(shared, cam, g, 0.05, config=cfg)
+        models = convert.mmfr_models_from_numpy(
+            sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+            sc["shs_dcs"], sc["highest_levels"], device=d)
+        mm, diags = mmfr.render_mmfr(models, cam, g, 0.05, cfg,
+                                     return_diag=True)
+        res.append(([o["render"].cpu() for o in (ps1, smfr)] + [mm.cpu()],
+                    [int(ps1["num_pairs"]), int(smfr["num_pairs"])]
+                    + [int(x["num_pairs"]) for x in diags],
+                    [k.launches - b for k, b in zip(kernels, before)]))
+    (ic, nc, lc), (ih, nh, lh) = res
+    assert nc == nh and min(nc[:2]) > 1000
+    assert all(x > 0 for x in lc) and all(x == 0 for x in lh)
+    for a, b in zip(ic, ih):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
