@@ -13,14 +13,17 @@ into build/kernels first. Phases, one JSON line each on stdout:
   2. build: nvcc time for the eight sources (nine kernels);
   3. the frame's kernels 1-3 against their plain PyTorch versions on the
      card, at the frame's shapes (the 1,161,358-Gaussian bicycle proxy at
-     1237x822, centre gaze, alpha 0.05) and, for the blend, also on the
-     150k proxy at 656x528. Integer outputs and the kept count must match
-     exactly, float outputs within the tolerances below;
+     1237x822, centre gaze, alpha 0.05; kernel 2 also at gaze (0.2, 0.2),
+     every output bit for bit and two launches bit-identical) and, for
+     the blend, also on the 150k proxy at 656x528. Integer outputs and
+     the kept count must match exactly, float outputs within the
+     tolerances below;
   4. the train step's kernels 4-7 against their plain versions at the
      step's full-width shapes (the permuted proxy of bench.py's train leg,
      1<<22 + N candidates, 3,145,728 kept): kernel 4 exact, the blend forward
      within T_EPS, the backward's per-pair rows within 1e-4 of each row's
-     largest value, the gid reduce within 1e-5 relative;
+     largest value, the gid reduce within 1e-5 of the largest sum and
+     bit-identical over two launches;
   5. the frame path: the foveated "ours" frame at full width over the 9
      gazes (3 warm-ups, 20 timed reps each) through eval/fps.py, with every
      launch counter set to 0 just before and read just after; kernels 1-3
@@ -44,10 +47,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
  10. the PS1 frame on the card against the CPU at 20k / 320x224 (within
      1e-4) and against the port's f32 train-route rasterize of the same
      model (above 40 dB);
- 11. the SM-FR frame over the 9 gazes at full width (the frame's proxy
-     and capacities, shared colours), counters set to 0 before and read
-     after; at the centre gaze the shared and broadcast packings render
-     bit-identical images;
+ 11. kernel 2 against its plain version on the SM-FR table (L_lay = 1)
+     at the centre gaze, bit for bit; the SM-FR frame over the 9 gazes at
+     full width (the frame's proxy and capacities, shared colours),
+     counters set to 0 before and read after; at the centre gaze the
+     shared and broadcast packings render bit-identical images;
  12. the MM-FR frame over the 9 gazes at full width: the four level
      models of bench.py:255-268, per-level capacities sized from probe
      runs as bench.py:299-331 does, overflow 0 on every pass; then a
@@ -65,7 +69,9 @@ into build/kernels first. Phases, one JSON line each on stdout:
  17. kernel 8 (the stats blend) against its plain version on the score
      pass's own pairs at the train phase's shapes: best_lane, first_trig
      and the touched and geo_win rows exact, the float rows and best_w
-     within 1e-5 relative, colour and T within T_EPS;
+     within 1e-5 relative, colour and T within T_EPS; then kernel 7 on
+     the score view's argmax stream (1,038,336 lanes, one row) as on the
+     train stream;
  18. the score pass at full width: one score view per metric
      (max_comp_efficiency, max_contrib, surface), timed, with the launch
      counters set to 0 just before and read just after; two runs give
@@ -85,21 +91,28 @@ into build/kernels first. Phases, one JSON line each on stdout:
      loss within 1e-5 relative, DC and opacity gradients as in phase 15;
  21. torch.profiler windows over one score view and one HVS step (with
      the HVS step's time without the profiler, CUDA events over 3);
- 22. the kernels line: per kernel (1-9, and 1p, 4q, 5q) its launches on
-     its path, time, plain time, bound and error, the index_add_ time
-     of kernel 7's sums as its library time, and the torch.sort times of
-     the frame's and the train route's keys as library rows.
+ 22. the kernels line: per kernel (1-9, and 1p, 4q, 5q, and kernel 7's
+     argmax stream) its launches on its path, time (CUDA events over 20
+     calls), own device time (device_ms, a profiler window over 20
+     more, split by CUDA kernel), plain time, bound and error, the
+     index_add_ time of kernel 7's sums as its library time, and the
+     torch.sort times of the frame's and the train route's keys as
+     library rows.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
-so the script exits non-zero without that line; so does a machine
-without CUDA or a checkout without the package.
+so the script exits non-zero without that line, after printing
+{"phase": "error", "at": <the last phase printed>, "error": <message>};
+a machine without CUDA or a checkout without the package exits non-zero
+too.
 """
 
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+import traceback
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -131,7 +144,15 @@ CHAIN_PAIR_CAPACITY = 1 << 23
 CHAIN_COMPACT_CAPACITY = 6 << 20
 
 
+# The phase of the last line emitted, for the error line.
+_last_phase = ["start"]
+
+
 def emit(obj):
+    if "phase" in obj:
+        _last_phase[0] = " ".join(str(obj[k]) for k in ("phase", "kernel",
+                                                         "path")
+                                  if k in obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -148,6 +169,63 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def own_kernel_names():
+    """The __global__ functions of fovsplat_torch/csrc: the port's own
+    kernels, as the profiler names them."""
+    from fovsplat_torch.ops.kernels import _build
+    names = set()
+    for src in sorted(_build.CSRC.glob("*.cu*")):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            src.read_text()))
+    return names
+
+
+def device_ms(fn, reps):
+    """The kernel's own device time per call: the CUDA time of the port's
+    kernels (own_kernel_names, not the allocations or torch ops of the
+    wrapper) in a torch.profiler window over `reps` calls of fn(), after
+    one warm-up call. Each kernel name counts its mean time per event
+    times its launches per call (its events over `reps`, rounded, at
+    least 1), so an event the profiler drops does not shorten the time.
+    Returns (ms, events seen, ms per call by kernel name). Raises if the
+    window holds none of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pat = re.compile(r"\b(%s)\s*[(<]" % "|".join(sorted(own_kernel_names())))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        m = pat.search(e.name)
+        if e.device_type == DeviceType.CUDA and "at::" not in e.name and m:
+            by_name.setdefault(m.group(1), []).append(
+                e.time_range.elapsed_us())
+    if not by_name:
+        raise AssertionError("the profiler window holds none of the port's "
+                             "kernels")
+    split = {k: sum(t) / len(t) * max(1, round(len(t) / reps)) / 1e3
+             for k, t in by_name.items()}
+    return (sum(split.values()), sum(len(t) for t in by_name.values()),
+            split)
+
+
+def kernel_times(fn, reps=20):
+    """{"ms": CUDA-event mean over `reps` calls of the wrapper, "device_ms":
+    the kernel's own device time per call over another `reps`,
+    "device_events": the kernel events that window saw, "device_split":
+    device ms per call by kernel name}."""
+    dev_ms, events, split = device_ms(fn, reps)
+    return {"ms": cuda_ms(fn, reps), "device_ms": dev_ms,
+            "device_events": events, "device_split": split}
 
 
 def bound(nbytes, flops):
@@ -204,6 +282,7 @@ def check_table_and_expand(dev, results):
     versions at the main path's shapes, centre gaze."""
     import torch
     from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops import foveation
     from fovsplat_torch.ops.kernels import build_table as bt
     from fovsplat_torch.ops.kernels import expand_fov as ef
     model, cam, levels, bbox, gx, gy = frame_inputs(
@@ -227,7 +306,7 @@ def check_table_and_expand(dev, results):
     rel = float((err / tp[fl].abs().clamp(min=1.0)).max())
     if not rel <= TABLE_RTOL:
         raise AssertionError(f"build_table float rows: rel err {rel}")
-    tab_ms = cuda_ms(lambda: bt.build_table(model, cam, bbox), 20)
+    tab_times = kernel_times(lambda: bt.build_table(model, cam, bbox))
     tab_plain_ms = cuda_ms(lambda: bt.build_table_plain(model, cam, bbox), 3)
     L = 4
     tab_bytes = n * (12 + 12 + 16 + 4 + 2 * (3 * 16 + 3 * L + L)) \
@@ -236,37 +315,25 @@ def check_table_and_expand(dev, results):
     # projection, EWA, rect and OBB ~290, degree-3 SH ~230, colours 36.
     tab_bound, tab_by = bound(tab_bytes, 550.0 * n)
     results["build_table"] = dict(
-        launches=None, max_abs_err=tab_err, ms=tab_ms, plain_ms=tab_plain_ms,
+        launches=None, max_abs_err=tab_err, **tab_times,
+        plain_ms=tab_plain_ms,
         bound_ms=tab_bound, bound_by=tab_by,
         shape=f"N={n}, {W_FULL}x{H_FULL}", total_candidates=int(totk))
     emit({"phase": "check", "kernel": "build_table", "rows_exact": int_rows,
           "float_rel_err": rel, "max_abs_err": tab_err,
           "candidates": int(totk)})
 
-    args = (tk, ck, levels, L, gx, PAIR_CAPACITY, COMPACT_CAPACITY)
-    ek = ef.expand_fov(*args)
-    ep = ef.expand_fov_plain(*args)
-    kept = int(ek.kept)
-    if kept != int(ep.kept):
-        raise AssertionError(f"expand kept {kept} vs plain {int(ep.kept)}")
+    kept, ek = check_expand_exact(tk, ck, levels, gx, "centre gaze")
     k = min(kept, COMPACT_CAPACITY)
-    for name in ("tile", "gid", "depth"):
-        if not torch.equal(getattr(ek, name)[:k], getattr(ep, name)[:k]):
-            raise AssertionError(f"expand {name} differs from the plain one")
-    exp_err = float((ek.attrs[:, :k] - ep.attrs[:, :k]).abs().max())
-    if exp_err != 0.0:
-        raise AssertionError(f"expand attrs differ by {exp_err}")
-    keys = []
-    for e in (ek, ep):
-        key, dbits = fov.fused_key32(e.tile, e.depth, torch.clamp(
-            e.kept[0], max=COMPACT_CAPACITY), T)
-        pairs, seg = fov.sort_pairs(key, dbits, e.attrs, T, True)
-        keys.append((torch.sort(key).values, seg, pairs[:, :k]))
-    if not (torch.equal(keys[0][0], keys[1][0])
-            and torch.equal(keys[0][1], keys[1][1])
-            and torch.equal(keys[0][2], keys[1][2])):
-        raise AssertionError("sorted keys, segments or rows differ")
-    exp_ms = cuda_ms(lambda: ef.expand_fov(*args), 20)
+    corner = foveation.compute_tile_levels(
+        torch.tensor((0.2, 0.2), dtype=torch.float32, device=dev), W_FULL,
+        H_FULL, ALPHA)
+    tc, cc, _ = bt.build_table(model, cam, fov.level_bboxes(corner, gx, gy,
+                                                            L))
+    check_expand_exact(tc, cc, corner, gx, "gaze (0.2, 0.2)")
+    del tc, cc
+    args = (tk, ck, levels, L, gx, PAIR_CAPACITY, COMPACT_CAPACITY)
+    exp_times = kernel_times(lambda: ef.expand_fov(*args))
     exp_plain_ms = cuda_ms(lambda: ef.expand_fov_plain(*args), 3)
     key, dbits = fov.fused_key32(ek.tile, ek.depth, torch.clamp(
         ek.kept[0], max=COMPACT_CAPACITY), T)
@@ -276,13 +343,43 @@ def check_table_and_expand(dev, results):
     exp_bound, exp_by = bound(exp_bytes,
                               30.0 * min(int(totk), PAIR_CAPACITY))
     results["expand_fov"] = dict(
-        launches=None, max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms,
+        launches=None, max_abs_err=0.0, **exp_times, plain_ms=exp_plain_ms,
         bound_ms=exp_bound, bound_by=exp_by,
         shape=f"N={n}, {W_FULL}x{H_FULL}, kept={kept}")
     results["torch.sort"] = dict(ms=sort_ms, lanes=COMPACT_CAPACITY)
-    emit({"phase": "check", "kernel": "expand_fov", "kept": kept,
-          "exact": ["kept", "tile", "gid", "depth", "attrs", "sorted keys"]})
     return model, cam, levels, bbox, gx, gy
+
+
+def check_expand_exact(table, cum, levels, gx, tag):
+    """Kernel 2 against its plain version on one table at the frame's
+    capacities: kept, tile, gid, depth, attrs and the sorted keys,
+    segments and rows bit for bit, and a second launch bit-identical to
+    the first. Returns (kept, the kernel's output)."""
+    import torch
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops.kernels import expand_fov as ef
+    T = levels.shape[0]
+    args = (table, cum, levels, 4, gx, PAIR_CAPACITY, COMPACT_CAPACITY)
+    ek, again = ef.expand_fov(*args), ef.expand_fov(*args)
+    ep = ef.expand_fov_plain(*args)
+    kept = int(ek.kept)
+    k = min(kept, COMPACT_CAPACITY)
+    same = {"kept": kept == int(ep.kept) == int(again.kept)}
+    for name in ("tile", "gid", "depth", "attrs"):
+        a, b, c = (getattr(e, name)[..., :k] for e in (ek, ep, again))
+        same[name] = bool(torch.equal(a, b) and torch.equal(a, c))
+    keys = []
+    for e in (ek, ep):
+        key, dbits = fov.fused_key32(e.tile, e.depth, torch.clamp(
+            e.kept[0], max=COMPACT_CAPACITY), T)
+        pairs, seg = fov.sort_pairs(key, dbits, e.attrs, T, True)
+        keys.append((torch.sort(key).values, seg, pairs[:, :k]))
+    same["sorted_keys"] = all(torch.equal(a, b) for a, b in zip(*keys))
+    emit({"phase": "check", "kernel": "expand_fov", "shape": tag,
+          "table_rows": table.shape[0], "kept": kept, "exact": same})
+    if not all(same.values()):
+        raise AssertionError(f"expand_fov {tag}: {same}")
+    return kept, ek
 
 
 def check_blend(tag, inputs, reps):
@@ -299,7 +396,7 @@ def check_blend(tag, inputs, reps):
           "max_abs_err": err, "tol": BLEND_ATOL})
     if not err <= BLEND_ATOL:
         raise AssertionError(f"blend_fov {tag}: max abs err {err}")
-    ms = cuda_ms(lambda: bf.blend_fov(pairs, seg, l1, l2, gx), reps)
+    times = kernel_times(lambda: bf.blend_fov(pairs, seg, l1, l2, gx), reps)
     plain_ms = cuda_ms(lambda: bf.blend_fov_plain(pairs, seg, l1, l2, gx), 1)
     T = l1.shape[0]
     kept = int(seg[-1])
@@ -307,7 +404,7 @@ def check_blend(tag, inputs, reps):
     # Per pair and pixel walked: 11 FLOP of power, 2 compares, the exp and
     # ~10 FLOP per active chain; counted as 25.
     bound_ms, bound_by = bound(nbytes, 25.0 * float(walked.double().sum()))
-    return dict(launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(launches=None, max_abs_err=err, **times, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 shape=tag, pair_pixels_walked=int(walked.long().sum()))
 
@@ -389,7 +486,6 @@ def check_train_kernels(st, cam, gt, results):
     from fovsplat_torch.ops import rasterize as rast
     from fovsplat_torch.ops.kernels import blend_fwd as bfw
     from fovsplat_torch.ops.kernels import expand_ps1 as ep1
-    from fovsplat_torch.ops.kernels import segment_reduce as sr
     from fovsplat_torch.train import losses
     gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
     T, n, P = gx * gy, st.capacity, blend.PIX
@@ -418,7 +514,7 @@ def check_train_kernels(st, cam, gt, results):
     # ~30 FLOP of OBB test per candidate pair walked.
     b_ms, b_by = bound(nbytes, 30.0 * min(cand, TRAIN_PAIR_CAPACITY))
     results["expand_ps1"] = dict(
-        max_abs_err=0.0, ms=cuda_ms(lambda: ep1.expand_ps1(*args), 20),
+        max_abs_err=0.0, **kernel_times(lambda: ep1.expand_ps1(*args)),
         plain_ms=cuda_ms(lambda: ep1.expand_ps1_plain(*args), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"N={n}, {cam.width}x{cam.height}, candidates={cand}, "
@@ -449,8 +545,8 @@ def check_train_kernels(st, cam, gt, results):
     nbytes = num_pairs * 36 + (T + 1) * 4 + T * P * 20
     b_ms, b_by = bound(nbytes, 25.0 * float(walked.double().sum()))
     results["blend_forward"] = dict(
-        max_abs_err=f_err, ms=cuda_ms(lambda: bfw.blend_forward(
-            pairs, seg, gx), 20),
+        max_abs_err=f_err, **kernel_times(lambda: bfw.blend_forward(
+            pairs, seg, gx)),
         plain_ms=cuda_ms(lambda: blend.blend_forward_plain(pairs, seg, gx),
                          1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -480,7 +576,7 @@ def check_train_kernels(st, cam, gt, results):
     b_ms, b_by = bound(nbytes, 66.0 * float(nk.double().sum()))
     results["blend_backward"] = dict(
         max_abs_err=float((gk - gp).abs().max()),
-        ms=cuda_ms(lambda: bfw.blend_backward(*bargs), 20),
+        **kernel_times(lambda: bfw.blend_backward(*bargs)),
         plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*bargs), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
@@ -490,16 +586,27 @@ def check_train_kernels(st, cam, gt, results):
     # --- kernel 7
     gid, vals = rast.gid_sorted_stream(gk, full[9].to(torch.int32),
                                        seg[-1], n)
+    results["reduce_by_sorted_gid"] = check_reduce(
+        gid, vals, n, f"train stream, N={n}, lanes={cap}")
+
+
+def check_reduce(gid, vals, n, tag):
+    """Kernel 7 against its plain version on one gid-sorted stream (within
+    REDUCE_RTOL of the largest sum), two launches bit-identical, and its
+    times beside index_add_'s over the same live lanes. Returns the row of
+    the kernels line."""
+    import torch
+    from fovsplat_torch.ops.kernels import segment_reduce as sr
     rk = sr.reduce_by_sorted_gid(gid, vals, n)
+    same = bool(torch.equal(rk, sr.reduce_by_sorted_gid(gid, vals, n)))
     rp = sr.reduce_by_sorted_gid_plain(gid, vals, n)
     r_err = float((rk - rp).abs().max())
     r_rel = r_err / max(float(rp.abs().max()), 1e-30)
     live_lanes = int((gid < n).sum())
-    emit({"phase": "check", "kernel": "reduce_by_sorted_gid",
-          "live_lanes": live_lanes, "max_abs_err": r_err,
-          "rel_err_of_max": r_rel, "tol": REDUCE_RTOL})
-    if not r_rel <= REDUCE_RTOL:
-        raise AssertionError(f"reduce_by_sorted_gid: rel err {r_rel}")
+    run_lens = torch.unique_consecutive(gid[:live_lanes],
+                                        return_counts=True)[1]
+    runs = run_lens.numel()
+    longest = int(run_lens.max()) if runs else 0
     # The library call sums the live prefix as the kernel does (sending
     # the sentinel tail to one column costs index_add_ its atomics on one
     # address).
@@ -509,15 +616,31 @@ def check_train_kernels(st, cam, gt, results):
         out = torch.zeros((vals.shape[0], n), device=vals.device)
         return out.index_add_(1, gid_l, live_vals)
     lib_err = float((library() - rp).abs().max())
-    b_ms, b_by = bound(live_lanes * 40 + n * 36, 9.0 * live_lanes)
-    results["reduce_by_sorted_gid"] = dict(
-        max_abs_err=r_err,
-        ms=cuda_ms(lambda: sr.reduce_by_sorted_gid(gid, vals, n), 20),
+    times = kernel_times(lambda: sr.reduce_by_sorted_gid(gid, vals, n))
+    lib_ms = cuda_ms(library, 20)
+    rows = vals.shape[0]
+    # Bytes: the gid and the value rows of each live lane in, every
+    # output column out; one add per live value.
+    b_ms, b_by = bound(live_lanes * 4 * (1 + rows) + n * 4 * rows,
+                       float(rows * live_lanes))
+    emit({"phase": "check", "kernel": "reduce_by_sorted_gid", "shape": tag,
+          "rows": rows, "live_lanes": live_lanes, "runs": runs,
+          "longest_run": longest, "max_abs_err": r_err,
+          "rel_err_of_max": r_rel, "tol": REDUCE_RTOL,
+          "bit_identical_twice": same, **times, "library_ms": lib_ms,
+          "no_slower_than_library":
+              max(times["ms"], times["device_ms"]) <= lib_ms})
+    if not (r_rel <= REDUCE_RTOL and same):
+        raise AssertionError(f"reduce_by_sorted_gid {tag}: rel err {r_rel}, "
+                             f"bit-identical twice {same}")
+    return dict(
+        max_abs_err=r_err, **times,
         plain_ms=cuda_ms(lambda: sr.reduce_by_sorted_gid_plain(
             gid, vals, n), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library, 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library_max_abs_err=lib_err,
-        shape=f"N={n}, lanes={cap}, live lanes={live_lanes}")
+        shape=f"{tag}, live lanes={live_lanes}, runs={runs}, "
+              f"longest run={longest}")
 
 
 def run_train_path(st, cam, gt, cfg, kernels):
@@ -656,10 +779,27 @@ def check_stats_kernel(st, cam, results):
               float((k[4] - q[4]).abs().max()))
     b_ms, b_by = bound(nbytes, float(flop))
     results["blend_stats"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: bs.blend_stats(*args), 20),
+        max_abs_err=err, **kernel_times(lambda: bs.blend_stats(*args)),
         plain_ms=cuda_ms(lambda: blend.blend_stats_plain(*args), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{cam.width}x{cam.height}, pairs={num_pairs}")
+
+    # --- kernel 7 on the score view's argmax stream, built as
+    # ops/stats.py's loss_weighted_max_count builds it: each pixel's best
+    # lane's Gaussian (n where the pixel has none), sorted stably; the
+    # values are seeded uniform draws on the pixels that have one.
+    n, cap = st.capacity, pairs.shape[1]
+    gid = torch.where(torch.arange(cap, device=pairs.device) < bn.num_pairs,
+                      bn.pair_gauss, n)
+    has = (k[4] > 0).reshape(-1)
+    best = torch.clamp(k[3].reshape(-1), 0, cap - 1).long()
+    gen = torch.Generator(device=pairs.device).manual_seed(0)
+    w = torch.rand(has.shape, generator=gen, device=pairs.device)
+    key, perm = torch.sort(torch.where(has, gid[best], n), stable=True)
+    results["reduce_by_sorted_gid_argmax"] = check_reduce(
+        key.to(torch.int32).contiguous(),
+        torch.where(has, w, 0.0)[None].index_select(1, perm).contiguous(), n,
+        f"score view argmax stream, N={n}, lanes={has.numel()}")
 
 
 def run_score_pass(st, cam, cfg, kernels):
@@ -692,7 +832,8 @@ def run_score_pass(st, cam, cfg, kernels):
     emit(row)
     if not all(same.values()):
         raise AssertionError(f"scores differ between two runs: {same}")
-    if row["overflow"] != 0 or launches["blend_stats"] <= 0:
+    if (row["overflow"] != 0 or launches["blend_stats"] <= 0
+            or launches["reduce_by_sorted_gid"] <= 0):
         raise AssertionError(f"score pass: {row}")
     return launches
 
@@ -992,7 +1133,7 @@ def check_inference_kernels(dev, fov_table, results):
                        530.0 * n)
     results["build_table_ps1"] = dict(
         max_abs_err=float(err.max()),
-        ms=cuda_ms(lambda: bt.build_table_ps1(model, cam), 20),
+        **kernel_times(lambda: bt.build_table_ps1(model, cam)),
         plain_ms=cuda_ms(lambda: bt.build_table_ps1_plain(model, cam), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{shape}, candidates={cand}")
@@ -1023,7 +1164,7 @@ def check_inference_kernels(dev, fov_table, results):
                        30.0 * min(cand, TRAIN_PAIR_CAPACITY))
     results["expand_ps1_q"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: ep1.expand_ps1(*args, quantize=True), 20),
+        **kernel_times(lambda: ep1.expand_ps1(*args, quantize=True)),
         plain_ms=cuda_ms(lambda: ep1.expand_ps1_plain(*args, quantize=True),
                          3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1056,7 +1197,7 @@ def check_inference_kernels(dev, fov_table, results):
     se = seg[1:]
     results["blend_forward_q"] = dict(
         max_abs_err=max(errs.values()),
-        ms=cuda_ms(lambda: bfw.blend_forward_q(pairs, ss, se, gx), 20),
+        **kernel_times(lambda: bfw.blend_forward_q(pairs, ss, se, gx)),
         plain_ms=cuda_ms(lambda: blend.blend_forward_q_plain(pairs, ss, se,
                                                              gx), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1081,8 +1222,8 @@ def check_inference_kernels(dev, fov_table, results):
     b_ms, b_by = bound(tk.numel() * 4 + tk.shape[0] * 4 * live + n * 4, 0.0)
     results["compact_table"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: ct.compact_table(tk, ep1.ROW_TNUM, 0.5,
-                                            ep1.ROW_TNUM), 20),
+        **kernel_times(lambda: ct.compact_table(tk, ep1.ROW_TNUM, 0.5,
+                                                ep1.ROW_TNUM)),
         plain_ms=cuda_ms(lambda: ct.compact_table_plain(
             tk, ep1.ROW_TNUM, 0.5, ep1.ROW_TNUM), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1210,19 +1351,30 @@ def run_smfr(cam, kernels):
     """The SM-FR (naive) frame over the 9 gazes at full width on the
     "ours" frame's proxy and capacities, packed with shared colours; at
     the centre gaze the shared and broadcast packings must render
-    bit-identical images."""
+    bit-identical images. First kernel 2 against its plain version on the
+    shared table (L_lay = 1) at the centre gaze, bit for bit."""
     import numpy as np
     import torch
     from fovsplat_torch import convert
     from fovsplat_torch.data import proxy
     from fovsplat_torch.eval import fps
     from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops import foveation
+    from fovsplat_torch.ops.kernels import build_table as bt
     from fovsplat_torch.ops.rasterize import RasterizeConfig
     sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
     arrays = (sc["means"], sc["scales"], sc["rotations"])
     shared = convert.fov_model_from_numpy(
         *arrays, sc["opacities4"], sc["shs_dcs"], sc["shs_rest"],
         sc["highest_levels"], device=cam.device, shared_colors=True)
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    levels = foveation.compute_tile_levels(
+        torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device),
+        cam.width, cam.height, ALPHA)
+    table, cum, _ = bt.build_table(shared, cam,
+                                   fov.level_bboxes(levels, gx, gy, 4))
+    check_expand_exact(table, cum, levels, gx, "SM-FR table, centre gaze")
+    del table, cum
     cfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
                           compact_capacity=COMPACT_CAPACITY)
     render = fps.make_fov_render(shared, cfg, alpha=ALPHA, mode="naive")
@@ -1479,7 +1631,9 @@ def main():
 
     # --- the score pass, the model-building chain, the HVS step ---
     check_stats_kernel(st, tcam, results)
-    run_score_pass(st, tcam, tcfg, all_kernels)
+    sl = run_score_pass(st, tcam, tcfg, all_kernels)
+    # Kernel 7 runs on the score pass's argmax stream only.
+    launches["reduce_by_sorted_gid_argmax"] = sl["reduce_by_sorted_gid"]
     score_vs_cpu(train_config(1 << 20, None))
     chain_cfg = train_config(CHAIN_PAIR_CAPACITY, CHAIN_COMPACT_CAPACITY)
     cl = run_chain(N_FULL, W_FULL, H_FULL, chain_cfg, chain_cfg.raster,
@@ -1510,6 +1664,9 @@ def main():
            "reduce_by_sorted_gid": (
                "fovsplat_torch/csrc/segment_reduce.cu",
                "fovsplat/ops/pallas/segment_reduce.py:175"),
+           "reduce_by_sorted_gid_argmax": (
+               "fovsplat_torch/csrc/segment_reduce.cu",
+               "fovsplat/ops/pallas/segment_reduce.py:175"),
            "blend_stats": ("fovsplat_torch/csrc/blend_stats.cu",
                            "fovsplat/ops/pallas/blend_stats.py:234"),
            "build_table_ps1": ("fovsplat_torch/csrc/build_table.cu",
@@ -1526,6 +1683,8 @@ def main():
         rows.append({"name": k, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[k],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms": r["device_ms"],
+                     "device_split": r["device_split"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
@@ -1543,6 +1702,12 @@ def main():
                                "(kernel 7's function)",
                        "ms": results["reduce_by_sorted_gid"]["library_ms"],
                        "max_abs_err": results["reduce_by_sorted_gid"][
+                           "library_max_abs_err"]},
+                      {"name": "index_add_ of the argmax stream "
+                               "(kernel 7's function)",
+                       "ms": results["reduce_by_sorted_gid_argmax"][
+                           "library_ms"],
+                       "max_abs_err": results["reduce_by_sorted_gid_argmax"][
                            "library_max_abs_err"]}],
           "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1551,4 +1716,11 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception as exc:
+        emit({"phase": "error", "at": _last_phase[0],
+              "error": f"{type(exc).__name__}: {exc}"})
+        traceback.print_exc()
+        code = 1
+    sys.exit(code)

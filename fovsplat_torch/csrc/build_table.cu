@@ -403,9 +403,7 @@ FS_EXPORT int fs_build_table(const float* xyz, const float* scales,
       table, cum, block_sums);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fs::scan_carry_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(cum, block_sums, nb, n,
-                                                      total);
-  return cudaGetLastError();
+  return fs::scan_carry(cum, block_sums, nb, n, total, s);
 }
 
 FS_EXPORT int fs_build_table_ps1(const float* xyz, const float* scales,
@@ -423,7 +421,5 @@ FS_EXPORT int fs_build_table_ps1(const float* xyz, const float* scales,
       width, height, scale_modifier, sh_degree, table, cum, block_sums);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fs::scan_carry_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(cum, block_sums, nb, n,
-                                                      total);
-  return cudaGetLastError();
+  return fs::scan_carry(cum, block_sums, nb, n, total, s);
 }

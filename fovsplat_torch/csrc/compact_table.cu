@@ -90,13 +90,11 @@ FS_EXPORT int fs_compact_table(const float* table, int n, int rows,
   // carry pass on the same stream.
   fs::scan_local_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(keep, offsets,
                                                       block_sums, n);
-  fs::scan_carry_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(offsets, block_sums, nb,
-                                                      n, live);
+  err = fs::scan_carry(offsets, block_sums, nb, n, live, s);
+  if (err != cudaSuccess) return err;
   fs::scan_local_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(kept_tnum, kept_cum,
                                                       block_sums, n);
-  fs::scan_carry_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(kept_cum, block_sums,
-                                                      nb, n, total);
-  err = cudaGetLastError();
+  err = fs::scan_carry(kept_cum, block_sums, nb, n, total, s);
   if (err != cudaSuccess) return err;
   write_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(table, n, rows, keep, offsets,
                                              kept_cum, out, cum_out);

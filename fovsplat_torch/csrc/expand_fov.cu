@@ -1,32 +1,52 @@
 // Kernel 2 of the foveated frame: pair expansion, OBB and level cull,
 // per-level attribute selection and deterministic compaction.
 //
-// Replaces fovsplat/ops/pallas/expand_fov.py:841 expand_fov_pallas. One
-// thread per Gaussian walks its (clipped) tile rect in row-major order,
-// as the reference's duplicateWithKeys does: for every candidate tile it
-// runs the OBB separating-axis test (fovsplat/ops/binning.py:51-79) and
-// the level cull level[tile] < hl + 1, reading the level from the
-// per-tile table (compute_tile_levels) instead of the TPU's per-pair
-// series. Compaction is deterministic: pass 1 counts each Gaussian's kept
-// pairs, common.cuh's scan turns the counts into offsets, pass 2 writes
-// the kept pairs at their offsets. The output order is the JAX kernel's
-// pre-sort order: Gaussian order, then tile row-major.
+// Replaces fovsplat/ops/pallas/expand_fov.py:841 expand_fov_pallas. The
+// candidates are the (Gaussian, tile) pairs of every Gaussian's (clipped)
+// tile rect, numbered by `cum`, the exclusive prefix of the table's tnum
+// row: candidate c belongs to the Gaussian g with cum[g] <= c < cum[g] +
+// tnum[g] and is tile j = c - cum[g] of its rect in row-major order, as
+// the reference's duplicateWithKeys walks it. A candidate is kept when it
+// passes the OBB separating-axis test (fovsplat/ops/binning.py:51-79) and
+// the level cull level[tile] < hl + 1, the level read from the per-tile
+// table (compute_tile_levels) instead of the TPU's per-pair series. The
+// output order is the JAX kernel's pre-sort order: Gaussian order, then
+// tile row-major.
 //
-// Kept pairs at or past `cap_out` and candidates at or past `pair_cap`
-// are dropped; the wrapper counts both into `overflow`.
+// Bound: bytes (the table in, 64 B per kept pair out; a few dozen FLOP
+// per candidate). The design is candidate-parallel, as the TPU kernel's
+// fixed candidate chunks with their first Gaussian from `gstarts`
+// (expand_fov.py:841-851) are:
+//
+// - One thread per candidate, CHUNK candidates a block in ROUNDS rounds of
+//   BLOCK. A block finds the Gaussians of its first and last candidate by
+//   binary searches over `cum`; each thread then searches between them
+//   (from its previous round's Gaussian on). A Gaussian with a rect of
+//   hundreds of tiles is spread over hundreds of threads instead of
+//   keeping one thread busy while its warp waits.
+// - Neighbouring candidates mostly share a Gaussian, so its 12 table rows
+//   (and in the write pass its depth, conic and colour rows) are the same
+//   addresses across a warp: one L1 transaction serves them all.
+// - Compaction is deterministic: a count pass writes each block's kept
+//   count, one block scans the counts (common.cuh's scan_sums_kernel), and
+//   the write pass recomputes each keep flag and places a kept pair at its
+//   block's offset plus a block-level exclusive scan of the flags, round
+//   by round. Offsets are exact integers, so the output is the same bits
+//   as the plain twin's, in candidate order. Consecutive kept pairs have
+//   consecutive offsets, so a warp's writes are coalesced row by row.
+// - The per-candidate arithmetic (keep_pair and the attribute selection)
+//   is unchanged, in the same order of operations, so under -fmad=false
+//   the kept pairs are bit-equal to expand_fov_plain's.
+//
+// Kept pairs at or past `cap_out` and candidates at or past `pair_cap` are
+// dropped; the caller counts both into `overflow`. Blocks past the last
+// candidate (min(total, pair_cap), read on the device) exit at once.
 //
 // The table holds L_lay colour levels: chain 1 reads level min(p1, L_lay
 // - 1) and chain 2 level min(p1 + 1, L_lay - 1), p1 the tile's integer
 // level. L_lay = 1 is the SM-FR shared layout (foveated.py:755-760): one
 // colour and opacity per Gaussian, while the cull still runs at every
 // level.
-//
-// Bound: bytes (a few dozen FLOP per candidate). Pass 1 reads 12 table
-// rows per Gaussian and the 16 KB level table (L1-resident); pass 2
-// re-reads them plus the 4L level rows and writes 64 B per kept pair.
-// The walk is per Gaussian, so a Gaussian with a large rect keeps one
-// thread busy (the reference's imbalance too); the writes of one warp go
-// to nearby offsets because offsets grow with the Gaussian index.
 
 #include <cuda_runtime.h>
 
@@ -35,6 +55,9 @@
 namespace {
 
 constexpr int TILE = 16;
+constexpr int BLOCK = 256;
+constexpr int ROUNDS = 4;
+constexpr int CHUNK = BLOCK * ROUNDS;    // candidates a block takes
 // Table rows (ops/kernels/build_table.py ROW_*).
 enum Row {
   R_RX0 = 0, R_RY0, R_RW, R_TNUM, R_MX, R_MY, R_V1X, R_V1Y, R_V2X, R_V2Y,
@@ -101,96 +124,162 @@ __device__ inline bool keep_pair(const Gauss& q, int tx, int ty,
   return lv < q.hl + 1.0f;
 }
 
-__global__ void __launch_bounds__(fs::SCAN_BLOCK)
+// Largest g in [lo, hi] with cum[g] <= c (cum ascending, cum[lo] <= c).
+__device__ inline int owner(const int* __restrict__ cum, int lo, int hi,
+                            int c) {
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo + 1) >> 1);
+    if (cum[mid] <= c) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// One candidate: its Gaussian (searched from *g_from on), tile and keep
+// flag. The owners of a block's candidates lie in [g_from, g_last].
+struct Cand {
+  Gauss q;
+  int g, tx, ty;
+  float lv;
+  bool keep;
+};
+
+__device__ inline Cand candidate(const float* __restrict__ table,
+                                 const int* __restrict__ cum,
+                                 const float* __restrict__ levels, int n,
+                                 int grid_x, int use_obb, int c, int* g_from,
+                                 int g_last) {
+  Cand k;
+  k.g = owner(cum, *g_from, g_last, c);
+  *g_from = k.g;
+  k.q = load_gauss(table, cum, n, k.g);
+  const int j = c - k.q.cum;
+  k.ty = k.q.ry0 + j / k.q.rw;
+  k.tx = k.q.rx0 + j % k.q.rw;
+  k.lv = 0.0f;
+  k.keep = keep_pair(k.q, k.tx, k.ty, levels, grid_x, use_obb, &k.lv);
+  return k;
+}
+
+// The block's candidates [base, last] (last < 0: none) and the Gaussians of
+// both ends, in span[0] and span[1]. Uniform over the block.
+__device__ inline int block_span(const float* __restrict__ table,
+                                 const int* __restrict__ cum, int n,
+                                 int pair_cap, int* span) {
+  const int total = n > 0 ? cum[n - 1] + static_cast<int>(
+                                table[static_cast<size_t>(R_TNUM) * n + n - 1])
+                          : 0;
+  const int limit = min(total, pair_cap);
+  const int base = blockIdx.x * CHUNK;
+  if (base >= limit) return -1;
+  const int last = min(base + CHUNK, limit) - 1;
+  if (threadIdx.x == 0) span[0] = owner(cum, 0, n - 1, base);
+  if (threadIdx.x == 32) span[1] = owner(cum, 0, n - 1, last);
+  __syncthreads();
+  return last;
+}
+
+__global__ void __launch_bounds__(BLOCK)
 count_kernel(const float* __restrict__ table, const int* __restrict__ cum,
              const float* __restrict__ levels, int n, int grid_x,
              int pair_cap, int use_obb, int* __restrict__ counts) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const Gauss q = load_gauss(table, cum, n, g);
-  const int m = min(q.tnum, pair_cap - q.cum);   // candidates past the cap
-  int kept = 0;
-  float lv;
-  for (int j = 0; j < m; ++j) {
-    const int ty = q.ry0 + j / q.rw, tx = q.rx0 + j % q.rw;
-    kept += keep_pair(q, tx, ty, levels, grid_x, use_obb, &lv);
+  __shared__ int span[2];
+  const int last = block_span(table, cum, n, pair_cap, span);
+  if (last < 0) {
+    if (threadIdx.x == 0) counts[blockIdx.x] = 0;
+    return;
   }
-  counts[g] = kept;
+  int g_from = span[0];
+  const int g_last = span[1];
+  int kept = 0;
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int c = blockIdx.x * CHUNK + r * BLOCK + threadIdx.x;
+    bool keep = false;
+    if (c <= last)
+      keep = candidate(table, cum, levels, n, grid_x, use_obb, c, &g_from,
+                       g_last).keep;
+    kept += __syncthreads_count(keep);
+  }
+  if (threadIdx.x == 0) counts[blockIdx.x] = kept;
 }
 
-__global__ void __launch_bounds__(fs::SCAN_BLOCK)
+__global__ void __launch_bounds__(BLOCK)
 write_kernel(const float* __restrict__ table, const int* __restrict__ cum,
-             const float* __restrict__ levels, const int* __restrict__ offsets,
-             int n, int L_lay, int grid_x, int pair_cap, int cap_out,
-             int use_obb,
+             const float* __restrict__ levels,
+             const int* __restrict__ block_offsets, int n, int L_lay,
+             int grid_x, int pair_cap, int cap_out, int use_obb,
              int* __restrict__ tile_out, float* __restrict__ depth_out,
              int* __restrict__ gid_out, float* __restrict__ attrs) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const Gauss q = load_gauss(table, cum, n, g);
-  const int m = min(q.tnum, pair_cap - q.cum);
-  if (m <= 0) return;
-  auto row = [&](int r) { return table[static_cast<size_t>(r) * n + g]; };
-  const float depth = row(R_DEPTH);
-  const float ca = row(R_CA), cb = row(R_CB), cc = row(R_CC);
-  int o = offsets[g];
-  float lv = 0.0f;
-  for (int j = 0; j < m && o < cap_out; ++j) {
-    const int ty = q.ry0 + j / q.rw, tx = q.rx0 + j % q.rw;
-    if (!keep_pair(q, tx, ty, levels, grid_x, use_obb, &lv)) continue;
+  __shared__ int span[2];
+  const int last = block_span(table, cum, n, pair_cap, span);
+  if (last < 0) return;
+  int g_from = span[0];
+  const int g_last = span[1];
+  int o_base = block_offsets[blockIdx.x];
+  for (int r = 0; r < ROUNDS && o_base < cap_out; ++r) {
+    const int c = blockIdx.x * CHUNK + r * BLOCK + threadIdx.x;
+    Cand k;
+    k.keep = false;
+    if (c <= last)
+      k = candidate(table, cum, levels, n, grid_x, use_obb, c, &g_from,
+                    g_last);
+    int round_kept;
+    const int o = o_base + fs::block_exclusive_scan(k.keep ? 1 : 0,
+                                                    &round_kept);
+    o_base += round_kept;
+    if (!k.keep || o >= cap_out) continue;
+    const int g = k.g;
+    auto row = [&](int rr) { return table[static_cast<size_t>(rr) * n + g]; };
+    const float lv = k.lv;
     const int p1 = min(static_cast<int>(lv), L_lay - 1);
     const int p2 = min(static_cast<int>(lv) + 1, L_lay - 1);
     auto put = [&](int a, float v) {
       attrs[static_cast<size_t>(a) * cap_out + o] = v;
     };
-    tile_out[o] = ty * grid_x + tx;
-    depth_out[o] = depth;
+    tile_out[o] = k.ty * grid_x + k.tx;
+    depth_out[o] = row(R_DEPTH);
     gid_out[o] = g;
-    put(A_MX, q.mx);
-    put(A_MY, q.my);
-    put(A_CA, ca);
-    put(A_CB, cb);
-    put(A_CC, cc);
+    put(A_MX, k.q.mx);
+    put(A_MY, k.q.my);
+    put(A_CA, row(R_CA));
+    put(A_CB, row(R_CB));
+    put(A_CC, row(R_CC));
     put(A_OP1, row(R_LEVEL + p1));
     // The L2 cull folds into the sign of op2: the blend's alpha >= 1/255
     // test then rejects the pair in the second chain.
-    put(A_OP2, (q.hl + 1.0f) < (lv + 1.0f) ? -1.0f : row(R_LEVEL + p2));
+    put(A_OP2, (k.q.hl + 1.0f) < (lv + 1.0f) ? -1.0f : row(R_LEVEL + p2));
     put(A_R1, row(R_LEVEL + L_lay + p1));
     put(A_G1, row(R_LEVEL + 2 * L_lay + p1));
     put(A_B1, row(R_LEVEL + 3 * L_lay + p1));
     put(A_R2, row(R_LEVEL + L_lay + p2));
     put(A_G2, row(R_LEVEL + 2 * L_lay + p2));
     put(A_B2, row(R_LEVEL + 3 * L_lay + p2));
-    ++o;
   }
 }
 
 }  // namespace
 
+// Candidates a block takes: the wrapper's `counts` buffer holds one int
+// per CHUNK of pair_cap.
+FS_EXPORT int fs_expand_fov_chunk() { return CHUNK; }
+
 FS_EXPORT int fs_expand_fov(const float* table, const int* cum,
                             const float* levels, int n, int L_lay,
-                            int grid_x,
-                            int pair_cap, int cap_out, int use_obb,
-                            int* counts, int* offsets, int* block_sums,
-                            int* kept, int* tile_out, float* depth_out,
-                            int* gid_out, float* attrs, void* stream) {
+                            int grid_x, int pair_cap, int cap_out,
+                            int use_obb, int* counts, int* kept,
+                            int* tile_out, float* depth_out, int* gid_out,
+                            float* attrs, void* stream) {
+  if (n < 1 || pair_cap < 1 || cap_out < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = fs::scan_blocks(n);
-  count_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(table, cum, levels, n, grid_x,
-                                             pair_cap, use_obb, counts);
+  const int nblk = (pair_cap + CHUNK - 1) / CHUNK;
+  count_kernel<<<nblk, BLOCK, 0, s>>>(table, cum, levels, n, grid_x,
+                                      pair_cap, use_obb, counts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fs::scan_local_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(counts, offsets,
-                                                      block_sums, n);
+  fs::scan_sums_kernel<<<1, fs::SUMS_BLOCK, 0, s>>>(counts, nblk, kept);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fs::scan_carry_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(offsets, block_sums, nb,
-                                                      n, kept);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  write_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(
-      table, cum, levels, offsets, n, L_lay, grid_x, pair_cap, cap_out,
-      use_obb,
-      tile_out, depth_out, gid_out, attrs);
+  write_kernel<<<nblk, BLOCK, 0, s>>>(table, cum, levels, counts, n, L_lay,
+                                      grid_x, pair_cap, cap_out, use_obb,
+                                      tile_out, depth_out, gid_out, attrs);
   return cudaGetLastError();
 }

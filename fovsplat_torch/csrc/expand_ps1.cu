@@ -194,9 +194,7 @@ FS_EXPORT int fs_expand_ps1(const float* table, const int* cum, int n,
                                                       block_sums, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fs::scan_carry_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(offsets, block_sums, nb,
-                                                      n, kept);
-  err = cudaGetLastError();
+  err = fs::scan_carry(offsets, block_sums, nb, n, kept, s);
   if (err != cudaSuccess) return err;
   write_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(
       table, cum, offsets, n, grid_x, pair_cap, cap_out, use_obb, quant,

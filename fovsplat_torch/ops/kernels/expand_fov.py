@@ -1,10 +1,12 @@
 """Kernel 2: pair expansion, OBB and level cull, per-level attribute
 selection and compaction (csrc/expand_fov.cu).
 
-Replaces fovsplat/ops/pallas/expand_fov.py:841 expand_fov_pallas. Each
-valid Gaussian's clipped tile rect is walked in row-major order; a
-(Gaussian, tile) pair is kept when it passes the OBB separating-axis test
-(skipped for single-tile rects) and the level cull level[tile] < hl + 1.
+Replaces fovsplat/ops/pallas/expand_fov.py:841 expand_fov_pallas. The
+candidates are the tiles of each Gaussian's clipped rect in row-major
+order, numbered by `cum` (the exclusive prefix of the table's tnum row);
+a (Gaussian, tile) pair is kept when it passes the OBB separating-axis
+test (skipped for single-tile rects) and the level cull level[tile] <
+hl + 1.
 The level comes from the per-tile table (foveation.compute_tile_levels),
 not from the TPU kernel's per-pair trig series. Kept pairs come out in
 the JAX kernel's pre-sort order (Gaussian, then tile row-major), as f32
@@ -19,8 +21,10 @@ Capacities: candidates whose index in the cumsum is at or past
 caller counts both into `overflow`. The candidate count has no dummy
 pairs (the JAX count includes one per invalid row).
 
-Bound on the card: bytes (see the source header); the compaction is
-deterministic (count, scan, write) and needs no atomics.
+Bound on the card: bytes (see the source header). The kernel takes one
+thread per candidate, finding its Gaussian by a search over `cum`; the
+compaction is deterministic (count per block, scan, write) and needs no
+atomics.
 """
 
 from __future__ import annotations
@@ -139,10 +143,10 @@ def expand_fov(table, cum, levels, L: int, grid_x: int, pair_capacity: int,
     if cap_out < 1 or pair_capacity < 1 or levels.shape[0] % grid_x:
         raise ValueError("expand_fov: capacities must be positive and "
                          "levels a whole number of tile rows")
+    lib = _build.load("expand_fov")
+    chunk = lib.fs_expand_fov_chunk()
     i32 = dict(dtype=torch.int32, device=dev)
-    counts = torch.empty(n, **i32)
-    offsets = torch.empty(n, **i32)
-    block_sums = torch.empty(_build.scan_blocks(n), **i32)
+    counts = torch.empty((pair_capacity + chunk - 1) // chunk, **i32)
     kept = torch.empty(1, **i32)
     tile = torch.empty(cap_out, **i32)
     depth = torch.empty(cap_out, dtype=torch.float32, device=dev)
@@ -150,16 +154,15 @@ def expand_fov(table, cum, levels, L: int, grid_x: int, pair_capacity: int,
     attrs = torch.empty((len(ATTR_ROWS), cap_out), dtype=torch.float32,
                         device=dev)
 
-    lib = _build.load("expand_fov")
     fn = lib.fs_expand_fov
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 3 + [I] * 6 + [P] * 9
+    fn.argtypes = [P] * 3 + [I] * 6 + [P] * 7
     fn.restype = I
     err = fn(table.data_ptr(), cum.data_ptr(), levels.data_ptr(), n, L_lay,
              grid_x, pair_capacity, cap_out, int(use_obb),
-             counts.data_ptr(), offsets.data_ptr(), block_sums.data_ptr(),
-             kept.data_ptr(), tile.data_ptr(), depth.data_ptr(),
-             gid.data_ptr(), attrs.data_ptr(), _build.stream_ptr(dev))
+             counts.data_ptr(), kept.data_ptr(), tile.data_ptr(),
+             depth.data_ptr(), gid.data_ptr(), attrs.data_ptr(),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "expand_fov")
     expand_fov.launches += 1
     return Expanded(tile=tile, depth=depth, gid=gid, attrs=attrs, kept=kept)

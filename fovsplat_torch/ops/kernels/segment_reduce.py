@@ -3,10 +3,14 @@
 
 Replaces fovsplat/ops/pallas/segment_reduce.py:154 reduce_by_sorted_gid.
 The train backward sorts its per-pair cotangent rows by Gaussian id
-(zero-cotangent lanes carry the sentinel n and sort to the tail). The
-kernel finds the runs of equal gid with a flag and a scan and sums each
-run with one warp in a fixed order: deterministic, no atomics. Sentinel
-lanes (gid >= n) are skipped, as skip_from does.
+(zero-cotangent lanes carry the sentinel n and sort to the tail); the
+score pass sorts its per-pair and per-pixel values the same way. Each
+block of the kernel sums the runs of equal gid inside a fixed chunk of
+lanes with a segmented scan and zero-fills the columns without a lane
+below its runs; a second pass adds the partial sums of the runs cut by
+chunk edges in chunk order and zero-fills the columns above the last
+live gid: deterministic, no atomics. Sentinel lanes (gid >= n) are
+skipped, as skip_from does.
 
 Bound on the card: bytes (40 B per live lane in, 36 B per Gaussian out).
 """
@@ -57,21 +61,19 @@ def reduce_by_sorted_gid(gid, vals, n: int):
     if not (1 <= rows <= MAX_ROWS and cap >= 1 and n >= 1):
         raise ValueError(f"reduce_by_sorted_gid: rows={rows}, cap={cap}, "
                          f"n={n}")
-    out = torch.zeros((rows, n), dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    flags = torch.empty(cap, **i32)
-    offsets = torch.empty(cap, **i32)
-    block_sums = torch.empty(_build.scan_blocks(cap), **i32)
-    num_runs = torch.empty(1, **i32)
-    run_start = torch.empty(cap, **i32)
     lib = _build.load("segment_reduce")
+    chunk = lib.fs_segment_reduce_chunk()
+    # Every column is written by the kernel, zeros included.
+    out = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    parts = torch.empty((cap + chunk - 1) // chunk * 2 * MAX_ROWS,
+                        dtype=torch.float32, device=dev)
+    tail = torch.empty(1, dtype=torch.int32, device=dev)
     fn = lib.fs_segment_reduce
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, I, I, I] + [P] * 7
+    fn.argtypes = [P, P, I, I, I, P, P, P, P]
     fn.restype = I
-    err = fn(gid.data_ptr(), vals.data_ptr(), cap, rows, n, flags.data_ptr(),
-             offsets.data_ptr(), block_sums.data_ptr(), num_runs.data_ptr(),
-             run_start.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
+    err = fn(gid.data_ptr(), vals.data_ptr(), cap, rows, n, parts.data_ptr(),
+             tail.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "reduce_by_sorted_gid")
     reduce_by_sorted_gid.launches += 1
     return out

@@ -81,6 +81,88 @@ def test_kernels_match_plain(cuda, gaze):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
+def _expand_exact(args):
+    """Kernel 2 and its plain version on `args`: kept, and the first
+    min(kept, cap_out) lanes of every output, bit for bit."""
+    ek, ep = ef.expand_fov(*args), ef.expand_fov_plain(*args)
+    kept = int(ek.kept)
+    assert kept == int(ep.kept)
+    k = min(kept, args[-1])
+    for name in ("tile", "gid", "depth", "attrs"):
+        assert torch.equal(getattr(ek, name)[..., :k],
+                           getattr(ep, name)[..., :k]), name
+    return ek
+
+
+@pytest.mark.parametrize("cut", ["pair_capacity", "cap_out"])
+def test_expand_capacity_cuts_match_plain(cuda, cut):
+    """Kernel 2 with a pair capacity that cuts a Gaussian's rect in the
+    middle, and with a kept-pair capacity below the kept count."""
+    model, cam, levels, bbox = _scene(cuda, (0.5, 0.5))
+    gx = (W + 15) // 16
+    tk, ck, totk = bt.build_table(model, cam, bbox)
+    full = _expand_exact((tk, ck, levels, 4, gx, 1 << 20, 1 << 20))
+    kept = int(full.kept)
+    if cut == "pair_capacity":
+        c, tnum = ck.long(), tk[bt.ROW_TNUM].long()
+        g = int(((c >= int(totk) // 2) & (tnum > 2)).nonzero()[0])
+        cap = int(c[g]) + int(tnum[g]) // 2
+        ek = _expand_exact((tk, ck, levels, 4, gx, cap, 1 << 20))
+        assert 0 < int(ek.kept) < kept
+        assert int(ek.gid[:int(ek.kept)].max()) <= g
+    else:
+        cap_out = kept // 2 + 3
+        ek = _expand_exact((tk, ck, levels, 4, gx, 1 << 20, cap_out))
+        assert int(ek.kept) == kept
+        assert torch.equal(ek.tile[:cap_out], full.tile[:cap_out])
+
+
+def _reduce_stream(kind, chunk, n, dev):
+    """Sorted gid streams at the edges of kernel 7's chunks: one run over
+    several chunks, all sentinel, no sentinel, runs that end exactly at a
+    chunk edge."""
+    rng = np.random.default_rng(5)
+    cap = 6 * chunk + 37
+    if kind == "long_run":
+        body = [np.sort(rng.integers(0, 77, chunk // 2)),
+                np.full(3 * chunk + 5, 77),
+                np.sort(rng.integers(78, n, chunk))]
+    elif kind == "all_sentinel":
+        body = []
+    elif kind == "no_sentinel":
+        body = [np.sort(rng.integers(0, n, cap))]
+    else:
+        body = [np.full(chunk, 3), np.full(chunk - 10, 5), np.full(10, 6),
+                np.full(chunk + 1, 8), np.full(chunk - 1, 9)]
+    gid = np.concatenate(body + [np.full(cap, n)])[:cap].astype(np.int32)
+    vals = rng.normal(0, 1, (9, cap)).astype(np.float32)
+    vals[:, gid == n] = 0.0
+    return torch.from_numpy(gid).to(dev), torch.from_numpy(vals).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["long_run", "all_sentinel", "no_sentinel",
+                                  "chunk_edge"])
+def test_reduce_edge_streams_match_plain(cuda, kind):
+    """Kernel 7 against its plain version on the edge streams (within 1e-5
+    of the largest sum), every column written (the output buffer is
+    recycled from one full of NaN), two launches bit-identical."""
+    from fovsplat_torch.ops.kernels import _build
+    chunk = _build.load("segment_reduce").fs_segment_reduce_chunk()
+    n = 5000
+    gid, vals = _reduce_stream(kind, chunk, n, cuda)
+    junk = torch.full((9, n), float("nan"), device=cuda)
+    del junk
+    rk = sr.reduce_by_sorted_gid(gid, vals, n)
+    rp = sr.reduce_by_sorted_gid_plain(gid, vals, n)
+    assert bool(torch.isfinite(rk).all())
+    if kind == "all_sentinel":
+        assert not bool(rk.any())
+    else:
+        torch.testing.assert_close(rk, rp, rtol=1e-5,
+                                   atol=1e-5 * float(rp.abs().max()))
+    assert torch.equal(rk, sr.reduce_by_sorted_gid(gid, vals, n))
+
+
 def test_frame_matches_cpu_and_counts_launches(cuda):
     sc = proxy.bicycle_proxy(n=N, seed=2)
     cfg = RasterizeConfig(pair_capacity=1 << 20, sort_exact_depth=True)

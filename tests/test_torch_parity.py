@@ -14,6 +14,7 @@ import torch
 
 from fovsplat.ops import foveated as jfov
 from fovsplat.ops import foveation as jfoveation
+from fovsplat.ops import projection as jproj
 from fovsplat.ops.pallas import build_table as ptab
 from fovsplat.ops.rasterize import RasterizeConfig as JConfig
 from fovsplat_torch import convert
@@ -264,6 +265,57 @@ def test_expand_plain_pairs_equal_xla_route(seed, gaze):
     # Pre-sort order: Gaussian order, then tile row-major.
     order = ex.gid[:kept].long() * GX * GY + ex.tile[:kept].long()
     assert bool((order[1:] > order[:-1]).all())
+
+
+@pytest.mark.parametrize("gaze", GAZES)
+def test_expand_plain_capacity_cut_equals_xla_route(gaze):
+    """A pair capacity that cuts a Gaussian's tile rect in the middle
+    keeps the same pairs as the XLA route and drops the same count. The
+    XLA route numbers candidates in depth order and the port in Gaussian
+    order, so the cloud is put in depth order first; the XLA capacity is
+    padded to whole 256-lane chunks, so the cut is a multiple of 256. The
+    XLA route also gives dead rows (hl = -1) candidates that its level
+    cull then rejects, where the port gives them none, so the scene's 20
+    dead rows live at level 0 here."""
+    arrays, cam, _, tc = scene(77)
+    arrays = (*arrays[:6], np.maximum(arrays[6], 0.0))
+    prep = jax.jit(lambda: jproj.preprocess(
+        *[jnp.asarray(a) for a in arrays[:3]], cam))()
+    order = np.argsort(np.where(np.asarray(prep.valid),
+                                np.asarray(prep.depth), np.inf),
+                       kind="stable")
+    arrays = tuple(np.ascontiguousarray(np.asarray(a)[order])
+                   for a in arrays)
+    tm = convert.fov_model_from_numpy(*arrays, device="cpu")
+    levels, _, table, cum, total = port_frame_state(tm, tc, gaze)
+    c, tnum, total = cum.numpy(), table[tbt.ROW_TNUM].numpy(), int(total)
+    inside = lambda p: (c < p) & (p < c + tnum)           # noqa: E731
+    cut = next(p for p in range(256 * (total // 512), total, 256)
+               if inside(p).any())
+    g = int(np.flatnonzero(inside(cut))[0])
+
+    bn = jax.jit(lambda: jfov.rasterize_fov(
+        *[jnp.asarray(a) for a in arrays], cam,
+        gaze=jnp.asarray(gaze, jnp.float32), alpha=ALPHA,
+        config=JConfig(pair_capacity=cut, chunk=256))["binned"])()
+    kept_j = int(bn.num_pairs)
+    assert int(bn.overflow) == total - cut > 0
+    pairs_j = np.sort(np.asarray(bn.pair_gauss)[:kept_j].astype(np.int64)
+                      * GX * GY + np.asarray(bn.pair_tile)[:kept_j])
+
+    ex = texp.expand_fov(table, cum, levels, 4, GX, cut, 1 << 14)
+    kept = int(ex.kept[0])
+    assert kept == kept_j > 500
+    gid = ex.gid[:kept].numpy().astype(np.int64)
+    np.testing.assert_array_equal(np.sort(gid * GX * GY
+                                          + ex.tile[:kept].numpy()), pairs_j)
+    # The cut Gaussian's last kept pair lies before the cut, and no pair
+    # of a later Gaussian is kept.
+    tiles_g = ex.tile[:kept].numpy()[gid == g]
+    rx0, ry0, rw = (int(table[r, g]) for r in (tbt.ROW_RX0, tbt.ROW_RY0,
+                                               tbt.ROW_RW))
+    j = (tiles_g // GX - ry0) * rw + tiles_g % GX - rx0
+    assert (j < cut - c[g]).all() and gid.max() <= g
 
 
 # ----------------------------------------------------------------- (d)

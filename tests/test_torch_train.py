@@ -238,6 +238,49 @@ def test_segment_reduce_plain_matches_jax():
                                rtol=1e-5, atol=1e-5)
 
 
+def _edge_stream(kind, rng, cap, n):
+    """Sorted gid streams at the edges of the kernel's 2,048-lane chunks:
+    a run longer than a chunk, a stream with no sentinel, and runs that
+    end exactly at chunk edges (sentinel n on the tail)."""
+    if kind == "long_run":
+        # gid 4321 covers lanes 1500-4999: across two chunk edges.
+        return np.concatenate([np.sort(rng.integers(0, 4321, 1500)),
+                               np.full(3500, 4321),
+                               np.sort(rng.integers(4322, n, 1692)),
+                               np.full(cap - 6692, n)])
+    if kind == "no_sentinel":
+        return np.sort(rng.integers(0, n, cap))
+    runs = [(3, 2048), (5, 2038), (6, 10), (8, 2049), (9, 2047)]
+    return np.concatenate([np.full(k, g) for g, k in runs]
+                          + [np.full(cap - 8192, n)])
+
+
+@pytest.mark.parametrize("kind", ["long_run", "no_sentinel", "chunk_edge"])
+def test_segment_reduce_plain_edge_streams_match_jax(kind):
+    """reduce_by_sorted_gid_plain against the JAX kernel (interpret) on
+    the edge streams of kernel 7's chunked design, as
+    test_segment_reduce_plain_matches_jax does."""
+    rng = np.random.default_rng(12)
+    cap, n = 512 * 16 * 2, 9000
+    gid = _edge_stream(kind, rng, cap, n).astype(np.int32)
+    assert gid.shape == (cap,) and (np.diff(gid) >= 0).all()
+    vals = rng.normal(0, 1, (9, cap)).astype(np.float32)
+    vals[:, gid == n] = 0.0
+    rows = np.zeros((16, cap), np.float32)
+    rows[0] = gid
+    rows[1:10] = vals
+    n_pad = ((n + 1 + jsr.FLUSH - 1) // jsr.FLUSH) * jsr.FLUSH
+    ref = jsr.reduce_by_sorted_gid(jnp.asarray(rows), n_pad=n_pad,
+                                   interpret=True, skip_from=n)
+    out = tsr.reduce_by_sorted_gid(torch.from_numpy(gid),
+                                   torch.from_numpy(vals), n)
+    ref = np.asarray(ref[1:10, :n])
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    if kind == "long_run":                  # the long run's sums are large
+        assert np.abs(ref[:, 4321]).max() > 10.0
+
+
 # ------------------------------------------------------------------- (e)
 
 def _raster_inputs():
