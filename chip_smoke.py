@@ -15,19 +15,24 @@ into build/kernels first. Phases, one JSON line each on stdout:
      card, at the frame's shapes (the 1,161,358-Gaussian bicycle proxy at
      1237x822, centre gaze, alpha 0.05; kernel 2 also at gaze (0.2, 0.2),
      every output bit for bit and two launches bit-identical) and, for
-     the blend, also on the 150k proxy at 656x528. Integer outputs and
-     the kept count must match exactly, float outputs within the
-     tolerances below;
+     the blend, also on the 150k proxy at 656x528 (two launches
+     bit-identical). Integer outputs and the kept count must match
+     exactly, float outputs within the tolerances below;
   4. the train step's kernels 4-7 against their plain versions at the
      step's full-width shapes (the permuted proxy of bench.py's train leg,
-     1<<22 + N candidates, 3,145,728 kept): kernel 4 exact, the blend forward
+     1<<22 + N candidates, 3,145,728 kept): kernel 4 exact (rows, keys,
+     two launches; also with a pair_capacity that ends inside a rect and
+     a cap_out at half the kept count), the blend forward
      within T_EPS, the backward's per-pair rows within 1e-4 of each row's
      largest value, the gid reduce within 1e-5 of the largest sum and
      bit-identical over two launches;
   5. the frame path: the foveated "ours" frame at full width over the 9
      gazes (3 warm-ups, 20 timed reps each) through eval/fps.py, with every
      launch counter set to 0 just before and read just after; kernels 1-3
-     must have launched, overflow must be 0 and the image finite;
+     must have launched, overflow must be 0 and the image finite; then
+     the frame's times through the harness in both forms, batched and
+     synchronised after every rep (the JAX harness's form, its keys
+     "per_gaze" and "avg" checked);
   6. a torch.profiler window over 10 centre-gaze frames: device time by
      kernel and the device's idle share;
   7. the frame on the card against the same frame on the CPU (plain
@@ -36,14 +41,15 @@ into build/kernels first. Phases, one JSON line each on stdout:
      frame's full-width shapes (the proxy as a PS1 model, 1237x822, the
      train capacities): kernel 1's ps1 mode (integer rows and cum exact,
      floats 1e-5 relative), kernel 4's quantized rows (kept count, tiles,
-     depths, sorted keys and the five rows bit-identical), kernel 5q
+     depths, sorted keys and the five rows bit-identical, also at cut
+     capacities as in phase 4), kernel 5q
      within T_EPS on the full and on emptied segments, kernel 9
      bit-identical on the ps1 table and on the frame's fov table;
   9. the PS1 frame at full width, compaction off and on, 3 warm-ups and
      20 timed frames each, counters set to 0 before and read after: both
      images bit-identical with equal num_pairs, overflow 0, kernels 1p,
-     4q, 5q (and 9 with compaction) launched; then a profiler window over
-     10 frames;
+     4q, 5q (and 9 with compaction) launched; then its times in both
+     harness forms, as in phase 5, and a profiler window over 10 frames;
  10. the PS1 frame on the card against the CPU at 20k / 320x224 (within
      1e-4) and against the port's f32 train-route rasterize of the same
      model (above 40 dB);
@@ -389,13 +395,17 @@ def check_blend(tag, inputs, reps):
     pairs, seg, l1, l2 = blend_inputs(*inputs)
     gx = inputs[4]
     ok_ = bf.blend_fov(pairs, seg, l1, l2, gx)
+    again = bf.blend_fov(pairs, seg, l1, l2, gx)
     op_ = bf.blend_fov_plain(pairs, seg, l1, l2, gx, return_walked=True)
     walked = op_[4]
     err = max(float((a - b).abs().max()) for a, b in zip(ok_, op_[:4]))
+    twice = all(torch.equal(a, b) for a, b in zip(ok_, again))
     emit({"phase": "check", "kernel": "blend_fov", "shape": tag,
-          "max_abs_err": err, "tol": BLEND_ATOL})
-    if not err <= BLEND_ATOL:
-        raise AssertionError(f"blend_fov {tag}: max abs err {err}")
+          "max_abs_err": err, "tol": BLEND_ATOL,
+          "bit_identical_twice": twice})
+    if not (err <= BLEND_ATOL and twice):
+        raise AssertionError(f"blend_fov {tag}: max abs err {err}, "
+                             f"bit-identical twice {twice}")
     times = kernel_times(lambda: bf.blend_fov(pairs, seg, l1, l2, gx), reps)
     plain_ms = cuda_ms(lambda: bf.blend_fov_plain(pairs, seg, l1, l2, gx), 1)
     T = l1.shape[0]
@@ -475,6 +485,60 @@ def train_config(pair_capacity=TRAIN_PAIR_CAPACITY,
         pair_capacity=pair_capacity, compact_capacity=compact_capacity))
 
 
+def check_ps1_exact(table, cum, gx, T, pair_capacity, cap_out, quantize,
+                    tag):
+    """Kernel 4 (or 4q) against its plain version on one table: at the
+    given capacities, kept, tile, depth, the attribute rows' bits and the
+    sorted fused keys exact and a second launch bit-identical; the same
+    with a pair_capacity that ends inside the rect of a Gaussian at the
+    middle of the candidates, and with a cap_out at half the kept
+    count. Returns (the kernel's output at the given capacities,
+    kept)."""
+    import torch
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    kind = "expand_ps1_q" if quantize else "expand_ps1"
+    total = int(cum[-1]) + int(table[ep1.ROW_TNUM, -1])
+    tnum = table[ep1.ROW_TNUM]
+    mid = int(torch.searchsorted(cum, min(total, pair_capacity) // 2,
+                                 right=True)) - 1
+    big = torch.nonzero((tnum >= 4) & (torch.arange(
+        cum.numel(), device=cum.device) >= mid))
+    g = int(big[0]) if big.numel() else mid
+    cut_cap = int(cum[g]) + max(int(tnum[g]) // 2, 1)
+    report = {}
+    first = None
+    for case, pcap, cout in (("full", pair_capacity, cap_out),
+                             ("pair_cut", cut_cap, cap_out),
+                             ("out_cut", pair_capacity, None)):
+        if cout is None:
+            cout = max(int(first.kept) // 2, 1)
+        args = (table, cum, gx, pcap, cout)
+        ek = ep1.expand_ps1(*args, quantize=quantize)
+        again = ep1.expand_ps1(*args, quantize=quantize)
+        ep = ep1.expand_ps1_plain(*args, quantize=quantize)
+        kept = int(ek.kept)
+        k = min(kept, cout)
+        same = {"kept": kept == int(ep.kept) == int(again.kept)}
+        for name in ("tile", "depth", "attrs"):
+            a, b, c = (getattr(e, name)[..., :k].contiguous().view(
+                torch.int32) for e in (ek, ep, again))
+            same[name] = bool(torch.equal(a, b) and torch.equal(a, c))
+        keys = [torch.sort(fov.fused_key32(e.tile, e.depth, torch.clamp(
+            e.kept[0], max=cout), T)[0]).values for e in (ek, ep)]
+        same["sorted_keys"] = torch.equal(*keys)
+        report[case] = {"pair_capacity": pcap, "cap_out": cout,
+                        "kept": kept, "exact": same}
+        if first is None:
+            first = ek
+        if not all(same.values()):
+            emit({"phase": "check", "kernel": kind, "shape": tag, **report})
+            raise AssertionError(f"{kind} {tag} ({case}) differs: {same}")
+    emit({"phase": "check", "kernel": kind, "shape": tag,
+          "candidates": total, **report})
+    return first, int(first.kept)
+
+
 def check_train_kernels(st, cam, gt, results):
     """Kernels 4-7 against their plain versions on the train step's own
     inputs at full width: the 19 columns of the state, the sorted pairs,
@@ -501,15 +565,10 @@ def check_train_kernels(st, cam, gt, results):
 
     # --- kernel 4
     args = (table, cum, gx, TRAIN_PAIR_CAPACITY, cap)
-    ek, ep = ep1.expand_ps1(*args), ep1.expand_ps1_plain(*args)
-    kept, cand = int(ek.kept), int(total)
-    if kept != int(ep.kept):
-        raise AssertionError(f"expand_ps1 kept {kept} vs {int(ep.kept)}")
+    ek, kept = check_ps1_exact(table, cum, gx, T, TRAIN_PAIR_CAPACITY, cap,
+                               False, "train table")
+    cand = int(total)
     k = min(kept, cap)
-    for name in ("tile", "depth", "attrs"):
-        if not torch.equal(getattr(ek, name)[..., :k],
-                           getattr(ep, name)[..., :k]):
-            raise AssertionError(f"expand_ps1 {name} differs from plain")
     nbytes = table.numel() * 4 + n * 4 + k * 48
     # ~30 FLOP of OBB test per candidate pair walked.
     b_ms, b_by = bound(nbytes, 30.0 * min(cand, TRAIN_PAIR_CAPACITY))
@@ -519,8 +578,6 @@ def check_train_kernels(st, cam, gt, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"N={n}, {cam.width}x{cam.height}, candidates={cand}, "
               f"kept={kept}")
-    emit({"phase": "check", "kernel": "expand_ps1", "candidates": cand,
-          "kept": kept, "exact": ["kept", "tile", "depth", "attrs"]})
 
     key, dbits = fov.fused_key32(ek.tile, ek.depth,
                                  torch.clamp(ek.kept[0], max=cap), T)
@@ -1143,23 +1200,10 @@ def check_inference_kernels(dev, fov_table, results):
 
     # --- 4q
     args = (tk, ck, gx, TRAIN_PAIR_CAPACITY, TRAIN_COMPACT_CAPACITY)
-    ek = ep1.expand_ps1(*args, quantize=True)
-    ep = ep1.expand_ps1_plain(*args, quantize=True)
-    kept = int(ek.kept)
+    ek, kept = check_ps1_exact(tk, ck, gx, T, TRAIN_PAIR_CAPACITY,
+                               TRAIN_COMPACT_CAPACITY, True, "PS1 table")
     k = min(kept, TRAIN_COMPACT_CAPACITY)
-    same = {"kept": kept == int(ep.kept),
-            "tile": torch.equal(ek.tile[:k], ep.tile[:k]),
-            "depth": torch.equal(ek.depth[:k], ep.depth[:k]),
-            "rows_bits": torch.equal(ek.attrs[:, :k].view(torch.int32),
-                                     ep.attrs[:, :k].view(torch.int32))}
     key, dbits = fov.fused_key32(ek.tile, ek.depth, ek.kept[0], T)
-    key_p, _ = fov.fused_key32(ep.tile, ep.depth, ep.kept[0], T)
-    same["sorted_keys"] = torch.equal(torch.sort(key).values,
-                                      torch.sort(key_p).values)
-    emit({"phase": "check", "kernel": "expand_ps1_q", "candidates": cand,
-          "kept": kept, "exact": same})
-    if not all(same.values()):
-        raise AssertionError(f"expand_ps1 quantized differs: {same}")
     b_ms, b_by = bound(tk.numel() * 4 + n * 4 + k * 28,
                        30.0 * min(cand, TRAIN_PAIR_CAPACITY))
     results["expand_ps1_q"] = dict(
@@ -1469,6 +1513,28 @@ def run_mmfr(cam, kernels):
     return launches
 
 
+def frame_times(path, render, cam, gazes):
+    """One frame's times through eval/fps.py's harness in both forms:
+    batched (3 warm-ups, CUDA events around 20 reps) and per-rep
+    synchronised, the JAX harness's form (10 warm-ups, a host read after
+    each of 5 reps, host clock). Checks the harness's six keys and that
+    "avg" is the mean of "per_gaze"."""
+    from fovsplat_torch.eval import fps
+    keys = {"per_gaze_ms", "per_gaze_fps", "avg_ms", "avg_fps", "per_gaze",
+            "avg"}
+    row = {"phase": "frame_times", "path": path, "gazes": len(gazes)}
+    for form, sync in (("batched", False), ("per_rep_sync", True)):
+        res = fps.fps_benchmark(render, [cam], gazes=gazes,
+                                sync_every_rep=sync, log=lambda *_: None)
+        mean = sum(res["per_gaze"]) / len(res["per_gaze"])
+        if set(res) != keys or not math.isclose(res["avg"], mean,
+                                                rel_tol=1e-12):
+            raise AssertionError(f"fps_benchmark returned {sorted(res)}")
+        row[form] = {"avg_ms": res["avg_ms"], "avg_fps": res["avg"],
+                     "per_gaze_ms": res["per_gaze_ms"]}
+    emit(row)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1560,6 +1626,7 @@ def main():
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched on the frame path")
 
+    frame_times("ours", render, cam, fps.GAZES)
     gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=dev)
     emit({"phase": "profile", "path": "frame, centre gaze",
           **profile_window(lambda: render(cam, gaze), 10)})
@@ -1599,11 +1666,13 @@ def main():
                    ("blend_forward_q", "blend_forward_q")):
         launches[row] = pl["plain_table"][k] + pl["compact_table"][k]
     launches["compact_table"] = pl["compact_table"]["compact_table"]
+    ps1_cfg = RasterizeConfig(pair_capacity=TRAIN_PAIR_CAPACITY,
+                              compact_capacity=TRAIN_COMPACT_CAPACITY)
+    frame_times("PS1", lambda c, _gaze: rast.rasterize_ps1_soa(
+        ps1_model, c, config=ps1_cfg), ps1_cam, [(0.5, 0.5)])
     emit({"phase": "profile", "path": "PS1 frame",
           **profile_window(lambda: rast.rasterize_ps1_soa(
-              ps1_model, ps1_cam, config=RasterizeConfig(
-                  pair_capacity=TRAIN_PAIR_CAPACITY,
-                  compact_capacity=TRAIN_COMPACT_CAPACITY)), 10)})
+              ps1_model, ps1_cam, config=ps1_cfg), 10)})
     ps1_vs_cpu_and_f32()
     run_smfr(cam, all_kernels)
     run_mmfr(cam, all_kernels)

@@ -1,24 +1,51 @@
 // Kernel 3 of the foveated frame: the dual-transmittance tile blend.
 //
-// Replaces fovsplat/ops/pallas/blend_fov.py:408 blend_fov_pallas. One
-// 256-thread block per 16x16 tile, one thread per pixel, as the
-// reference's renderCUDA_blending: the tile's segment of the sorted pair
-// list is staged through shared memory 256 pairs at a time, and each
-// thread walks the pairs front to back with two chains (T1, C1) and
-// (T2, C2). l1_active / l2_active mask each chain per pixel; a tile whose
-// l2_active is all zero runs one chain. Rules (the per-pixel semantics of
-// fovsplat/ops/foveated.py:315 _dual_blend):
+// Replaces fovsplat/ops/pallas/blend_fov.py:408 blend_fov_pallas. Each
+// 16x16 tile walks its segment of the sorted pair list front to back with
+// two chains per pixel, (T1, C1) and (T2, C2), as the reference's
+// renderCUDA_blending. l1_active / l2_active mask each chain per pixel; a
+// tile whose l2_active is all zero runs one chain. Rules (the per-pixel
+// semantics of fovsplat/ops/foveated.py:315 _dual_blend):
 //   alpha = min(0.99, op * exp(power)); skip when alpha < 1/255, power > 0
 //   or power < power_cutoff; a chain freezes BEFORE blending the pair that
-//   would take T below 1e-4; the block stops once every pixel is frozen
-//   or inactive in both chains.
+//   would take T below 1e-4; a tile stops once every pixel is frozen or
+//   inactive in both chains.
 // An L2-culled pair carries op2 = -1 (expand_fov.cu), which the alpha
-// test rejects. expf, not __expf, and no fast math.
+// test rejects. expf, not __expf, and no fast math: the per-pair-pixel
+// arithmetic is op for op that of blend_fov_plain, which keeps the freeze
+// decisions, and so the images, within T_EPS of it.
 //
-// Bound: operations in the pair-pixel loop (~30 FLOP and one expf per
-// pair and pixel); the pair list itself is read once per tile. Staging
-// through shared memory makes each pair one coalesced read per block
-// instead of 256.
+// Bound: operations. The bound counts 25 FLOP a walked pair-pixel; the
+// loop issues about 50-70 instructions for one pair and warp (the power,
+// an accurate expf, two chain steps, the loop's tests), and a warp walks
+// until its last pixel freezes, so the issue rate, not the pair list's
+// bytes (read once per tile), is what limits the kernel. The design keeps
+// the arithmetic and changes the data movement and the schedule; each
+// change is measured against the others by tools/ablate_blend_fov.py
+// (numbers in PERF.md):
+//
+// - Packed staging: each pair is staged as a 16-float record (the 13 rows
+//   of ATTR_ROWS in order, padded), so a thread reads a pair with four
+//   128-bit broadcast loads instead of 13 scalar ones.
+// - Overlapped loads: a two-stage ring of BATCH records, filled with
+//   cp.async, one barrier a batch. Batch k + 1 is in flight while batch k
+//   blends; the barrier also counts the live pixels (the early exit).
+//   Plain loads in the same ring were as fast at the centre gaze and up
+//   to a tenth slower at a corner gaze; 64 or 256 records a stage are no
+//   faster.
+// - 8x4 pixel blocks a warp (pixel_of), not 16x2 rows: a Gaussian covers
+//   a compact block whole more often, so fewer lanes idle and a warp's
+//   pixels freeze closer together. It pays about a sixth over 16x2.
+// - Heaviest tiles first: order_kernel sorts the tiles by segment length
+//   (quarter-octave buckets, longest first) and a persistent grid of the
+//   resident blocks takes the tiles in that order from an atomic counter,
+//   so the foveal tiles start first instead of ending the last wave. It
+//   pays about a fifth over raster order. A tile's output depends only on
+//   its own segment, so neither the order nor the block that blends it can
+//   change a bit.
+// - One pixel a thread (PPT = 1). Two pixels a thread share a record's
+//   loads but double a warp's footprint and are much slower; forcing more
+//   resident blocks (fewer registers) is slower too.
 
 #include <cuda_runtime.h>
 
@@ -28,14 +55,23 @@ namespace {
 
 constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;
+constexpr int PPT = 1;                 // pixels a thread (see above)
+constexpr int THREADS = PIX / PPT;     // threads a tile (a block)
+constexpr int BATCH = 128;             // records a ring stage
+constexpr int STAGES = 2;
+constexpr int REC = 16;                // floats a staged record
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
-// Pair attribute rows (ops/kernels/expand_fov.py ATTR_ROWS).
+// Pair attribute rows (ops/kernels/expand_fov.py ATTR_ROWS); record slot a
+// holds row a: q[0] = (mx, my, ca, cb), q[1] = (cc, op1, op2, r1),
+// q[2] = (g1, b1, r2, g2), q[3] = (b2, -, -, -).
 constexpr int NUM_ATTRS = 13;
-enum Attr {
-  A_MX = 0, A_MY, A_CA, A_CB, A_CC, A_OP1, A_OP2, A_R1, A_G1, A_B1, A_R2,
-  A_G2, A_B2
+constexpr int ORDER_THREADS = 1024;
+constexpr int BUCKETS = 128;
+
+struct alignas(16) Rec {
+  float4 q[REC / 4];
 };
 
 struct Chain {
@@ -61,71 +97,228 @@ struct Chain {
   }
 };
 
-__global__ void __launch_bounds__(PIX)
-blend_fov_kernel(const float* __restrict__ attrs, int cap,
-                 const int* __restrict__ seg_start,
-                 const bool* __restrict__ l1_active,
-                 const bool* __restrict__ l2_active, int grid_x,
-                 float power_cutoff, float* __restrict__ out) {
-  __shared__ float sm[NUM_ATTRS][PIX];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const float px = static_cast<float>((t % grid_x) * TILE + p % TILE);
-  const float py = static_cast<float>((t / grid_x) * TILE + p / TILE);
-  const bool act1 = l1_active[t * PIX + p];
-  const bool act2 = l2_active[t * PIX + p];
-  const bool dual = __syncthreads_or(act2);
-  Chain c1, c2;
-  c1.done = !act1;
-  c2.done = !(dual && act2);
-  const int start = seg_start[t], end = seg_start[t + 1];
+__device__ inline void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
 
-  for (int base = start; base < end; base += PIX) {
-    if (__syncthreads_count(!(c1.done && c2.done)) == 0) break;
-    const int i = base + p;
-    if (i < end) {
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issue the copies of `count` pairs from `base` into one ring stage, row
+// by row so that a warp's 32 reads of a row are consecutive, and commit
+// them as one group.
+__device__ inline void stage_batch(const float* __restrict__ attrs, int cap,
+                                   int base, int count, Rec* dst) {
+  float* d = reinterpret_cast<float*>(dst);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < NUM_ATTRS * BATCH; e += THREADS) {
+    const int a = e / BATCH, i = e % BATCH;
+    if (i < count)
+      cp_async4(d + i * REC + a,
+                attrs + static_cast<size_t>(a) * cap + base + i);
+  }
+  cp_async_commit();
+}
+
+// The pixel (row-major in the tile) of slot s = thread * PPT + k: each
+// warp takes an 8x4 block of the tile, which a Gaussian's footprint more
+// often covers whole than a 16x2 row pair.
+__device__ inline int pixel_of(int s) {
+  const int w = s >> 5, l = s & 31;
+  return ((w >> 1) * 4 + (l >> 3)) * TILE + (w & 1) * 8 + (l & 7);
+}
+
+// One staged pair against one pixel, in the plain version's order.
+__device__ inline void blend_pair(const float4 (&q)[REC / 4], float px,
+                                  float py, float power_cutoff, Chain& c1,
+                                  Chain& c2) {
+  const float dx = q[0].x - px;
+  const float dy = q[0].y - py;
+  const float power = -0.5f * (q[0].z * dx * dx + q[1].x * dy * dy) -
+                      q[0].w * dx * dy;
+  if (!(power <= 0.0f && power >= power_cutoff)) return;  // NaN too
+  const float G = expf(power);
+  if (!c1.done) c1.step(q[1].y, G, q[1].w, q[2].x, q[2].y);
+  if (!c2.done) c2.step(q[1].z, G, q[2].z, q[2].w, q[3].x);
+}
+
+__device__ inline void blend_tile(const float* __restrict__ attrs, int cap,
+                                  const int* __restrict__ seg_start,
+                                  const bool* __restrict__ l1_active,
+                                  const bool* __restrict__ l2_active,
+                                  int grid_x, float power_cutoff,
+                                  float* __restrict__ out, int t,
+                                  Rec (*ring)[BATCH]) {
+  const int start = seg_start[t], end = seg_start[t + 1];
+  const int x0 = (t % grid_x) * TILE, y0 = (t / grid_x) * TILE;
+  int pix[PPT];
+  float px[PPT], py[PPT];
+  Chain c1[PPT], c2[PPT];
+  bool act2[PPT];
+  bool any2 = false;
 #pragma unroll
-      for (int a = 0; a < NUM_ATTRS; ++a)
-        sm[a][p] = attrs[static_cast<size_t>(a) * cap + i];
+  for (int k = 0; k < PPT; ++k) {
+    const int p = pix[k] = pixel_of(threadIdx.x * PPT + k);
+    px[k] = static_cast<float>(x0 + p % TILE);
+    py[k] = static_cast<float>(y0 + p / TILE);
+    c1[k].done = !l1_active[t * PIX + p];
+    act2[k] = l2_active[t * PIX + p];
+    any2 = any2 || act2[k];
+  }
+  const bool dual = __syncthreads_or(any2);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) c2[k].done = !(dual && act2[k]);
+
+  const int count = end - start;
+  const int nb = (count + BATCH - 1) / BATCH;
+  if (nb > 0) stage_batch(attrs, cap, start, min(BATCH, count), ring[0]);
+  for (int b = 0; b < nb; ++b) {
+    // Batch b has landed (this thread's copies); after the barrier every
+    // thread's copies are visible and batch b - 1's stage is free.
+    cp_async_wait_all();
+    bool live = false;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) live = live || !(c1[k].done && c2[k].done);
+    if (__syncthreads_count(live) == 0) break;
+    if (b + 1 < nb) {
+      const int next = (b + 1) * BATCH;
+      stage_batch(attrs, cap, start + next, min(BATCH, count - next),
+                  ring[(b + 1) & 1]);
     }
-    __syncthreads();
-    const int m = min(PIX, end - base);
-    for (int j = 0; j < m && !(c1.done && c2.done); ++j) {
-      const float dx = sm[A_MX][j] - px;
-      const float dy = sm[A_MY][j] - py;
-      const float power = -0.5f * (sm[A_CA][j] * dx * dx +
-                                   sm[A_CC][j] * dy * dy) -
-                          sm[A_CB][j] * dx * dy;
-      if (!(power <= 0.0f && power >= power_cutoff)) continue;  // NaN too
-      const float G = expf(power);
-      if (!c1.done)
-        c1.step(sm[A_OP1][j], G, sm[A_R1][j], sm[A_G1][j], sm[A_B1][j]);
-      if (!c2.done)
-        c2.step(sm[A_OP2][j], G, sm[A_R2][j], sm[A_G2][j], sm[A_B2][j]);
+    const Rec* recs = ring[b & 1];
+    const int m = min(BATCH, count - b * BATCH);
+    for (int j = 0; j < m; ++j) {
+      bool walk = false;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+        walk = walk || !(c1[k].done && c2[k].done);
+      if (!walk) break;
+      // The whole record at once: reading the colours only when a chain
+      // steps takes fewer registers (48 against 60) but is slower.
+      float4 q[REC / 4];
+#pragma unroll
+      for (int s = 0; s < REC / 4; ++s) q[s] = recs[j].q[s];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+        if (!(c1[k].done && c2[k].done))
+          blend_pair(q, px[k], py[k], power_cutoff, c1[k], c2[k]);
     }
-    __syncthreads();
   }
 
   // out (T, 8, PIX): C1 rgb, T1, C2 rgb, T2. An inactive chain leaves
   // C = 0, T = 1, as the plain version does.
-  float* o = out + static_cast<size_t>(t) * 8 * PIX + p;
-  o[0 * PIX] = c1.r;
-  o[1 * PIX] = c1.g;
-  o[2 * PIX] = c1.b;
-  o[3 * PIX] = c1.T;
-  o[4 * PIX] = c2.r;
-  o[5 * PIX] = c2.g;
-  o[6 * PIX] = c2.b;
-  o[7 * PIX] = c2.T;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    float* o = out + static_cast<size_t>(t) * 8 * PIX + pix[k];
+    o[0 * PIX] = c1[k].r;
+    o[1 * PIX] = c1[k].g;
+    o[2 * PIX] = c1[k].b;
+    o[3 * PIX] = c1[k].T;
+    o[4 * PIX] = c2[k].r;
+    o[5 * PIX] = c2[k].g;
+    o[6 * PIX] = c2[k].b;
+    o[7 * PIX] = c2[k].T;
+  }
+}
+
+// Persistent blocks take tiles from the atomic counter *next_tile, in the
+// order of order_kernel, until every tile is blended.
+__global__ void __launch_bounds__(THREADS)
+blend_fov_kernel(const float* __restrict__ attrs, int cap,
+                 const int* __restrict__ seg_start,
+                 const int* __restrict__ order, int* __restrict__ next_tile,
+                 int num_tiles, const bool* __restrict__ l1_active,
+                 const bool* __restrict__ l2_active, int grid_x,
+                 float power_cutoff, float* __restrict__ out) {
+  __shared__ Rec ring[STAGES][BATCH];
+  __shared__ int tile_slot[2];
+  for (int it = 0;; ++it) {
+    if (threadIdx.x == 0) {
+      const int k = atomicAdd(next_tile, 1);
+      tile_slot[it & 1] = k < num_tiles ? order[k] : -1;
+    }
+    __syncthreads();
+    const int t = tile_slot[it & 1];
+    if (t < 0) return;
+    blend_tile(attrs, cap, seg_start, l1_active, l2_active, grid_x,
+               power_cutoff, out, t, ring);
+  }
+}
+
+// Quarter-octave bucket of a segment length; 0 for an empty segment.
+__device__ inline int length_bucket(int len) {
+  if (len <= 0) return 0;
+  const int lg = 31 - __clz(len);
+  const int frac = lg >= 2 ? (len >> (lg - 2)) & 3 : (len << (2 - lg)) & 3;
+  return min(1 + 4 * lg + frac, BUCKETS - 1);
+}
+
+// One block: order[] = the tiles by descending length bucket (a counting
+// sort; the order within a bucket is whatever the shared atomics give,
+// which changes no output), and *next_tile = 0.
+__global__ void __launch_bounds__(ORDER_THREADS)
+order_kernel(const int* __restrict__ seg_start, int num_tiles,
+             int* __restrict__ order, int* __restrict__ next_tile) {
+  __shared__ int cursor[BUCKETS];
+  for (int b = threadIdx.x; b < BUCKETS; b += ORDER_THREADS) cursor[b] = 0;
+  __syncthreads();
+  for (int t = threadIdx.x; t < num_tiles; t += ORDER_THREADS)
+    atomicAdd(&cursor[length_bucket(seg_start[t + 1] - seg_start[t])], 1);
+  __syncthreads();
+  // The longest bucket first: thread i scans bucket BUCKETS - 1 - i.
+  const int b = BUCKETS - 1 - static_cast<int>(threadIdx.x);
+  const int v = b >= 0 ? cursor[b] : 0;
+  int total;
+  const int first = fs::block_exclusive_scan<ORDER_THREADS>(v, &total);
+  if (b >= 0) cursor[b] = first;
+  __syncthreads();
+  for (int t = threadIdx.x; t < num_tiles; t += ORDER_THREADS)
+    order[atomicAdd(&cursor[length_bucket(seg_start[t + 1] - seg_start[t])],
+                    1)] = t;
+  if (threadIdx.x == 0) *next_tile = 0;
 }
 
 }  // namespace
 
+// scratch: num_tiles + 1 ints (the tile order and the tile counter).
 FS_EXPORT int fs_blend_fov(const float* attrs, int cap, const int* seg_start,
                            const bool* l1_active, const bool* l2_active,
                            int num_tiles, int grid_x, float power_cutoff,
-                           float* out, void* stream) {
-  blend_fov_kernel<<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      attrs, cap, seg_start, l1_active, l2_active, grid_x, power_cutoff, out);
+                           int* scratch, float* out, void* stream) {
+  if (num_tiles < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Resident blocks of the persistent grid, per device.
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, blend_fov_kernel, THREADS, 0);
+    if (err != cudaSuccess) return err;
+    if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  int* order = scratch;
+  int* next_tile = scratch + num_tiles;
+  order_kernel<<<1, ORDER_THREADS, 0, s>>>(seg_start, num_tiles, order,
+                                           next_tile);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blend_fov_kernel<<<min(num_tiles, resident[dev]), THREADS, 0, s>>>(
+      attrs, cap, seg_start, order, next_tile, num_tiles, l1_active,
+      l2_active, grid_x, power_cutoff, out);
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Shared pieces of the port's CUDA sources: the block-local exclusive scan
 // and the linear carry that finishes it across blocks (the tiles-touched
-// cumsum of build_table.cu, the kept-pair offsets of expand_fov.cu and
-// expand_ps1.cu, the column offsets of compact_table.cu), and the
-// error-string export.
+// cumsum of build_table.cu, the block offsets of expand_fov.cu and
+// expand_ps1.cu, the column offsets of compact_table.cu), the candidate
+// search of the two candidate-parallel expansions, and the error-string
+// export.
 //
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that the Python wrapper can raise on a
@@ -105,6 +106,38 @@ add_carry_kernel(int* __restrict__ out, const int* __restrict__ block_sums,
                  int n) {
   const int i = blockIdx.x * SCAN_BLOCK + threadIdx.x;
   if (i < n) out[i] += block_sums[blockIdx.x];
+}
+
+// Largest g in [lo, hi] with cum[g] <= c (cum ascending, cum[lo] <= c): the
+// Gaussian that owns candidate c of the expansions' cumsum.
+__device__ inline int owner(const int* __restrict__ cum, int lo, int hi,
+                            int c) {
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo + 1) >> 1);
+    if (cum[mid] <= c) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The candidates [base, last] of block blockIdx.x of a candidate-parallel
+// expansion, CHUNK a block, and the Gaussians of both ends in span[0] and
+// span[1]. The last candidate is min(total, pair_cap) - 1, total =
+// cum[n - 1] + tnum[n - 1] read on the device. Returns -1 when the block
+// has none (then span is not written). Uniform over the block; ends with a
+// barrier.
+template <int CHUNK>
+__device__ inline int block_span(const int* __restrict__ cum,
+                                 const float* __restrict__ tnum, int n,
+                                 int pair_cap, int* span) {
+  const int total = n > 0 ? cum[n - 1] + static_cast<int>(tnum[n - 1]) : 0;
+  const int limit = min(total, pair_cap);
+  const int base = blockIdx.x * CHUNK;
+  if (base >= limit) return -1;
+  const int last = min(base + CHUNK, limit) - 1;
+  if (threadIdx.x == 0) span[0] = owner(cum, 0, n - 1, base);
+  if (threadIdx.x == 32) span[1] = owner(cum, 0, n - 1, last);
+  __syncthreads();
+  return last;
 }
 
 inline int scan_blocks(int n) { return (n + SCAN_BLOCK - 1) / SCAN_BLOCK; }

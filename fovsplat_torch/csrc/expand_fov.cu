@@ -124,16 +124,6 @@ __device__ inline bool keep_pair(const Gauss& q, int tx, int ty,
   return lv < q.hl + 1.0f;
 }
 
-// Largest g in [lo, hi] with cum[g] <= c (cum ascending, cum[lo] <= c).
-__device__ inline int owner(const int* __restrict__ cum, int lo, int hi,
-                            int c) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo + 1) >> 1);
-    if (cum[mid] <= c) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
 // One candidate: its Gaussian (searched from *g_from on), tile and keep
 // flag. The owners of a block's candidates lie in [g_from, g_last].
 struct Cand {
@@ -149,7 +139,7 @@ __device__ inline Cand candidate(const float* __restrict__ table,
                                  int grid_x, int use_obb, int c, int* g_from,
                                  int g_last) {
   Cand k;
-  k.g = owner(cum, *g_from, g_last, c);
+  k.g = fs::owner(cum, *g_from, g_last, c);
   *g_from = k.g;
   k.q = load_gauss(table, cum, n, k.g);
   const int j = c - k.q.cum;
@@ -160,30 +150,13 @@ __device__ inline Cand candidate(const float* __restrict__ table,
   return k;
 }
 
-// The block's candidates [base, last] (last < 0: none) and the Gaussians of
-// both ends, in span[0] and span[1]. Uniform over the block.
-__device__ inline int block_span(const float* __restrict__ table,
-                                 const int* __restrict__ cum, int n,
-                                 int pair_cap, int* span) {
-  const int total = n > 0 ? cum[n - 1] + static_cast<int>(
-                                table[static_cast<size_t>(R_TNUM) * n + n - 1])
-                          : 0;
-  const int limit = min(total, pair_cap);
-  const int base = blockIdx.x * CHUNK;
-  if (base >= limit) return -1;
-  const int last = min(base + CHUNK, limit) - 1;
-  if (threadIdx.x == 0) span[0] = owner(cum, 0, n - 1, base);
-  if (threadIdx.x == 32) span[1] = owner(cum, 0, n - 1, last);
-  __syncthreads();
-  return last;
-}
-
 __global__ void __launch_bounds__(BLOCK)
 count_kernel(const float* __restrict__ table, const int* __restrict__ cum,
              const float* __restrict__ levels, int n, int grid_x,
              int pair_cap, int use_obb, int* __restrict__ counts) {
   __shared__ int span[2];
-  const int last = block_span(table, cum, n, pair_cap, span);
+  const int last = fs::block_span<CHUNK>(
+      cum, table + static_cast<size_t>(R_TNUM) * n, n, pair_cap, span);
   if (last < 0) {
     if (threadIdx.x == 0) counts[blockIdx.x] = 0;
     return;
@@ -210,7 +183,8 @@ write_kernel(const float* __restrict__ table, const int* __restrict__ cum,
              int* __restrict__ tile_out, float* __restrict__ depth_out,
              int* __restrict__ gid_out, float* __restrict__ attrs) {
   __shared__ int span[2];
-  const int last = block_span(table, cum, n, pair_cap, span);
+  const int last = fs::block_span<CHUNK>(
+      cum, table + static_cast<size_t>(R_TNUM) * n, n, pair_cap, span);
   if (last < 0) return;
   int g_from = span[0];
   const int g_last = span[1];

@@ -4,11 +4,14 @@
 The reference's compose_gazes harness shape: a 3x3 grid of gazes
 (0.2 / 0.5 / 0.8 on each axis), warm-ups, then timed repetitions of the
 render call. Time comes from a pair of torch.cuda.Event around each batch
-of repetitions, with one synchronize per batch; the harness refuses to
-time anything but a CUDA render.
+of repetitions, with one synchronize per batch, or, as the JAX harness
+times it, from the host clock with a host read after every repetition;
+the harness refuses to time anything but a CUDA render.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -88,33 +91,63 @@ def mmfr_models_from_composed(composed):
     return models
 
 
-def fps_benchmark(render_fn, cameras, gazes=GAZES, warmups: int = 3,
-                  reps: int = 20, log=print) -> dict:
+def fps_benchmark(render_fn, cameras, gazes=GAZES, warmups: int | None = None,
+                  reps: int | None = None, sync_every_rep: bool = False,
+                  log=print) -> dict:
     """render_fn(camera, gaze) -> dict with "render". Returns per-gaze
-    mean ms and FPS and the averages over gazes."""
+    mean ms and FPS and their averages over gazes: "per_gaze_ms",
+    "per_gaze_fps", "avg_ms", "avg_fps", and the JAX harness's keys
+    "per_gaze" (FPS, the same list as "per_gaze_fps") and "avg" (their
+    mean).
+
+    By default (3 warm-ups, 20 reps) each camera's reps run as one batch
+    between two CUDA events, with one synchronize per batch. With
+    `sync_every_rep`, the JAX form (fps.py:144-168; 10 warm-ups, 5 reps):
+    each rep reads one pixel back to the host and time is the host clock's,
+    so a host-bound frame's dispatch is timed as a caller that waits for
+    each frame sees it."""
     dev = cameras[0].device
     if dev.type != "cuda":
         raise RuntimeError("fps_benchmark times the card; got cameras on "
                            f"{dev}")
+    if warmups is None:
+        warmups = 10 if sync_every_rep else 3
+    if reps is None:
+        reps = 5 if sync_every_rep else 20
+
+    def force(out):
+        return float(out["render"].reshape(-1)[0])
+
+    def batch_ms(cam, gaze):
+        if sync_every_rep:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                force(render_fn(cam, gaze))
+            return (time.perf_counter() - t0) * 1000.0 / reps
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            render_fn(cam, gaze)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
     per_ms = []
     for gz in gazes:
         gaze = torch.tensor(gz, dtype=torch.float32, device=dev)
+        if sync_every_rep:
+            force(render_fn(cameras[0], gaze))
         for _ in range(warmups):
-            render_fn(cameras[0], gaze)
+            out = render_fn(cameras[0], gaze)
+            if sync_every_rep:
+                force(out)
         torch.cuda.synchronize(dev)
-        times = []
-        for cam in cameras:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                render_fn(cam, gaze)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-        ms = float(np.mean(times))
+        ms = float(np.mean([batch_ms(cam, gaze) for cam in cameras]))
         per_ms.append(ms)
         log(f"[fps] gaze={gz} ms={ms:.3f} fps={1000.0 / ms:.1f}")
     per_fps = [1000.0 / ms for ms in per_ms]
+    avg_fps = float(np.mean(per_fps))
     return {"per_gaze_ms": per_ms, "per_gaze_fps": per_fps,
-            "avg_ms": float(np.mean(per_ms)), "avg_fps": float(np.mean(per_fps))}
+            "avg_ms": float(np.mean(per_ms)), "avg_fps": avg_fps,
+            "per_gaze": per_fps, "avg": avg_fps}

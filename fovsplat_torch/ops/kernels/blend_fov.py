@@ -14,8 +14,10 @@ differs from them by at most T_EPS: its default prefix_mode="scan" stops
 at chunk granularity, and it accepts power <= 3e-3.
 
 Bound on the card: operations (an expf and ~30 FLOP per pair and pixel
-until the tile saturates); pairs are staged through shared memory so each
-is read from device memory once per tile.
+until the tile saturates). Pairs are staged through shared memory as
+packed 16-float records by asynchronous copies, each warp blends an 8x4
+pixel block, and a persistent grid takes the tiles longest segment first
+(see the source header); the order changes no output bit.
 """
 
 from __future__ import annotations
@@ -137,14 +139,17 @@ def blend_fov(pairs, seg_start, l1_active, l2_active, grid_x: int,
         ("l1_active", l1_active, torch.bool, (T, PIX)),
         ("l2_active", l2_active, torch.bool, (T, PIX))))
     out = torch.empty((T, 8, PIX), dtype=torch.float32, device=dev)
+    # The kernel's tile order and tile counter.
+    scratch = torch.empty(T + 1, dtype=torch.int32, device=dev)
     lib = _build.load("blend_fov")
     fn = lib.fs_blend_fov
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, P, P, I, I, ctypes.c_float, P, P]
+    fn.argtypes = [P, I, P, P, P, I, I, ctypes.c_float, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), pairs.shape[1], seg_start.data_ptr(),
              l1_active.data_ptr(), l2_active.data_ptr(), T, grid_x,
-             float(power_cutoff), out.data_ptr(), _build.stream_ptr(dev))
+             float(power_cutoff), scratch.data_ptr(), out.data_ptr(),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "blend_fov")
     blend_fov.launches += 1
     return _split(out)

@@ -19,8 +19,10 @@ Capacities: candidates whose index in the cumsum is at or past
 caller counts both into `overflow`. The candidate count has no dummy
 pairs (the JAX count includes one per invalid row).
 
-Bound on the card: bytes (see the source header); the compaction is
-deterministic (count, scan, write) and needs no atomics.
+Bound on the card: bytes (see the source header). The kernel takes one
+thread per candidate, as kernel 2 does, finding its Gaussian by a search
+over `cum`; the compaction is deterministic (count per block, scan,
+write) and needs no atomics.
 """
 
 from __future__ import annotations
@@ -176,26 +178,24 @@ def expand_ps1(table, cum, grid_x: int, pair_capacity: int, cap_out: int,
     if not (0 < n < MAX_GAUSSIANS and cap_out >= 1 and pair_capacity >= 1):
         raise ValueError(f"expand_ps1: n={n} must lie in [1, 2^24) and the "
                          "capacities must be positive")
+    lib = _build.load("expand_ps1")
+    chunk = lib.fs_expand_ps1_chunk()
     i32 = dict(dtype=torch.int32, device=dev)
-    counts = torch.empty(n, **i32)
-    offsets = torch.empty(n, **i32)
-    block_sums = torch.empty(_build.scan_blocks(n), **i32)
+    counts = torch.empty((pair_capacity + chunk - 1) // chunk, **i32)
     kept = torch.empty(1, **i32)
     tile = torch.empty(cap_out, **i32)
     depth = torch.empty(cap_out, dtype=torch.float32, device=dev)
     attrs = torch.empty((len(Q_ROWS if quantize else ATTR_ROWS), cap_out),
                         dtype=torch.float32, device=dev)
 
-    lib = _build.load("expand_ps1")
     fn = lib.fs_expand_ps1
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P] + [I] * 6 + [P] * 8
+    fn.argtypes = [P, P] + [I] * 6 + [P] * 6
     fn.restype = I
     err = fn(table.data_ptr(), cum.data_ptr(), n, grid_x, pair_capacity,
              cap_out, int(use_obb), int(quantize), counts.data_ptr(),
-             offsets.data_ptr(), block_sums.data_ptr(), kept.data_ptr(),
-             tile.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
-             _build.stream_ptr(dev))
+             kept.data_ptr(), tile.data_ptr(), depth.data_ptr(),
+             attrs.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "expand_ps1")
     expand_ps1.launches += 1
     return Expanded(tile=tile, depth=depth, attrs=attrs, kept=kept)

@@ -13,7 +13,7 @@ from typing import Callable
 
 import torch
 
-from fovsplat_torch.models.gaussians import GaussianParams
+from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.train import losses, optim
 from fovsplat_torch.utils.device import resolve_device
@@ -26,6 +26,7 @@ class TrainConfig:
     lambda_dssim: float = 0.2
     sh_degree: int = 3
     spatial_lr_scale: float = 1.0
+    masking: bool = False   # train only DC-SH + opacity (metric_mask_learn)
 
 
 def render_params(params: GaussianParams, camera, cfg: TrainConfig,
@@ -34,6 +35,14 @@ def render_params(params: GaussianParams, camera, cfg: TrainConfig,
         params.xyz, params.get_scaling(), params.get_rotation(),
         params.get_opacity(), camera, shs=params.get_features(),
         sh_degree=cfg.sh_degree, bg_color=bg_color, config=cfg.raster)
+
+
+def _freeze_mask(cfg: TrainConfig):
+    """Masking mode trains only DC-SH and opacity
+    (gaussian_renderer/__init__.py:71-82 detaches the rest)."""
+    if not cfg.masking:
+        return None
+    return {f: f in ("features_dc", "opacity") for f in FIELDS}
 
 
 def make_train_step(cfg: TrainConfig, loss_fn: Callable | None = None,
@@ -58,7 +67,8 @@ def make_train_step(cfg: TrainConfig, loss_fn: Callable | None = None,
         lrs = optim.learning_rates(params, step_idx, cfg.optim,
                                    cfg.spatial_lr_scale)
         new_params, new_state = optim.apply_updates(
-            params, dict(zip(fields, g)), opt_state, lrs, cfg.optim)
+            params, dict(zip(fields, g)), opt_state, lrs, cfg.optim,
+            freeze_mask=_freeze_mask(cfg))
         return new_params, new_state, {
             "loss": loss.detach(), "radii": out["radii"],
             "overflow": out["binned"].overflow,

@@ -462,3 +462,182 @@ def test_inference_frames_match_cpu_and_count_launches(cuda):
     assert all(x > 0 for x in lc) and all(x == 0 for x in lh)
     for a, b in zip(ic, ih):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def _ps1_edge_table(dev, case, gx=20, gy=14, n=3000, seed=9):
+    """A ps1 table (ps1_table's layout) of random rects on a gx x gy grid:
+    "whole_grid" puts three Gaussians whose rects cover the whole grid
+    among one-tile rects (len1 = 0, kept without a test); "all_invalid"
+    masks every row; else rects of 1 to 6 x 1 to 5 tiles."""
+    rng = np.random.default_rng(seed)
+    rw = rng.integers(1, 7, n)
+    rh = rng.integers(1, 6, n)
+    if case == "whole_grid":
+        rw[:] = 1
+        rh[:] = 1
+    rx0 = rng.integers(0, gx, n)
+    ry0 = rng.integers(0, gy, n)
+    rw = np.minimum(rw, gx - rx0)
+    rh = np.minimum(rh, gy - ry0)
+    theta = rng.uniform(0, np.pi, n)
+    len1 = rng.uniform(4, 60, n)
+    len2 = len1 * rng.uniform(0.1, 1.0, n)
+    if case == "whole_grid":
+        big = np.array([7, n // 2, n - 1])
+        rx0[big], ry0[big], rw[big], rh[big] = 0, 0, gx, gy
+        len1[:] = 0.0
+        len2[:] = 0.0
+        len1[big] = rng.uniform(60, 200, 3)
+        len2[big] = len1[big] * 0.5
+    mx = (rx0 + rw * rng.uniform(0, 1, n)) * 16
+    my = (ry0 + rh * rng.uniform(0, 1, n)) * 16
+    cols = [rx0, ry0, rw, rw * rh, mx, my, np.cos(theta), np.sin(theta),
+            -np.sin(theta), np.cos(theta), len1, len2,
+            rng.uniform(0.01, 0.2, n), rng.uniform(-0.01, 0.01, n),
+            rng.uniform(0.01, 0.2, n), rng.uniform(0, 1, n),
+            rng.uniform(-0.2, 1.2, n), rng.uniform(0, 1, n),
+            rng.uniform(0, 1, n)]
+    cols = [torch.tensor(np.asarray(c, np.float32), device=dev) for c in cols]
+    valid = torch.tensor(rng.uniform(0, 1, n) > 0.1, device=dev)
+    if case == "all_invalid":
+        valid[:] = False
+    depth = torch.tensor(rng.uniform(0.5, 50, n).astype(np.float32),
+                         device=dev)
+    return ep1.ps1_table(cols, valid, depth)
+
+
+def _ps1_exact(args, quantize):
+    """Kernel 4 (4q) and its plain version on `args`: kept, the first
+    min(kept, cap_out) lanes of tile, depth and the rows' bits, and the
+    sorted keys; a second launch bit-identical."""
+    ek = ep1.expand_ps1(*args, quantize=quantize)
+    ep = ep1.expand_ps1_plain(*args, quantize=quantize)
+    again = ep1.expand_ps1(*args, quantize=quantize)
+    kept = int(ek.kept)
+    assert kept == int(ep.kept) == int(again.kept)
+    k = min(kept, args[-1])
+    for name in ("tile", "depth", "attrs"):
+        a, b, c = (getattr(e, name)[..., :k].contiguous().view(torch.int32)
+                   for e in (ek, ep, again))
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    return ek
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("case", ["pair_capacity", "cap_out", "whole_grid",
+                                  "all_invalid"])
+def test_expand_ps1_edge_cases_match_plain(cuda, case, quantize):
+    """Kernel 4 and 4q, candidate-parallel, bit for bit against
+    expand_ps1_plain: a pair capacity that ends inside a Gaussian's rect,
+    a kept-pair capacity below the kept count, rects over the whole grid
+    beside one-tile rects, and a table with no valid row."""
+    gx, gy = 20, 14
+    table, cum, total = _ps1_edge_table(
+        cuda, "whole_grid" if case == "whole_grid" else
+        "all_invalid" if case == "all_invalid" else "rects", gx, gy)
+    full = _ps1_exact((table, cum, gx, 1 << 20, 1 << 20), quantize)
+    kept = int(full.kept)
+    if case == "all_invalid":
+        assert int(total) == 0 and kept == 0
+        return
+    assert 1000 < kept <= int(total)
+    if case == "pair_capacity":
+        c, tnum = cum.long(), table[ep1.ROW_TNUM].long()
+        g = int(((c >= int(total) // 2) & (tnum > 2)).nonzero()[0])
+        cap = int(c[g]) + int(tnum[g]) // 2
+        ek = _ps1_exact((table, cum, gx, cap, 1 << 20), quantize)
+        assert 0 < int(ek.kept) < kept
+    elif case == "cap_out":
+        cap_out = kept // 2 + 3
+        ek = _ps1_exact((table, cum, gx, 1 << 20, cap_out), quantize)
+        assert int(ek.kept) == kept
+        assert torch.equal(ek.tile[:cap_out], full.tile[:cap_out])
+    else:
+        # The three whole-grid rects are walked tile by tile.
+        assert int(table[ep1.ROW_TNUM].max()) == gx * gy
+
+
+def _blend_edge_case(dev, case, gx=4, gy=3):
+    """Sorted pairs (expand_fov.ATTR_ROWS), segments and masks on a gx x
+    gy grid: "deep" gives tile 5 more than three staging batches of
+    faint pairs among empty tiles, "no_l2" a tile with pairs and no
+    L2-active pixel, "inactive" no active pixel in either chain."""
+    rng = np.random.default_rng(4)
+    T = gx * gy
+    counts = np.zeros(T, np.int64)
+    if case == "deep":
+        counts[5] = 1100
+        counts[10] = 7
+    else:
+        counts[:] = rng.integers(0, 90, T)
+        counts[3] = 0
+    seg = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    tile = np.repeat(np.arange(T), counts)
+    m = int(seg[-1])
+    pairs = np.zeros((13, m), np.float32)
+    pairs[0] = (tile % gx) * 16 + rng.uniform(-4, 20, m)
+    pairs[1] = (tile // gx) * 16 + rng.uniform(-4, 20, m)
+    pairs[2] = rng.uniform(0.005, 0.08, m)
+    pairs[3] = rng.uniform(-0.004, 0.004, m)
+    pairs[4] = rng.uniform(0.005, 0.08, m)
+    faint = 0.06 if case == "deep" else 0.6
+    pairs[5] = rng.uniform(0.0, faint, m)
+    pairs[6] = np.where(rng.uniform(0, 1, m) < 0.2, -1.0,
+                        rng.uniform(0.0, faint, m))
+    pairs[7:13] = rng.uniform(0, 1, (6, m))
+    pairs = np.concatenate([pairs, np.zeros((13, 17), np.float32)], 1)
+    l1 = rng.uniform(0, 1, (T, 256)) < 0.9
+    l2 = rng.uniform(0, 1, (T, 256)) < 0.5
+    if case == "no_l2":
+        l2[7] = False
+    if case == "inactive":
+        l1[:] = False
+        l2[:] = False
+    return (torch.from_numpy(pairs).to(dev), torch.from_numpy(seg).to(dev),
+            torch.from_numpy(l1).to(dev), torch.from_numpy(l2).to(dev))
+
+
+@pytest.mark.parametrize("case", ["deep", "no_l2", "inactive"])
+def test_blend_fov_edge_tiles_match_plain(cuda, case):
+    """Kernel 3 against blend_fov_plain within T_EPS, and two launches
+    bit-identical: a tile of more than three staging batches among empty
+    tiles, a tile with no L2-active pixel, and no active pixel at all."""
+    gx = 4
+    pairs, seg, l1, l2 = _blend_edge_case(cuda, case, gx)
+    k = bf.blend_fov(pairs, seg, l1, l2, gx)
+    p = bf.blend_fov_plain(pairs, seg, l1, l2, gx)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k, bf.blend_fov(pairs, seg, l1, l2, gx)))
+    c1, t1, c2, t2 = k
+    if case == "inactive":
+        assert not bool(c1.any() or c2.any())
+        assert bool((t1 == 1).all() and (t2 == 1).all())
+    elif case == "no_l2":
+        assert bool((t2[7] == 1).all()) and float(t1[7].min()) < 0.9
+    else:
+        # The deep tile's pixels blend well past the first batches.
+        assert float(t1[5][l1[5]].max()) < 0.5 and bool((t1[0] == 1).all())
+
+
+def test_fps_benchmark_keys_and_forms(cuda):
+    """fps_benchmark's six keys in both forms: per_gaze is per_gaze_fps,
+    avg their mean, per_gaze_ms their inverse in ms."""
+    from fovsplat_torch.eval import fps
+    model, cam, _, _ = _scene(cuda, (0.5, 0.5))
+    render = fps.make_fov_render(model, RasterizeConfig(
+        pair_capacity=1 << 20))
+    gazes = [(0.5, 0.5), (0.2, 0.8)]
+    for kw in (dict(warmups=1, reps=2), dict(sync_every_rep=True)):
+        res = fps.fps_benchmark(render, [cam], gazes=gazes,
+                                log=lambda *_: None, **kw)
+        assert set(res) == {"per_gaze_ms", "per_gaze_fps", "avg_ms",
+                            "avg_fps", "per_gaze", "avg"}
+        assert res["per_gaze"] == res["per_gaze_fps"] and len(
+            res["per_gaze"]) == 2
+        assert res["avg"] == pytest.approx(float(np.mean(res["per_gaze"])),
+                                           rel=1e-12)
+        assert res["avg"] == res["avg_fps"]
+        for ms, f in zip(res["per_gaze_ms"], res["per_gaze"]):
+            assert ms > 0 and f == pytest.approx(1000.0 / ms, rel=1e-12)

@@ -467,6 +467,43 @@ def test_step_variants_match_jax_xla(kind, monkeypatch):
                                    rtol=2e-3, atol=2e-4, err_msg=f)
 
 
+def test_masked_train_step_matches_jax():
+    """trainer.make_train_step with TrainConfig(masking=True) against the
+    JAX step on the XLA route: xyz, features_rest, scaling and rotation
+    bit-identical to their inputs with zero moments; features_dc and
+    opacity's first moments as in test_step_variants_match_jax_xla and
+    their new values as in test_photometric_step_matches_jax."""
+    jst, tst, cam, gt = _train_setup(n=200, capacity=200)
+    rj = jrast.RasterizeConfig(pair_capacity=1 << 13, chunk=256)
+    rt = trast.RasterizeConfig(pair_capacity=1 << 13)
+    jp, tp = jst.params, tst.params
+    jnew, jo, jaux = jax.jit(jtrainer.make_train_step(jtrainer.TrainConfig(
+        raster=rj, masking=True)))(jp, joptim.init_state(jp), cam,
+                                   jnp.asarray(gt), jnp.int32(0))
+    tnew, to, taux = ttrainer.make_train_step(
+        ttrainer.TrainConfig(raster=rt, masking=True), device="cpu")(
+            tp, toptim.init_state(tp), tcam(cam), torch.from_numpy(gt), 0)
+    assert int(taux["overflow"]) == int(jaux["overflow"]) == 0
+    np.testing.assert_allclose(float(taux["loss"]), float(jaux["loss"]),
+                               rtol=1e-5)
+    for f in ("xyz", "features_rest", "scaling", "rotation"):
+        assert torch.equal(getattr(tnew, f), getattr(tp, f).detach()), f
+        assert not bool(to.mu[f].any() or to.nu[f].any()), f
+        np.testing.assert_array_equal(np.asarray(getattr(jo.mu, f)), 0.0)
+    for f in ("features_dc", "opacity"):
+        g = np.asarray(getattr(jo.mu, f))
+        scale = np.abs(g).max()
+        assert scale > 0, f
+        np.testing.assert_allclose(to.mu[f].numpy() / scale, g / scale,
+                                   rtol=2e-3, atol=2e-4, err_msg=f)
+        big = np.abs(g) > 1e-3 * scale
+        np.testing.assert_allclose(
+            getattr(tnew, f).detach().numpy()[big],
+            np.asarray(getattr(jnew, f))[big], rtol=0, atol=1e-6,
+            err_msg=f)
+        assert not torch.equal(getattr(tnew, f), getattr(tp, f).detach())
+
+
 def test_photometric_grads_match_step():
     """photometric_grads is the step's own gradient (the step adds Adam)."""
     _, tst, cam, gt = _train_setup(n=120, capacity=128)
