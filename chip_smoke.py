@@ -10,7 +10,10 @@ into build/kernels first. Phases, one JSON line each on stdout:
 
   1. device: torch's name for the card and nvidia-smi's name and power
      limit (also printed raw on a line of its own);
-  2. build: nvcc time for the eight sources (nine kernels);
+  2. build: nvcc time for the eight sources of fovsplat_torch/csrc (one
+     nvcc process a source, all started together) and the __global__
+     functions they define (with the four of common.cuh, built into
+     every source's library);
   3. the frame's kernels 1-3 against their plain PyTorch versions on the
      card, at the frame's shapes (the 1,161,358-Gaussian bicycle proxy at
      1237x822, centre gaze, alpha 0.05; kernel 2 also at gaze (0.2, 0.2),
@@ -23,7 +26,7 @@ into build/kernels first. Phases, one JSON line each on stdout:
      1<<22 + N candidates, 3,145,728 kept): kernel 4 exact (rows, keys,
      two launches; also with a pair_capacity that ends inside a rect and
      a cap_out at half the kept count), the blend forward
-     within T_EPS, the backward's per-pair rows within 1e-4 of each row's
+     within T_EPS and bit-identical over two launches, the backward's per-pair rows within 1e-4 of each row's
      largest value, the gid reduce within 1e-5 of the largest sum and
      bit-identical over two launches;
   5. the frame path: the foveated "ours" frame at full width over the 9
@@ -43,7 +46,8 @@ into build/kernels first. Phases, one JSON line each on stdout:
      floats 1e-5 relative), kernel 4's quantized rows (kept count, tiles,
      depths, sorted keys and the five rows bit-identical, also at cut
      capacities as in phase 4), kernel 5q
-     within T_EPS on the full and on emptied segments, kernel 9
+     within T_EPS and bit-identical over two launches on the full and on
+     emptied segments, kernel 9
      bit-identical on the ps1 table and on the frame's fov table;
   9. the PS1 frame at full width, compaction off and on, 3 warm-ups and
      20 timed frames each, counters set to 0 before and read after: both
@@ -60,8 +64,10 @@ into build/kernels first. Phases, one JSON line each on stdout:
      shared and broadcast packings render bit-identical images;
  12. the MM-FR frame over the 9 gazes at full width: the four level
      models of bench.py:255-268, per-level capacities sized from probe
-     runs as bench.py:299-331 does, overflow 0 on every pass; then a
-     profiler window over 3 centre-gaze frames;
+     runs as bench.py:299-331 does, overflow 0 on every pass; then kernel
+     5q on the four level passes at the centre gaze against its plain
+     version (within T_EPS) and bit-identical over two launches, timed
+     per launch, and a profiler window over 3 centre-gaze frames;
  13. the train path: the photometric train step at full width, 3 warm-up
      and 10 timed steps (CUDA events), with every launch counter set to 0
      just before and read just after; kernels 4-7 must have launched, and
@@ -75,7 +81,8 @@ into build/kernels first. Phases, one JSON line each on stdout:
  17. kernel 8 (the stats blend) against its plain version on the score
      pass's own pairs at the train phase's shapes: best_lane, first_trig
      and the touched and geo_win rows exact, the float rows and best_w
-     within 1e-5 relative, colour and T within T_EPS; then kernel 7 on
+     within 1e-5 relative, colour and T within T_EPS, every output
+     bit-identical over two launches; then kernel 7 on
      the score view's argmax stream (1,038,336 lanes, one row) as on the
      train stream;
  18. the score pass at full width: one score view per metric
@@ -97,8 +104,8 @@ into build/kernels first. Phases, one JSON line each on stdout:
      loss within 1e-5 relative, DC and opacity gradients as in phase 15;
  21. torch.profiler windows over one score view and one HVS step (with
      the HVS step's time without the profiler, CUDA events over 3);
- 22. the kernels line: per kernel (1-9, and 1p, 4q, 5q, and kernel 7's
-     argmax stream) its launches on its path, time (CUDA events over 20
+ 22. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
+     MM-FR and kernel 7's argmax stream) its launches on its path, time (CUDA events over 20
      calls), own device time (device_ms, a profiler window over 20
      more, split by CUDA kernel), plain time, bound and error, the
      index_add_ time of kernel 7's sums as its library time, and the
@@ -232,6 +239,70 @@ def kernel_times(fn, reps=20):
     dev_ms, events, split = device_ms(fn, reps)
     return {"ms": cuda_ms(fn, reps), "device_ms": dev_ms,
             "device_events": events, "device_split": split}
+
+
+def same_outputs(a, b):
+    """Two launches' output tuples are equal bit for bit."""
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def train_pairs(st, cam):
+    """The sorted train rows of a state seen from `cam`, with the train
+    phase's capacities: the pairs kernels 5, 6 and 8 blend (the score
+    pass bins as the step does). Returns (pairs (10, CAP), Binned)."""
+    import torch
+    from fovsplat_torch.ops import binning, projection, sh
+    from fovsplat_torch.ops import rasterize as rast
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    p = st.params
+    with torch.no_grad():
+        prep = projection.preprocess_cols(p.xyz, p.get_scaling(),
+                                          p.get_rotation(), cam,
+                                          live_mask=st.live)
+        colors = sh.sh_to_rgb(3, p.get_features(), p.xyz, cam.cam_center)
+        return binning.bin_fused_ps1(
+            rast.train_columns(prep, p.get_opacity(), colors), prep.valid,
+            prep.depth, gx, gy, TRAIN_PAIR_CAPACITY, TRAIN_COMPACT_CAPACITY)
+
+
+def ps1_pairs(model, cam):
+    """Kernel 5q's inputs on the PS1 frame: the quantized rows of the PS1
+    model (kernel 1's ps1 mode, kernel 4q, the fused-key sort) with the
+    train capacities. Returns (pairs (5, CAP), seg_start (T,), seg_end
+    (T,))."""
+    from fovsplat_torch.ops import binning
+    from fovsplat_torch.ops.kernels import build_table as bt
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    pairs, bn = binning.bin_fused_ps1(
+        None, None, None, gx, gy, TRAIN_PAIR_CAPACITY,
+        TRAIN_COMPACT_CAPACITY, train=False,
+        prebuilt=bt.build_table_ps1(model, cam))
+    return pairs, bn.seg_start[:-1], bn.seg_start[1:]
+
+
+def mmfr_models(device):
+    """The four MM-FR level models of bench.py:255-268."""
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import proxy
+    sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
+    return convert.mmfr_models_from_numpy(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+        sc["shs_dcs"], sc["highest_levels"], device=device)
+
+
+def mmfr_level_pairs(models, cfgs, cam, gaze):
+    """Kernel 5q's inputs in each MM-FR level pass at `gaze`, as
+    render_mmfr builds them: [(pairs, seg_start, seg_end)], the segments
+    of the tiles a pass does not own emptied."""
+    import torch
+    from fovsplat_torch.eval import mmfr
+    from fovsplat_torch.ops import foveation
+    levels = foveation.compute_tile_levels(
+        torch.tensor(gaze, dtype=torch.float32, device=cam.device),
+        cam.width, cam.height, ALPHA)
+    return [mmfr.level_pairs(m, cam, levels.to(torch.int32), li, cfg)[:3]
+            for li, (m, cfg) in enumerate(zip(models, cfgs))]
 
 
 def bound(nbytes, flops):
@@ -593,12 +664,14 @@ def check_train_kernels(st, cam, gt, results):
                                                     return_walked=True)
     f_err = max(float((ck - cp).abs().max()), float((Tk - Tp).abs().max()))
     nc_diff = int((nk != ncp).sum())
+    twice = same_outputs((ck, Tk, nk), bfw.blend_forward(pairs, seg, gx))
     emit({"phase": "check", "kernel": "blend_forward", "num_pairs": num_pairs,
           "max_abs_err": f_err, "tol": BLEND_ATOL,
-          "n_contrib_differing_pixels": nc_diff})
-    if not f_err <= BLEND_ATOL or nc_diff > T * P // 1000:
+          "n_contrib_differing_pixels": nc_diff,
+          "bit_identical_twice": twice})
+    if not f_err <= BLEND_ATOL or nc_diff > T * P // 1000 or not twice:
         raise AssertionError(f"blend_forward: err {f_err}, {nc_diff} "
-                             "n_contrib differ")
+                             f"n_contrib differ, bit-identical twice {twice}")
     nbytes = num_pairs * 36 + (T + 1) * 4 + T * P * 20
     b_ms, b_by = bound(nbytes, 25.0 * float(walked.double().sum()))
     results["blend_forward"] = dict(
@@ -780,20 +853,11 @@ def check_stats_kernel(st, cam, results):
     """Kernel 8 against its plain version on the score pass's own pairs:
     the train phase's state, camera and capacities, binned by kernel 4."""
     import torch
-    from fovsplat_torch.ops import binning, blend, projection, sh
-    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops import blend
     from fovsplat_torch.ops.kernels import blend_stats as bs
     gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
     T, P = gx * gy, blend.PIX
-    p = st.params
-    with torch.no_grad():
-        prep = projection.preprocess_cols(p.xyz, p.get_scaling(),
-                                          p.get_rotation(), cam,
-                                          live_mask=st.live)
-        colors = sh.sh_to_rgb(3, p.get_features(), p.xyz, cam.cam_center)
-        pairs, bn = binning.bin_fused_ps1(
-            rast.train_columns(prep, p.get_opacity(), colors), prep.valid,
-            prep.depth, gx, gy, TRAIN_PAIR_CAPACITY, TRAIN_COMPACT_CAPACITY)
+    pairs, bn = train_pairs(st, cam)
     seg, num_pairs = bn.seg_start, int(bn.num_pairs)
     args = (pairs, seg, gx, cam.width, cam.height)
     k = bs.blend_stats(*args)
@@ -802,7 +866,8 @@ def check_stats_kernel(st, cam, results):
     exact = {"best_lane": torch.equal(k[3], q[3]),
              "first_trig": torch.equal(k[5], q[5]),
              "touched": torch.equal(k[2][1], q[2][1]),
-             "geo_win": torch.equal(k[2][3], q[2][3])}
+             "geo_win": torch.equal(k[2][3], q[2][3]),
+             "bit_identical_twice": same_outputs(k, bs.blend_stats(*args))}
 
     def rel(a, b):
         return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
@@ -1219,7 +1284,7 @@ def check_inference_kernels(dev, fov_table, results):
     pairs, seg = fov.sort_pairs(key, dbits, ek.attrs, T, False)
     num_pairs = int(seg[-1])
     ss = seg[:-1]
-    errs = {}
+    errs, twice = {}, {}
     for tag, se in (("full", seg[1:]),
                     ("emptied", torch.where(torch.arange(T, device=dev) % 3
                                             != 0, seg[1:], ss))):
@@ -1228,12 +1293,16 @@ def check_inference_kernels(dev, fov_table, results):
                                          return_walked=True)
         errs[tag] = max(float((ko[0] - po[0]).abs().max()),
                         float((ko[1] - po[1]).abs().max()))
+        twice[tag] = same_outputs(ko, bfw.blend_forward_q(pairs, ss, se, gx))
         if tag == "full":
             walked = po[3]
     emit({"phase": "check", "kernel": "blend_forward_q",
-          "num_pairs": num_pairs, "max_abs_err": errs, "tol": BLEND_ATOL})
-    if not all(e <= BLEND_ATOL for e in errs.values()):
-        raise AssertionError(f"blend_forward_q: {errs}")
+          "num_pairs": num_pairs, "max_abs_err": errs, "tol": BLEND_ATOL,
+          "bit_identical_twice": twice})
+    if not (all(e <= BLEND_ATOL for e in errs.values())
+            and all(twice.values())):
+        raise AssertionError(f"blend_forward_q: {errs}, bit-identical "
+                             f"twice {twice}")
     # 25 FLOP per pair-pixel walked (as kernel 5); bytes: 20 B per pair
     # read, the segment bounds, colour, T and n_contrib out.
     b_ms, b_by = bound(num_pairs * 20 + 2 * T * 4 + T * P * 20,
@@ -1452,20 +1521,16 @@ def run_smfr(cam, kernels):
             raise AssertionError(f"{k} never launched on the SM-FR frame")
 
 
-def run_mmfr(cam, kernels):
+def run_mmfr(cam, kernels, results):
     """The MM-FR baseline over the 9 gazes at full width: the four level
     models of bench.py:255-268, per-level capacities sized as
     bench.py:299-331 does (the largest kept and candidate counts over the
-    9 gazes at probe capacities, rounded up), overflow 0 on every pass."""
-    from fovsplat_torch import convert
-    from fovsplat_torch.data import proxy
+    9 gazes at probe capacities, rounded up), overflow 0 on every pass.
+    Then kernel 5q on the level passes (check_mmfr_blend)."""
     from fovsplat_torch.eval import fps
     from fovsplat_torch.ops.rasterize import RasterizeConfig
     import torch
-    sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
-    models = convert.mmfr_models_from_numpy(
-        sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
-        sc["shs_dcs"], sc["highest_levels"], device=cam.device)
+    models = mmfr_models(cam.device)
     probe = RasterizeConfig(pair_capacity=CHAIN_PAIR_CAPACITY,
                             compact_capacity=CHAIN_COMPACT_CAPACITY)
     need = [[0, 0] for _ in models]
@@ -1507,10 +1572,63 @@ def run_mmfr(cam, kernels):
     for k in ("expand_ps1", "blend_forward_q"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched on the MM-FR frame")
+    results["blend_forward_q_mmfr"] = check_mmfr_blend(models, cfgs, cam)
     gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device)
     emit({"phase": "profile", "path": "MM-FR frame, centre gaze",
           **profile_window(lambda: render(cam, gaze), 3)})
     return launches
+
+
+def check_mmfr_blend(models, cfgs, cam):
+    """Kernel 5q on the four MM-FR level passes at the centre gaze (their
+    own capacities): each within T_EPS of its plain version and
+    bit-identical over two launches; times, plain time and bound per
+    launch (the four passes' mean), for the kernels line."""
+    from fovsplat_torch.ops import blend
+    from fovsplat_torch.ops.kernels import blend_fwd as bfw
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    T, P = gx * gy, blend.PIX
+    inputs = mmfr_level_pairs(models, cfgs, cam, (0.5, 0.5))
+    errs, twice, pairs_n, owned, walked = [], [], [], [], 0.0
+    for pairs, ss, se in inputs:
+        ko = bfw.blend_forward_q(pairs, ss, se, gx)
+        po = blend.blend_forward_q_plain(pairs, ss, se, gx,
+                                         return_walked=True)
+        errs.append(max(float((ko[0] - po[0]).abs().max()),
+                        float((ko[1] - po[1]).abs().max())))
+        twice.append(same_outputs(ko, bfw.blend_forward_q(pairs, ss, se,
+                                                          gx)))
+        pairs_n.append(int((se - ss).clamp(min=0).sum()))
+        owned.append(int((se > ss).sum()))
+        walked += float(po[3].double().sum())
+    emit({"phase": "check", "kernel": "blend_forward_q_mmfr",
+          "gaze": (0.5, 0.5), "pairs_blended": pairs_n,
+          "tiles_with_pairs": owned, "max_abs_err": errs, "tol": BLEND_ATOL,
+          "bit_identical_twice": twice})
+    if not (all(e <= BLEND_ATOL for e in errs) and all(twice)):
+        raise AssertionError(f"blend_forward_q on MM-FR: {errs}, "
+                             f"bit-identical twice {twice}")
+
+    def all_levels(fn):
+        for pairs, ss, se in inputs:
+            fn(pairs, ss, se, gx)
+    n = len(inputs)
+    times = kernel_times(lambda: all_levels(bfw.blend_forward_q))
+    times = {"ms": times["ms"] / n, "device_ms": times["device_ms"] / n,
+             "device_events": times["device_events"],
+             "device_split": {k: v / n
+                              for k, v in times["device_split"].items()}}
+    # As kernel 5q on PS1: 25 FLOP per pair-pixel walked; 20 B per pair
+    # blended, the segment bounds, colour, T and n_contrib out.
+    b_ms, b_by = bound((sum(pairs_n) * 20 + n * (2 * T * 4 + T * P * 20))
+                       / n, 25.0 * walked / n)
+    return dict(max_abs_err=max(errs), **times,
+                plain_ms=cuda_ms(lambda: all_levels(
+                    blend.blend_forward_q_plain), 1) / n,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=f"{W_FULL}x{H_FULL}, centre gaze, per launch over the "
+                      f"4 level passes, pairs blended={pairs_n}",
+                pair_pixels_walked=int(walked))
 
 
 def frame_times(path, render, cam, gazes):
@@ -1571,6 +1689,7 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "sources": list(_build.SOURCES),
+          "global_functions": sorted(own_kernel_names()),
           "seconds": time.perf_counter() - t0})
 
     # Every kernel wrapper, by the name of its row in the kernels line.
@@ -1675,7 +1794,8 @@ def main():
               ps1_model, ps1_cam, config=ps1_cfg), 10)})
     ps1_vs_cpu_and_f32()
     run_smfr(cam, all_kernels)
-    run_mmfr(cam, all_kernels)
+    ml = run_mmfr(cam, all_kernels, results)
+    launches["blend_forward_q_mmfr"] = ml["blend_forward_q"]
     del ps1_model
 
     # --- the train path: the photometric step at full width ---
@@ -1744,6 +1864,8 @@ def main():
                             "fovsplat/ops/pallas/expand_fov.py:819"),
            "blend_forward_q": ("fovsplat_torch/csrc/blend_fwd.cu",
                                "fovsplat/ops/pallas/blend_fwd.py:508"),
+           "blend_forward_q_mmfr": ("fovsplat_torch/csrc/blend_fwd.cu",
+                                    "fovsplat/ops/pallas/blend_fwd.py:508"),
            "compact_table": ("fovsplat_torch/csrc/compact_table.cu",
                              "fovsplat/ops/pallas/compact_table.py:218")}
     rows = []

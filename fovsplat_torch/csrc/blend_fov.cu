@@ -22,7 +22,9 @@
 // bytes (read once per tile), is what limits the kernel. The design keeps
 // the arithmetic and changes the data movement and the schedule; each
 // change is measured against the others by tools/ablate_blend_fov.py
-// (numbers in PERF.md):
+// (numbers in PERF.md). The tile order, the persistent grid, the cp.async
+// copies and the pixel layout are common.cuh's, shared with kernels 5, 5q
+// and 8:
 //
 // - Packed staging: each pair is staged as a 16-float record (the 13 rows
 //   of ATTR_ROWS in order, padded), so a thread reads a pair with four
@@ -67,8 +69,6 @@ constexpr float T_EPS = 1e-4f;
 // holds row a: q[0] = (mx, my, ca, cb), q[1] = (cc, op1, op2, r1),
 // q[2] = (g1, b1, r2, g2), q[3] = (b2, -, -, -).
 constexpr int NUM_ATTRS = 13;
-constexpr int ORDER_THREADS = 1024;
-constexpr int BUCKETS = 128;
 
 struct alignas(16) Rec {
   float4 q[REC / 4];
@@ -97,24 +97,11 @@ struct Chain {
   }
 };
 
-__device__ inline void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Issue the copies of `count` pairs from `base` into one ring stage, row
-// by row so that a warp's 32 reads of a row are consecutive, and commit
-// them as one group.
+// by row so that a warp's 32 reads of a row are consecutive, every thread
+// a share (the blend needs no record owned by one thread, as kernels 5
+// and 8 do; spreading the copies is a few percent faster here), and
+// commit them as one group.
 __device__ inline void stage_batch(const float* __restrict__ attrs, int cap,
                                    int base, int count, Rec* dst) {
   float* d = reinterpret_cast<float*>(dst);
@@ -122,18 +109,10 @@ __device__ inline void stage_batch(const float* __restrict__ attrs, int cap,
   for (int e = threadIdx.x; e < NUM_ATTRS * BATCH; e += THREADS) {
     const int a = e / BATCH, i = e % BATCH;
     if (i < count)
-      cp_async4(d + i * REC + a,
-                attrs + static_cast<size_t>(a) * cap + base + i);
+      fs::cp_async4(d + i * REC + a,
+                    attrs + static_cast<size_t>(a) * cap + base + i);
   }
-  cp_async_commit();
-}
-
-// The pixel (row-major in the tile) of slot s = thread * PPT + k: each
-// warp takes an 8x4 block of the tile, which a Gaussian's footprint more
-// often covers whole than a 16x2 row pair.
-__device__ inline int pixel_of(int s) {
-  const int w = s >> 5, l = s & 31;
-  return ((w >> 1) * 4 + (l >> 3)) * TILE + (w & 1) * 8 + (l & 7);
+  fs::cp_async_commit();
 }
 
 // One staged pair against one pixel, in the plain version's order.
@@ -166,7 +145,7 @@ __device__ inline void blend_tile(const float* __restrict__ attrs, int cap,
   bool any2 = false;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int p = pix[k] = pixel_of(threadIdx.x * PPT + k);
+    const int p = pix[k] = fs::pixel_of(threadIdx.x * PPT + k);
     px[k] = static_cast<float>(x0 + p % TILE);
     py[k] = static_cast<float>(y0 + p / TILE);
     c1[k].done = !l1_active[t * PIX + p];
@@ -183,7 +162,7 @@ __device__ inline void blend_tile(const float* __restrict__ attrs, int cap,
   for (int b = 0; b < nb; ++b) {
     // Batch b has landed (this thread's copies); after the barrier every
     // thread's copies are visible and batch b - 1's stage is free.
-    cp_async_wait_all();
+    fs::cp_async_wait_all();
     bool live = false;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) live = live || !(c1[k].done && c2[k].done);
@@ -241,49 +220,11 @@ blend_fov_kernel(const float* __restrict__ attrs, int cap,
   __shared__ Rec ring[STAGES][BATCH];
   __shared__ int tile_slot[2];
   for (int it = 0;; ++it) {
-    if (threadIdx.x == 0) {
-      const int k = atomicAdd(next_tile, 1);
-      tile_slot[it & 1] = k < num_tiles ? order[k] : -1;
-    }
-    __syncthreads();
-    const int t = tile_slot[it & 1];
+    const int t = fs::next_tile(order, next_tile, num_tiles, tile_slot, it);
     if (t < 0) return;
     blend_tile(attrs, cap, seg_start, l1_active, l2_active, grid_x,
                power_cutoff, out, t, ring);
   }
-}
-
-// Quarter-octave bucket of a segment length; 0 for an empty segment.
-__device__ inline int length_bucket(int len) {
-  if (len <= 0) return 0;
-  const int lg = 31 - __clz(len);
-  const int frac = lg >= 2 ? (len >> (lg - 2)) & 3 : (len << (2 - lg)) & 3;
-  return min(1 + 4 * lg + frac, BUCKETS - 1);
-}
-
-// One block: order[] = the tiles by descending length bucket (a counting
-// sort; the order within a bucket is whatever the shared atomics give,
-// which changes no output), and *next_tile = 0.
-__global__ void __launch_bounds__(ORDER_THREADS)
-order_kernel(const int* __restrict__ seg_start, int num_tiles,
-             int* __restrict__ order, int* __restrict__ next_tile) {
-  __shared__ int cursor[BUCKETS];
-  for (int b = threadIdx.x; b < BUCKETS; b += ORDER_THREADS) cursor[b] = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < num_tiles; t += ORDER_THREADS)
-    atomicAdd(&cursor[length_bucket(seg_start[t + 1] - seg_start[t])], 1);
-  __syncthreads();
-  // The longest bucket first: thread i scans bucket BUCKETS - 1 - i.
-  const int b = BUCKETS - 1 - static_cast<int>(threadIdx.x);
-  const int v = b >= 0 ? cursor[b] : 0;
-  int total;
-  const int first = fs::block_exclusive_scan<ORDER_THREADS>(v, &total);
-  if (b >= 0) cursor[b] = first;
-  __syncthreads();
-  for (int t = threadIdx.x; t < num_tiles; t += ORDER_THREADS)
-    order[atomicAdd(&cursor[length_bucket(seg_start[t + 1] - seg_start[t])],
-                    1)] = t;
-  if (threadIdx.x == 0) *next_tile = 0;
 }
 
 }  // namespace
@@ -295,30 +236,15 @@ FS_EXPORT int fs_blend_fov(const float* attrs, int cap, const int* seg_start,
                            int* scratch, float* out, void* stream) {
   if (num_tiles < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Resident blocks of the persistent grid, per device.
-  static int resident[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int resident[fs::MAX_DEVICES];
+  int blocks = 0;
+  cudaError_t err =
+      fs::resident_blocks(blend_fov_kernel, THREADS, resident, &blocks);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, blend_fov_kernel, THREADS, 0);
-    if (err != cudaSuccess) return err;
-    if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident[dev] = sms * per_sm;
-  }
-  int* order = scratch;
-  int* next_tile = scratch + num_tiles;
-  order_kernel<<<1, ORDER_THREADS, 0, s>>>(seg_start, num_tiles, order,
-                                           next_tile);
-  err = cudaGetLastError();
+  err = fs::tile_order(seg_start, seg_start + 1, num_tiles, scratch, s);
   if (err != cudaSuccess) return err;
-  blend_fov_kernel<<<min(num_tiles, resident[dev]), THREADS, 0, s>>>(
-      attrs, cap, seg_start, order, next_tile, num_tiles, l1_active,
-      l2_active, grid_x, power_cutoff, out);
+  blend_fov_kernel<<<min(num_tiles, blocks), THREADS, 0, s>>>(
+      attrs, cap, seg_start, scratch, scratch + num_tiles, num_tiles,
+      l1_active, l2_active, grid_x, power_cutoff, out);
   return cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 // and the linear carry that finishes it across blocks (the tiles-touched
 // cumsum of build_table.cu, the block offsets of expand_fov.cu and
 // expand_ps1.cu, the column offsets of compact_table.cu), the candidate
-// search of the two candidate-parallel expansions, and the error-string
-// export.
+// search of the two candidate-parallel expansions, the schedule and
+// staging of the tile blends (blend_fov.cu, blend_fwd.cu's forward,
+// blend_stats.cu), and the error-string export.
 //
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that the Python wrapper can raise on a
@@ -141,6 +142,210 @@ __device__ inline int block_span(const int* __restrict__ cum,
 }
 
 inline int scan_blocks(int n) { return (n + SCAN_BLOCK - 1) / SCAN_BLOCK; }
+
+// ---- The tile blends' schedule and staging (kernels 3, 5, 5q and 8) ----
+//
+// A persistent grid of the resident blocks takes the tiles heaviest
+// first: order_kernel sorts them by segment length and each block takes
+// the next one from an atomic counter, so the long foveal tiles start
+// first instead of ending the last wave. A tile's output depends only on
+// its own segment, so neither the order nor the block can change a bit.
+// Each block stages its segment through a two-stage ring of packed pair
+// records filled with cp.async, one barrier a batch, and gives each warp
+// an 8x4 pixel block of the 16x16 tile (pixel_of).
+
+constexpr int BLEND_TILE = 16;
+constexpr int ORDER_THREADS = 1024;
+constexpr int BUCKETS = 128;
+constexpr int MAX_DEVICES = 64;
+
+__device__ inline void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issue the copies of pairs [base, base + count) of the ROWS x cap rows
+// into one ring stage of records of REC floats (row a into slot a),
+// thread i copying every row of record i (count <= the block size), so a
+// warp's 32 reads of a row are consecutive and a thread may rewrite its
+// own record once its copies have landed; commit them as one group.
+template <int ROWS, int REC>
+__device__ inline void stage_records(const float* __restrict__ rows, int cap,
+                                     int base, int count, float* dst) {
+  const int i = threadIdx.x;
+  if (i < count) {
+#pragma unroll
+    for (int a = 0; a < ROWS; ++a)
+      cp_async4(dst + i * REC + a,
+                rows + static_cast<size_t>(a) * cap + base + i);
+  }
+  cp_async_commit();
+}
+
+// The pixel (row-major in the tile) of slot s: each warp takes an 8x4
+// block of the tile, which a Gaussian's footprint more often covers whole
+// than a 16x2 row pair, so fewer lanes idle and a warp's pixels freeze
+// closer together.
+__device__ inline int pixel_of(int s) {
+  const int w = s >> 5, l = s & 31;
+  return ((w >> 1) * 4 + (l >> 3)) * BLEND_TILE + (w & 1) * 8 + (l & 7);
+}
+
+// The warps' pixel blocks of the tile (bit w: the pixels pixel_of gives
+// warp w, the rectangle from its first to its last) in which some pixel
+// may pass a pair's window test power >= power_cutoff, for a pair with
+// its mean (mx, my) in tile-local pixel coordinates and conic (ca, cb,
+// cc). A clear bit is a promise: the blends compute the power in f32 as
+// -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy, and that value
+// is below power_cutoff at every pixel of the block, so a warp may skip
+// the pair without changing a bit. With Q = ca dx^2 + cc dy^2 + 2 cb dx
+// dy, the test is Q <= Qc = -2 power_cutoff; the f32 power is within
+// 3 eps S of the exact one, S = |ca| dx^2 + |cc| dy^2 + 2 |cb dx dy| <=
+// K Q with K = 1 + (ca + cc)^2 / det. So outside the ellipse Q <= Qc (1 +
+// 1e-5 K) no pixel can pass while K < 2.7e6, and a block outside that
+// ellipse's bounding box (half-widths sqrt(Q cc / det), sqrt(Q ca / det),
+// widened by 1e-5 and by the rounding of dx and dy, `slack`) is cleared.
+// det comes from Kahan's two-product form. A conic that is not positive
+// definite, K >= 1e6, or a NaN or an infinity anywhere sets every bit.
+__device__ inline unsigned window_blocks(float mx, float my, float ca,
+                                         float cb, float cc,
+                                         float power_cutoff, float slack) {
+  const float p = cb * cb;
+  const float det = fmaf(ca, cc, -p) - fmaf(cb, cb, -p);
+  const float k = 1.0f + (ca + cc) * (ca + cc) / det;
+  if (!(ca > 0.0f && cc > 0.0f && det > 0.0f && k < 1e6f &&
+        power_cutoff < 0.0f))
+    return 0xFFu;
+  const float q = -2.0f * power_cutoff * (1.0f + 1e-5f * k);
+  const float ex = sqrtf(q * cc / det) * (1.0f + 1e-5f) + slack;
+  const float ey = sqrtf(q * ca / det) * (1.0f + 1e-5f) + slack;
+  unsigned mask = 0u;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const int first = pixel_of(32 * w), last = pixel_of(32 * w + 31);
+    const bool clear =
+        static_cast<float>(first % BLEND_TILE) > mx + ex ||
+        static_cast<float>(last % BLEND_TILE) < mx - ex ||
+        static_cast<float>(first / BLEND_TILE) > my + ey ||
+        static_cast<float>(last / BLEND_TILE) < my - ey;
+    if (!clear) mask |= 1u << w;
+  }
+  return mask;
+}
+
+// A staged pair of the single-chain blends (kernels 5, 5q and 8): q[0] =
+// (mx, my, ca, cb), q[1] = (cc, op, r, g), q[2] = (b, blocks, -, -),
+// blocks the bits of window_blocks.
+struct alignas(16) PairRec {
+  float4 q[3];
+};
+constexpr int PAIR_REC = 12;   // floats a PairRec
+
+// A staged record's window blocks into q[2].y; (ox, oy) is the tile's
+// origin in the record's coordinates. `slack` covers the rounding of the
+// kernels' offsets dx = mx - px, dy = my - py (2^-23 of the coordinates)
+// and of the tile-local mean here.
+__device__ inline void mark_blocks(PairRec& r, float ox, float oy,
+                                   float power_cutoff) {
+  const float4 q0 = r.q[0];
+  const float slack =
+      1e-3f + 5e-7f * (fabsf(q0.x) + fabsf(q0.y) + ox + oy + 32.0f);
+  r.q[2].y = __uint_as_float(window_blocks(
+      q0.x - ox, q0.y - oy, q0.z, q0.w, r.q[1].x, power_cutoff, slack));
+}
+
+// The next tile of a persistent block, taken from order[] by the atomic
+// counter; -1 once every tile is taken. slot: 2 ints of shared memory,
+// used in turn (it = the block's iteration), so one barrier a call
+// suffices. Block-uniform.
+__device__ inline int next_tile(const int* __restrict__ order, int* counter,
+                                int num_tiles, int* slot, int it) {
+  if (threadIdx.x == 0) {
+    const int k = atomicAdd(counter, 1);
+    slot[it & 1] = k < num_tiles ? order[k] : -1;
+  }
+  __syncthreads();
+  return slot[it & 1];
+}
+
+// Quarter-octave bucket of a segment length; 0 for an empty segment.
+__device__ inline int length_bucket(int len) {
+  if (len <= 0) return 0;
+  const int lg = 31 - __clz(len);
+  const int frac = lg >= 2 ? (len >> (lg - 2)) & 3 : (len << (2 - lg)) & 3;
+  return min(1 + 4 * lg + frac, BUCKETS - 1);
+}
+
+// One block: order[] = the tiles by descending length bucket of their
+// segments [seg_start[t], seg_end[t]) (a counting sort; the order within
+// a bucket is whatever the shared atomics give, which changes no output),
+// and *counter = 0. Pass seg_end = seg_start + 1 for the (T + 1,) bounds
+// of a train segment list.
+__global__ void __launch_bounds__(ORDER_THREADS)
+order_kernel(const int* __restrict__ seg_start,
+             const int* __restrict__ seg_end, int num_tiles,
+             int* __restrict__ order, int* __restrict__ counter) {
+  __shared__ int cursor[BUCKETS];
+  for (int b = threadIdx.x; b < BUCKETS; b += ORDER_THREADS) cursor[b] = 0;
+  __syncthreads();
+  for (int t = threadIdx.x; t < num_tiles; t += ORDER_THREADS)
+    atomicAdd(&cursor[length_bucket(seg_end[t] - seg_start[t])], 1);
+  __syncthreads();
+  // The longest bucket first: thread i scans bucket BUCKETS - 1 - i.
+  const int b = BUCKETS - 1 - static_cast<int>(threadIdx.x);
+  const int v = b >= 0 ? cursor[b] : 0;
+  int total;
+  const int first = block_exclusive_scan<ORDER_THREADS>(v, &total);
+  if (b >= 0) cursor[b] = first;
+  __syncthreads();
+  for (int t = threadIdx.x; t < num_tiles; t += ORDER_THREADS)
+    order[atomicAdd(&cursor[length_bucket(seg_end[t] - seg_start[t])],
+                    1)] = t;
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// scratch (num_tiles + 1 ints): the tile order, then the tile counter.
+inline cudaError_t tile_order(const int* seg_start, const int* seg_end,
+                              int num_tiles, int* scratch, cudaStream_t s) {
+  order_kernel<<<1, ORDER_THREADS, 0, s>>>(seg_start, seg_end, num_tiles,
+                                           scratch, scratch + num_tiles);
+  return cudaGetLastError();
+}
+
+// *blocks = the blocks of `kernel` (threads a block) resident on the
+// current device at once: the persistent grid's size. cache[dev] keeps
+// it per device; the caller owns one cache (MAX_DEVICES ints, zeroed)
+// per kernel.
+template <typename Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, int* cache,
+                                   int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+    if (err != cudaSuccess) return err;
+    if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
+  }
+  *blocks = cache[dev];
+  return cudaSuccess;
+}
 
 // Finishes a scan whose blocks wrote their local exclusive prefixes to
 // out[] and their sums to block_sums[]: one block scans the sums, then

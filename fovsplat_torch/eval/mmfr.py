@@ -24,11 +24,13 @@ from fovsplat_torch.ops.rasterize import _grid, _images
 _BBOX_NONE = 1 << 20   # x0/y0 when the pass owns no tile
 
 
-def _render_level_fused(m, camera, level_i, li: int, config):
-    """One MM-FR level pass (mmfr.py:100-160): column preprocess, every
-    rect clipped to the bbox of the owned tiles, the dead-opacity cull
-    (opacity >= 1/255), the inference binning of the whole model, and
-    the blend over segments emptied outside the owned tiles."""
+def level_pairs(m, camera, level_i, li: int, config):
+    """The pairs kernel 5q blends in one MM-FR level pass (mmfr.py:100-
+    160): column preprocess, every rect clipped to the bbox of the owned
+    tiles, the dead-opacity cull (opacity >= 1/255) and the inference
+    binning of the whole model. Returns (pairs (5, CAP), seg_start (T,),
+    seg_end (T,), binned), with every segment of a tile the pass does not
+    own emptied, as the reference's per-pass tile_skips do."""
     gx, gy = _grid(camera)
     dev = level_i.device
     pc = projection.preprocess_cols(m["xyz"], m["scaling"], m["rotation"],
@@ -58,6 +60,13 @@ def _render_level_fused(m, camera, level_i, li: int, config):
         sort_exact=config.sort_exact_depth)
     ss = bn.seg_start[:-1]
     se = torch.where(owned, bn.seg_start[1:], ss)   # empty non-owned tiles
+    return pairs, ss, se, bn
+
+
+def _render_level_fused(m, camera, level_i, li: int, config):
+    """One MM-FR level pass: level_pairs, then kernel 5q over them."""
+    gx, gy = _grid(camera)
+    pairs, ss, se, bn = level_pairs(m, camera, level_i, li, config)
     tile_color, final_T, _ = blend_forward_q(pairs, ss, se, gx,
                                              config.power_cutoff,
                                              config.chunk)

@@ -66,14 +66,16 @@ def blend_forward(pairs, seg_start, grid_x: int, power_cutoff: float = -4.5,
            [("seg_start", seg_start, torch.int32, (T + 1,))])
     out = torch.empty((T, 4, PIX), dtype=torch.float32, device=dev)
     nc = torch.empty((T, PIX), dtype=torch.int32, device=dev)
+    # The kernel's tile order and tile counter.
+    scratch = torch.empty(T + 1, dtype=torch.int32, device=dev)
     lib = _build.load("blend_fwd")
     fn = lib.fs_blend_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, I, I, ctypes.c_float, P, P, P]
+    fn.argtypes = [P, I, P, I, I, ctypes.c_float, P, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), pairs.shape[1], seg_start.data_ptr(), T,
-             grid_x, float(power_cutoff), out.data_ptr(), nc.data_ptr(),
-             _build.stream_ptr(dev))
+             grid_x, float(power_cutoff), scratch.data_ptr(), out.data_ptr(),
+             nc.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "blend_forward")
     blend_forward.launches += 1
     return out[:, 0:3].transpose(1, 2), out[:, 3], nc
@@ -139,14 +141,16 @@ def blend_forward_q(pairs, seg_start, seg_end, grid_x: int,
         ("seg_end", seg_end, torch.int32, (T,))))
     out = torch.empty((T, 4, PIX), dtype=torch.float32, device=dev)
     nc = torch.empty((T, PIX), dtype=torch.int32, device=dev)
+    scratch = torch.empty(T + 1, dtype=torch.int32, device=dev)
     lib = _build.load("blend_fwd")
     fn = lib.fs_blend_fwd_q
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, P, I, I, ctypes.c_float, P, P, P]
+    fn.argtypes = [P, I, P, P, I, I, ctypes.c_float, P, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), pairs.shape[1], seg_start.data_ptr(),
              seg_end.data_ptr(), T, grid_x, float(power_cutoff),
-             out.data_ptr(), nc.data_ptr(), _build.stream_ptr(dev))
+             scratch.data_ptr(), out.data_ptr(), nc.data_ptr(),
+             _build.stream_ptr(dev))
     _build.check(lib, err, "blend_forward_q")
     blend_forward_q.launches += 1
     return out[:, 0:3].transpose(1, 2), out[:, 3], nc

@@ -8,7 +8,8 @@ touched, w_max, geo_win) and three per pixel (best_lane, best_w,
 first_trig), which rasterize_stats reduces by Gaussian. The plain version
 is ops/blend.blend_stats_plain; the semantics are in its docstring.
 
-Bound on the card: operations (the source header counts them). The rows
+Bound on the card: the larger of bytes and operations (the source header
+counts them). The rows
 are reduced over each tile's pixels in a fixed order with no float
 atomics, so they are deterministic.
 """
@@ -48,13 +49,16 @@ def blend_stats(pairs, seg_start, grid_x: int, width: int, height: int,
     best_lane = torch.empty((T, PIX), dtype=torch.int32, device=dev)
     best_w = torch.empty((T, PIX), dtype=torch.float32, device=dev)
     first_trig = torch.empty((T, PIX), dtype=torch.int32, device=dev)
+    # The kernel's tile order and tile counter.
+    scratch = torch.empty(T + 1, dtype=torch.int32, device=dev)
     lib = _build.load("blend_stats")
     fn = lib.fs_blend_stats
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, I, I, I, I, ctypes.c_float, P, P, P, P, P, P]
+    fn.argtypes = [P, I, P, I, I, I, I, ctypes.c_float, P, P, P, P, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), cap, seg_start.data_ptr(), T, grid_x, width,
-             height, float(power_cutoff), out.data_ptr(), stats.data_ptr(),
+             height, float(power_cutoff), scratch.data_ptr(), out.data_ptr(),
+             stats.data_ptr(),
              best_lane.data_ptr(), best_w.data_ptr(), first_trig.data_ptr(),
              _build.stream_ptr(dev))
     _build.check(lib, err, "blend_stats")

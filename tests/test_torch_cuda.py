@@ -641,3 +641,210 @@ def test_fps_benchmark_keys_and_forms(cuda):
         assert res["avg"] == res["avg_fps"]
         for ms, f in zip(res["per_gaze_ms"], res["per_gaze"]):
             assert ms > 0 and f == pytest.approx(1000.0 / ms, rel=1e-12)
+
+
+# Edge cases of the single-chain blends (kernels 5, 5q and 8), also held
+# against the JAX kernels on the CPU by tests/test_torch_blend_edges.py.
+TIE_OPS = (0.2, 0.25)   # w = 0.2 * 1 and 0.25 * (1 - 0.2): equal in f32
+
+
+def _tile_pairs(rng, t, gx, n, op_hi, sweep=False, conic=(0.005, 0.08)):
+    """(9, n) rows [mx, my, ca, cb, cc, op, r, g, b] of n pairs over tile
+    t; with `sweep`, their means walk across the tile from left to right
+    in segment order."""
+    x0, y0 = (t % gx) * 16, (t // gx) * 16
+    mx = (x0 + np.linspace(-2.0, 18.0, n) + rng.uniform(-1, 1, n) if sweep
+          else x0 + rng.uniform(-4, 20, n))
+    return np.stack([mx, y0 + rng.uniform(-4, 20, n),
+                     rng.uniform(*conic, n), rng.uniform(-0.004, 0.004, n),
+                     rng.uniform(*conic, n), rng.uniform(0.0, op_hi, n),
+                     *rng.uniform(0, 1, (3, n))]).astype(np.float32)
+
+
+def single_edge_case(case, seed=5):
+    """Sorted single-chain pair rows (9, CAP) f32 with CAP a multiple of
+    128 past the last segment, segment bounds (T+1,) i32, the frame
+    (gx, gy, width, height) and the lanes of the tie pairs. Cases:
+    "deep": one tile of 1,100 opaque pairs that freezes within its first
+    batch, among empty tiles and a short one; "staggered": a tile whose
+    pairs sweep across it, so its pixels freeze batches apart; "border":
+    a 70x45 frame (edge tiles with pixels outside it); "ties": pairs
+    whose weights tie exactly at their centre pixels (TIE_OPS, lowest
+    lane wins), ahead of faint pairs; "zero_pairs": no pair at all."""
+    rng = np.random.default_rng(seed)
+    gx, gy, width, height = 4, 3, 64, 48
+    if case == "border":
+        gx, gy, width, height = 5, 3, 70, 45
+    T = gx * gy
+    tiles, ties = [[] for _ in range(T)], []
+    if case == "deep":
+        tiles[5].append(_tile_pairs(rng, 5, gx, 1100, 0.9,
+                                    conic=(0.005, 0.03)))
+        tiles[10].append(_tile_pairs(rng, 10, gx, 7, 0.6))
+    elif case == "staggered":
+        tiles[5].append(_tile_pairs(rng, 5, gx, 900, 0.95, sweep=True,
+                                    conic=(0.05, 0.2)))
+        tiles[2].append(_tile_pairs(rng, 2, gx, 40, 0.6))
+    elif case == "border":
+        for t in range(T):
+            tiles[t].append(_tile_pairs(rng, t, gx, int(rng.integers(0, 120)),
+                                        0.6))
+        tiles[7] = []
+    elif case == "needles":
+        # Elongated, rotated footprints whose windows end inside a tile:
+        # the warps' window-block cull must skip no pair that reaches one
+        # of their pixels.
+        for t in range(T):
+            n = int(rng.integers(60, 160))
+            s1 = np.exp(rng.uniform(np.log(0.5), np.log(60.0), n))
+            s2 = rng.uniform(0.5, 3.0, n)
+            th = rng.uniform(0, np.pi, n)
+            c, s = np.cos(th), np.sin(th)
+            sxx = c * c * s1 ** 2 + s * s * s2 ** 2 + 0.3
+            syy = s * s * s1 ** 2 + c * c * s2 ** 2 + 0.3
+            sxy = c * s * (s1 ** 2 - s2 ** 2)
+            det = sxx * syy - sxy ** 2
+            x0, y0 = (t % gx) * 16, (t // gx) * 16
+            tiles[t].append(np.stack([
+                x0 + rng.uniform(-30, 46, n), y0 + rng.uniform(-30, 46, n),
+                syy / det, -sxy / det, sxx / det, rng.uniform(0.1, 0.9, n),
+                *rng.uniform(0, 1, (3, n))]).astype(np.float32))
+    elif case == "ties":
+        for t in range(T):
+            head = []
+            if t in (1, 6):
+                for k, (px, py) in enumerate(((2, 3), (7, 9), (12, 4),
+                                              (13, 14))):
+                    for op in TIE_OPS:
+                        head.append([(t % gx) * 16 + px, (t // gx) * 16 + py,
+                                     2.0, 0.0, 2.0, op, *rng.uniform(0, 1, 3)])
+            if head:
+                tiles[t].append(np.asarray(head, np.float32).T)
+            if t == 9:   # opaque: its pixels freeze early
+                tiles[t].append(_tile_pairs(rng, t, gx, 300, 0.95,
+                                            conic=(0.005, 0.02)))
+            else:
+                tiles[t].append(_tile_pairs(rng, t, gx,
+                                            int(rng.integers(20, 200)), 0.15))
+    counts = [sum(a.shape[1] for a in tl) for tl in tiles]
+    seg = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    m = int(seg[-1])
+    if case == "ties":
+        for t in (1, 6):
+            ties += [int(seg[t]) + 2 * k for k in range(4)]
+    cap = (m // 128 + 1) * 128
+    rows = np.zeros((9, cap), np.float32)
+    if m:
+        rows[:, :m] = np.concatenate([a for tl in tiles for a in tl], 1)
+    return rows, seg, (gx, gy, width, height), ties
+
+
+def quantize_rows(rows):
+    """Kernel 4q's five inference rows of (9, CAP) f32 pair rows, through
+    expand_ps1.quantized_rows on a table holding them."""
+    r = torch.as_tensor(rows)
+    table = torch.zeros((ep1.NUM_ROWS, r.shape[1]), dtype=torch.float32)
+    for i, row in enumerate((ep1.ROW_MX, ep1.ROW_MY, ep1.ROW_CA, ep1.ROW_CB,
+                             ep1.ROW_CC, ep1.ROW_OP, ep1.ROW_R, ep1.ROW_G,
+                             ep1.ROW_B)):
+        table[row] = r[i]
+    return ep1.quantized_rows(table).contiguous()
+
+
+def q_segments(seg, case):
+    """Kernel 5q's (seg_start, seg_end) (T,): "emptied" empties every
+    third tile and halves tile 5, "all_empty" empties every tile."""
+    ss, se = seg[:-1].copy(), seg[1:].copy()
+    if case == "emptied":
+        se[::3] = ss[::3]
+        se[5] = ss[5] + (se[5] - ss[5]) // 2
+    elif case == "all_empty":
+        se = ss.copy()
+    return ss, se
+
+
+SINGLE_CASES = ([("fwd", c) for c in ("deep", "staggered", "border", "ties",
+                                      "needles", "zero_pairs")]
+                + [("fwd_q", c) for c in ("deep", "staggered", "border",
+                                          "emptied", "all_empty", "needles",
+                                          "zero_pairs")]
+                + [("stats", c) for c in ("deep", "staggered", "border",
+                                          "ties", "needles", "zero_pairs")])
+
+
+@pytest.mark.parametrize("kernel,case", SINGLE_CASES)
+def test_single_chain_edge_cases_match_plain(cuda, kernel, case):
+    """Kernels 5, 5q and 8 against their plain versions on the edge cases
+    of single_edge_case (colour and T within T_EPS, n_contrib on all but
+    a thousandth of the pixels; kernel 8's integer outputs exact, its
+    float rows 1e-5 relative) and bit-identical over two launches."""
+    rows, seg_np, (gx, gy, width, height), ties = single_edge_case(
+        "border" if case in ("emptied", "all_empty") else case)
+    T = gx * gy
+    seg = torch.from_numpy(seg_np).to(cuda)
+    pairs = torch.from_numpy(rows).to(cuda)
+    if kernel == "stats":
+        args = (pairs, seg, gx, width, height)
+        k, q = bs.blend_stats(*args), blend.blend_stats_plain(*args)
+        torch.testing.assert_close(k[0], q[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(k[1], q[1], rtol=0, atol=1e-4)
+        assert torch.equal(k[2][1], q[2][1]) and torch.equal(k[2][3], q[2][3])
+        torch.testing.assert_close(k[2][0::2], q[2][0::2], rtol=1e-5,
+                                   atol=1e-7)
+        assert torch.equal(k[3], q[3]) and torch.equal(k[5], q[5])
+        torch.testing.assert_close(k[4], q[4], rtol=1e-5, atol=1e-7)
+        assert all(torch.equal(a, b) for a, b in zip(k, bs.blend_stats(*args)))
+        colour, final_T, st, best_lane, first_trig = k[0], k[1], k[2], k[3], k[5]
+    else:
+        if kernel == "fwd":
+            args = (pairs, seg, gx)
+            k, q = bfw.blend_forward(*args), blend.blend_forward_plain(*args)
+            again = bfw.blend_forward(*args)
+        else:
+            ss, se = (torch.from_numpy(x).to(cuda)
+                      for x in q_segments(seg_np, case))
+            args = (quantize_rows(rows).to(cuda), ss, se, gx)
+            k = bfw.blend_forward_q(*args)
+            q = blend.blend_forward_q_plain(*args)
+            again = bfw.blend_forward_q(*args)
+        torch.testing.assert_close(k[0], q[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(k[1], q[1], rtol=0, atol=1e-4)
+        assert float((k[2] != q[2]).float().mean()) <= 1e-3
+        assert all(torch.equal(a, b) for a, b in zip(k, again))
+        colour, final_T, nc = k
+    if case in ("zero_pairs", "all_empty"):
+        assert bool((final_T == 1).all()) and not bool(colour.any())
+        if kernel == "stats":
+            assert bool((best_lane == pairs.shape[1]).all())
+            assert bool((first_trig == blend.BIG).all()) and not st.any()
+        else:
+            assert not bool(nc.any())
+    elif case == "deep":
+        # The deep tile froze within its first batch of 128 records.
+        assert float(final_T[5].max()) < 1e-2
+        if kernel == "stats":
+            assert int(first_trig[5].max()) < 128
+            assert not st[:, int(seg_np[5]) + 128:int(seg_np[6])].any()
+        else:
+            assert int(nc[5].max()) < 128
+    elif case == "staggered" and kernel != "stats":
+        # Pixels of tile 5 freeze batches apart.
+        assert int(nc[5].min()) < 256 < int(nc[5].max())
+    elif case == "staggered":
+        fired = first_trig[5][first_trig[5] < blend.BIG]
+        assert int(fired.min()) < 128 < int(fired.max())
+    elif case == "ties" and kernel == "stats":
+        for t, lanes in ((1, ties[:4]), (6, ties[4:])):
+            for lane, (px, py) in zip(lanes, ((2, 3), (7, 9), (12, 4),
+                                              (13, 14))):
+                assert int(best_lane[t, py * 16 + px]) == lane
+    elif case == "border" and kernel == "stats":
+        inside = blend.tile_inside_mask(gx, gy, width, height, cuda)
+        assert not bool(inside.all())
+        assert bool((final_T[~inside] == 1).all())
+        assert bool((best_lane[~inside] == pairs.shape[1]).all())
+    elif case == "emptied":
+        emptied = torch.from_numpy(q_segments(seg_np, case)[1]
+                                   == seg_np[:-1]).to(cuda)
+        assert bool((final_T[emptied] == 1).all())
+        assert float(final_T[~emptied].min()) < 0.9

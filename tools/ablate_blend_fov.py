@@ -5,8 +5,10 @@ fovsplat_torch/csrc/blend_fov.cu against the source as it stands.
     python3 tools/ablate_blend_fov.py
 
 Needs one CUDA card and nvcc. Each variant is the source with one of its
-constants or lines replaced (VARIANTS), built with the port's nvcc flags
-into build/ablate/ and called through ctypes exactly as
+constants or lines replaced (VARIANTS; the tile order, the cp.async
+copies and the pixel layout live in common.cuh), built with the port's nvcc flags
+into build/ablate/<variant>/ (tools/ablate_build.py) and called through
+ctypes exactly as
 ops/kernels/blend_fov.py calls the kernel. Inputs are chip_smoke.py's
 blend inputs (the full-width "ours" frame at 1237x822, the centre gaze
 and the gaze (0.2, 0.2)). Per variant and gaze, one JSON line: the
@@ -19,92 +21,81 @@ last line names the card.
 
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import ablate_build
 
-# The body of blend_fov.cu's cp_async4.
+ROOT = Path(__file__).resolve().parents[1]
+K3 = "blend_fov.cu"
+COMMON = "common.cuh"
+
+# The body of common.cuh's cp_async4.
 CP_ASYNC = ("  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared("
             "smem));\n"
             "  asm volatile(\"cp.async.ca.shared.global [%0], [%1], 4;\\n\" "
             "::\"r\"(s),\n"
             "               \"l\"(gmem)\n"
             "               : \"memory\");\n")
-# name -> [(text in the source, its replacement)]
+# Shared with tools/ablate_blend_single.py (the same common.cuh text).
+PIXEL_OF = ("  const int w = s >> 5, l = s & 31;\n"
+            "  return ((w >> 1) * 4 + (l >> 3)) * BLEND_TILE + (w & 1) * 8 +"
+            " (l & 7);")
+ORDER = ("    order[atomicAdd(&cursor[length_bucket(seg_end[t] - "
+         "seg_start[t])],\n                    1)] = t;")
+SYNC_LOADS = (COMMON, CP_ASYNC, "  *static_cast<float*>(smem) = "
+                                "*static_cast<const float*>(gmem);\n")
+# name -> [(file, text in it, its replacement)]
 VARIANTS = {
     "source": [],
-    "row_warps": [("  const int w = s >> 5, l = s & 31;\n"
-                   "  return ((w >> 1) * 4 + (l >> 3)) * TILE + (w & 1) * 8"
-                   " + (l & 7);", "  return s;")],
-    "two_pixels_a_thread": [("constexpr int PPT = 1;",
+    "row_warps": [(COMMON, PIXEL_OF, "  return s;")],
+    "two_pixels_a_thread": [(K3, "constexpr int PPT = 1;",
                              "constexpr int PPT = 2;")],
-    "batch_64": [("constexpr int BATCH = 128;", "constexpr int BATCH = 64;")],
-    "batch_256": [("constexpr int BATCH = 128;",
+    "batch_64": [(K3, "constexpr int BATCH = 128;",
+                  "constexpr int BATCH = 64;")],
+    "batch_256": [(K3, "constexpr int BATCH = 128;",
                    "constexpr int BATCH = 256;")],
-    "raster_order": [("    order[atomicAdd(&cursor[length_bucket("
-                      "seg_start[t + 1] - seg_start[t])],\n"
-                      "                    1)] = t;",
-                      "    order[t] = t;")],
-    "min_5_blocks_an_sm": [("__launch_bounds__(THREADS)\nblend_fov_kernel",
-                             "__launch_bounds__(THREADS, 5)\n"
-                             "blend_fov_kernel")],
-    "min_6_blocks_an_sm": [("__launch_bounds__(THREADS)\nblend_fov_kernel",
-                             "__launch_bounds__(THREADS, 6)\n"
-                             "blend_fov_kernel")],
-    "min_8_blocks_an_sm": [("__launch_bounds__(THREADS)\nblend_fov_kernel",
-                             "__launch_bounds__(THREADS, 8)\n"
-                             "blend_fov_kernel")],
+    "raster_order": [(COMMON, ORDER, "    order[t] = t;")],
+    "min_5_blocks_an_sm": [(K3, "__launch_bounds__(THREADS)\nblend_fov_kernel",
+                            "__launch_bounds__(THREADS, 5)\n"
+                            "blend_fov_kernel")],
+    "min_6_blocks_an_sm": [(K3, "__launch_bounds__(THREADS)\nblend_fov_kernel",
+                            "__launch_bounds__(THREADS, 6)\n"
+                            "blend_fov_kernel")],
+    "min_8_blocks_an_sm": [(K3, "__launch_bounds__(THREADS)\nblend_fov_kernel",
+                            "__launch_bounds__(THREADS, 8)\n"
+                            "blend_fov_kernel")],
     # A record's colours read from shared memory only when a chain steps.
     "lazy_colours": [
-        ("      float4 q[REC / 4];\n#pragma unroll\n"
-         "      for (int s = 0; s < REC / 4; ++s) q[s] = recs[j].q[s];\n", ""),
-        ("blend_pair(q, px[k]", "blend_pair(recs[j], px[k]"),
-        ("__device__ inline void blend_pair(const float4 (&q)[REC / 4],",
+        (K3, "      float4 q[REC / 4];\n#pragma unroll\n"
+             "      for (int s = 0; s < REC / 4; ++s) q[s] = recs[j].q[s];\n",
+         ""),
+        (K3, "blend_pair(q, px[k]", "blend_pair(recs[j], px[k]"),
+        (K3, "__device__ inline void blend_pair(const float4 (&q)[REC / 4],",
          "__device__ inline void blend_pair(const Rec& rec,"),
-        ("  const float dx = q[0].x - px;",
+        (K3, "  const float dx = q[0].x - px;",
          "  const float4 q[2] = {rec.q[0], rec.q[1]};\n"
          "  const float dx = q[0].x - px;"),
-        ("  if (!c1.done) c1.step(q[1].y, G, q[1].w, q[2].x, q[2].y);\n"
-         "  if (!c2.done) c2.step(q[1].z, G, q[2].z, q[2].w, q[3].x);",
+        (K3, "  if (!c1.done) c1.step(q[1].y, G, q[1].w, q[2].x, q[2].y);\n"
+             "  if (!c2.done) c2.step(q[1].z, G, q[2].z, q[2].w, q[3].x);",
          "  if (!c1.done) c1.step(q[1].y, G, q[1].w, rec.q[2].x, rec.q[2].y);\n"
          "  if (!c2.done) c2.step(q[1].z, G, rec.q[2].z, rec.q[2].w,"
          " rec.q[3].x);"),
     ],
     # Plain loads and stores in place of cp.async: the ring stays, but a
     # thread waits for its copies of batch k + 1 before it blends batch k.
-    "sync_loads": [(CP_ASYNC, "  *static_cast<float*>(smem) = "
-                              "*static_cast<const float*>(gmem);\n")],
+    "sync_loads": [SYNC_LOADS],
 }
 
 
 def build(out_dir):
     from fovsplat_torch.ops.kernels import _build
-    src = (_build.CSRC / "blend_fov.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    texts = {name: (_build.CSRC / name).read_text() for name in (K3, COMMON)}
+    jobs = {}
     for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise AssertionError(f"{name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"{name}.so"
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
+        ablate_build.write_variant(out_dir / name, texts, subs)
+        jobs[name] = out_dir / name / K3
+    return ablate_build.build(jobs)
 
 
 def call(lib, pairs, seg, l1, l2, gx):
@@ -133,10 +124,7 @@ def main():
     if not torch.cuda.is_available():
         print("ablate_blend_fov: no CUDA card", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = ablate_build.card_name()
     libs = build(ROOT / "build" / "ablate")
     dev = torch.device("cuda")
     for gaze in ((0.5, 0.5), (0.2, 0.2)):
