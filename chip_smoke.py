@@ -313,6 +313,19 @@ def bound(nbytes, flops):
     return (o_ms, "operations") if o_ms > b_ms else (b_ms, "bytes")
 
 
+def forward_work(work):
+    """(counts, FLOP) of kernels 5 and 5q from their plain version's work
+    counts (blend.blend_forward_plain's return_work, summed over calls),
+    each operation counted on the pair-pixels that need it, as the header
+    of csrc/blend_fwd.cu sets out: 13 FLOP per pair-pixel walked before
+    the pixel freezes, 4 more where the power lies in the window, 10 more
+    where the pair contributes, 3 per freezing pair."""
+    w = [int(x) for x in work.reshape(4, -1).long().sum(1)]
+    counts = dict(zip(("pair_pixels_walked", "pair_pixels_in_window",
+                       "pair_pixels_touched", "pixels_frozen"), w))
+    return counts, 13 * w[0] + 4 * w[1] + 10 * w[2] + 3 * w[3]
+
+
 def frame_inputs(n, width, height, gaze, device):
     """Packed proxy model, camera and the pre-kernel per-tile state."""
     import torch
@@ -660,28 +673,28 @@ def check_train_kernels(st, cam, gt, results):
 
     # --- kernel 5
     ck, Tk, nk = bfw.blend_forward(pairs, seg, gx)
-    cp, Tp, ncp, walked = blend.blend_forward_plain(pairs, seg, gx,
-                                                    return_walked=True)
+    cp, Tp, ncp, work = blend.blend_forward_plain(pairs, seg, gx,
+                                                  return_work=True)
+    counts, flop = forward_work(work)
     f_err = max(float((ck - cp).abs().max()), float((Tk - Tp).abs().max()))
     nc_diff = int((nk != ncp).sum())
     twice = same_outputs((ck, Tk, nk), bfw.blend_forward(pairs, seg, gx))
     emit({"phase": "check", "kernel": "blend_forward", "num_pairs": num_pairs,
           "max_abs_err": f_err, "tol": BLEND_ATOL,
           "n_contrib_differing_pixels": nc_diff,
-          "bit_identical_twice": twice})
+          "bit_identical_twice": twice, **counts, "flop": flop})
     if not f_err <= BLEND_ATOL or nc_diff > T * P // 1000 or not twice:
         raise AssertionError(f"blend_forward: err {f_err}, {nc_diff} "
                              f"n_contrib differ, bit-identical twice {twice}")
     nbytes = num_pairs * 36 + (T + 1) * 4 + T * P * 20
-    b_ms, b_by = bound(nbytes, 25.0 * float(walked.double().sum()))
+    b_ms, b_by = bound(nbytes, float(flop))
     results["blend_forward"] = dict(
         max_abs_err=f_err, **kernel_times(lambda: bfw.blend_forward(
             pairs, seg, gx)),
         plain_ms=cuda_ms(lambda: blend.blend_forward_plain(pairs, seg, gx),
                          1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
-        pair_pixels_walked=int(walked.long().sum()))
+        shape=f"{cam.width}x{cam.height}, pairs={num_pairs}", **counts)
 
     # --- kernel 6, on the cotangent of the photometric loss
     tile_c = ck.detach().clone().requires_grad_(True)
@@ -1290,23 +1303,22 @@ def check_inference_kernels(dev, fov_table, results):
                                             != 0, seg[1:], ss))):
         ko = bfw.blend_forward_q(pairs, ss, se, gx)
         po = blend.blend_forward_q_plain(pairs, ss, se, gx,
-                                         return_walked=True)
+                                         return_work=True)
         errs[tag] = max(float((ko[0] - po[0]).abs().max()),
                         float((ko[1] - po[1]).abs().max()))
         twice[tag] = same_outputs(ko, bfw.blend_forward_q(pairs, ss, se, gx))
         if tag == "full":
-            walked = po[3]
+            counts, flop = forward_work(po[3])
     emit({"phase": "check", "kernel": "blend_forward_q",
           "num_pairs": num_pairs, "max_abs_err": errs, "tol": BLEND_ATOL,
-          "bit_identical_twice": twice})
+          "bit_identical_twice": twice, **counts, "flop": flop})
     if not (all(e <= BLEND_ATOL for e in errs.values())
             and all(twice.values())):
         raise AssertionError(f"blend_forward_q: {errs}, bit-identical "
                              f"twice {twice}")
-    # 25 FLOP per pair-pixel walked (as kernel 5); bytes: 20 B per pair
-    # read, the segment bounds, colour, T and n_contrib out.
-    b_ms, b_by = bound(num_pairs * 20 + 2 * T * 4 + T * P * 20,
-                       25.0 * float(walked.double().sum()))
+    # FLOP by need (forward_work); bytes: 20 B per pair read, the segment
+    # bounds, colour, T and n_contrib out.
+    b_ms, b_by = bound(num_pairs * 20 + 2 * T * 4 + T * P * 20, float(flop))
     se = seg[1:]
     results["blend_forward_q"] = dict(
         max_abs_err=max(errs.values()),
@@ -1314,8 +1326,7 @@ def check_inference_kernels(dev, fov_table, results):
         plain_ms=cuda_ms(lambda: blend.blend_forward_q_plain(pairs, ss, se,
                                                              gx), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"{W_FULL}x{H_FULL}, pairs={num_pairs}",
-        pair_pixels_walked=int(walked.long().sum()))
+        shape=f"{W_FULL}x{H_FULL}, pairs={num_pairs}", **counts)
 
     # --- 9, on the ps1 table (timed) and on the "ours" frame's table
     checks = {}
@@ -1589,22 +1600,23 @@ def check_mmfr_blend(models, cfgs, cam):
     gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
     T, P = gx * gy, blend.PIX
     inputs = mmfr_level_pairs(models, cfgs, cam, (0.5, 0.5))
-    errs, twice, pairs_n, owned, walked = [], [], [], [], 0.0
+    errs, twice, pairs_n, owned, work = [], [], [], [], 0
     for pairs, ss, se in inputs:
         ko = bfw.blend_forward_q(pairs, ss, se, gx)
         po = blend.blend_forward_q_plain(pairs, ss, se, gx,
-                                         return_walked=True)
+                                         return_work=True)
         errs.append(max(float((ko[0] - po[0]).abs().max()),
                         float((ko[1] - po[1]).abs().max())))
         twice.append(same_outputs(ko, bfw.blend_forward_q(pairs, ss, se,
                                                           gx)))
         pairs_n.append(int((se - ss).clamp(min=0).sum()))
         owned.append(int((se > ss).sum()))
-        walked += float(po[3].double().sum())
+        work = work + po[3].reshape(4, -1).long().sum(1)
+    counts, flop = forward_work(work)
     emit({"phase": "check", "kernel": "blend_forward_q_mmfr",
           "gaze": (0.5, 0.5), "pairs_blended": pairs_n,
           "tiles_with_pairs": owned, "max_abs_err": errs, "tol": BLEND_ATOL,
-          "bit_identical_twice": twice})
+          "bit_identical_twice": twice, **counts, "flop": flop})
     if not (all(e <= BLEND_ATOL for e in errs) and all(twice)):
         raise AssertionError(f"blend_forward_q on MM-FR: {errs}, "
                              f"bit-identical twice {twice}")
@@ -1618,17 +1630,17 @@ def check_mmfr_blend(models, cfgs, cam):
              "device_events": times["device_events"],
              "device_split": {k: v / n
                               for k, v in times["device_split"].items()}}
-    # As kernel 5q on PS1: 25 FLOP per pair-pixel walked; 20 B per pair
+    # As kernel 5q on PS1: FLOP by need (forward_work); 20 B per pair
     # blended, the segment bounds, colour, T and n_contrib out.
     b_ms, b_by = bound((sum(pairs_n) * 20 + n * (2 * T * 4 + T * P * 20))
-                       / n, 25.0 * walked / n)
+                       / n, flop / n)
     return dict(max_abs_err=max(errs), **times,
                 plain_ms=cuda_ms(lambda: all_levels(
                     blend.blend_forward_q_plain), 1) / n,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 shape=f"{W_FULL}x{H_FULL}, centre gaze, per launch over the "
                       f"4 level passes, pairs blended={pairs_n}",
-                pair_pixels_walked=int(walked))
+                **{k: v / n for k, v in counts.items()})
 
 
 def frame_times(path, render, cam, gazes):

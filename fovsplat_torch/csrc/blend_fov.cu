@@ -100,8 +100,10 @@ struct Chain {
 // Issue the copies of `count` pairs from `base` into one ring stage, row
 // by row so that a warp's 32 reads of a row are consecutive, every thread
 // a share (the blend needs no record owned by one thread, as kernels 5
-// and 8 do; spreading the copies is a few percent faster here), and
-// commit them as one group.
+// and 8 do), and commit them as one group. fs::stage_records, where
+// thread i copies record i, was 3.1% slower at the centre gaze and 2.6%
+// faster at (0.2, 0.2) in one call (tools/ablate_blend_fov.py
+// --variants owner_staging; PERF.md), so the centre's loop stays.
 __device__ inline void stage_batch(const float* __restrict__ attrs, int cap,
                                    int base, int count, Rec* dst) {
   float* d = reinterpret_cast<float*>(dst);

@@ -93,7 +93,7 @@ def _pair_pixel(pairs, idx, in_seg, t0: int, t1: int, grid_x: int,
 
 def blend_forward_plain(pairs, seg_start, grid_x: int,
                         power_cutoff: float = -4.5, chunk: int = 1 << 16,
-                        return_walked: bool = False):
+                        return_work: bool = False):
     """Plain single-chain blend forward (fovsplat/ops/blend.py:84-141 and
     the per-pixel rule of fovsplat/ops/pallas/blend_fwd.py:234-242).
 
@@ -101,10 +101,12 @@ def blend_forward_plain(pairs, seg_start, grid_x: int,
     b]; seg_start (T+1,) i32. Transmittances are sequential products
     (torch.cumprod), the kernel's own T = T * (1 - a) chain. Returns
     (colour (T, PIX, 3), final T (T, PIX), n_contrib (T, PIX) i32) and,
-    with return_walked, the (T, PIX) count of pairs each pixel walks
-    before it freezes (the data-dependent work of the kernel)."""
+    with return_work, the data-dependent work of the kernel: a (4, T,
+    PIX) i32 count, per pixel, of the pairs it walks before it freezes
+    (the freezing pair included), of those whose power lies in the
+    window, of those that contribute, and whether a pair froze it."""
     return _blend_forward(pairs, seg_start, None, grid_x, power_cutoff,
-                          chunk, return_walked)
+                          chunk, return_work)
 
 
 C_OP = 1.0 / 255.0     # u8 opacity step (blend_fwd.py:70)
@@ -135,7 +137,7 @@ def decode_q_rows(pairs):
 
 def blend_forward_q_plain(pairs, seg_start, seg_end, grid_x: int,
                           power_cutoff: float = -4.5, chunk: int = 1 << 16,
-                          return_walked: bool = False):
+                          return_work: bool = False):
     """Plain forward-only blend of the quantized inference rows, the
     function of kernel 5q (fovsplat/ops/pallas/blend_fwd.py:947
     blend_pallas_fwd_only, _forward with mxu_power=True).
@@ -146,25 +148,26 @@ def blend_forward_q_plain(pairs, seg_start, seg_end, grid_x: int,
     and the window is power_cutoff <= power <= 3e-3, as the JAX kernel's
     (blend_fwd.py:377): the decoded bf16 conic need not be positive
     definite. Returns (colour (T, PIX, 3), final T (T, PIX), n_contrib
-    (T, PIX) i32) and, with return_walked, the walked counts."""
+    (T, PIX) i32) and, with return_work, the work counts of
+    blend_forward_plain."""
     return _blend_forward(decode_q_rows(pairs), seg_start, seg_end, grid_x,
-                          power_cutoff, chunk, return_walked,
+                          power_cutoff, chunk, return_work,
                           power_max=POWER_MAX_Q, local=True)
 
 
 def _blend_forward(pairs, seg_start, seg_end, grid_x: int,
-                   power_cutoff: float, chunk: int, return_walked: bool,
+                   power_cutoff: float, chunk: int, return_work: bool,
                    power_max: float = 0.0, local: bool = False):
     dev = pairs.device
     T = seg_start.shape[0] - (1 if seg_end is None else 0)
     color = torch.zeros((T, PIX, 3), dtype=torch.float32, device=dev)
     final_T = torch.ones((T, PIX), dtype=torch.float32, device=dev)
     n_contrib = torch.zeros((T, PIX), dtype=torch.int32, device=dev)
-    walked = torch.zeros((T, PIX), dtype=torch.int32, device=dev)
+    work = torch.zeros((4, T, PIX), dtype=torch.int32, device=dev)
     for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk, seg_end):
-        a, _, _, _, alpha, ok, _ = _pair_pixel(pairs, idx, in_seg, t0, t1,
-                                               grid_x, power_cutoff,
-                                               power_max, local)
+        a, _, _, _, alpha, ok, geo = _pair_pixel(pairs, idx, in_seg, t0, t1,
+                                                 grid_x, power_cutoff,
+                                                 power_max, local)
         a_eff = torch.where(ok, alpha, torch.zeros_like(alpha))
         om = 1.0 - a_eff
         T_incl = torch.cumprod(om, 1)
@@ -179,13 +182,15 @@ def _blend_forward(pairs, seg_start, seg_end, grid_x: int,
             torch.where(contrib, om, torch.ones_like(om)), 1)[:, -1]
         rank = torch.arange(1, idx.shape[1] + 1, device=dev)[None, :, None]
         n_contrib[t0:t1] = torch.where(contrib, rank, 0).amax(1).int()
-        if return_walked:
-            cnt = in_seg.sum(1)[:, None]
-            walked[t0:t1] = torch.where(trigger.any(1),
-                                        trigger.int().argmax(1) + 1,
-                                        cnt).int()
-    if return_walked:
-        return color, final_T, n_contrib, walked
+        if return_work:
+            fired = trigger.any(1)
+            work[0, t0:t1] = torch.where(fired, trig.argmax(1) + 1,
+                                         in_seg.sum(1)[:, None]).int()
+            work[1, t0:t1] = (geo & ~done_before).sum(1).int()
+            work[2, t0:t1] = contrib.sum(1).int()
+            work[3, t0:t1] = fired.int()
+    if return_work:
+        return color, final_T, n_contrib, work
     return color, final_T, n_contrib
 
 

@@ -2,7 +2,7 @@
 """Which parts of kernel 3's design pay on the card: variants of
 fovsplat_torch/csrc/blend_fov.cu against the source as it stands.
 
-    python3 tools/ablate_blend_fov.py
+    python3 tools/ablate_blend_fov.py [--variants NAME ...]
 
 Needs one CUDA card and nvcc. Each variant is the source with one of its
 constants or lines replaced (VARIANTS; the tile order, the cp.async
@@ -19,6 +19,7 @@ blend_fov_plain (within chip_smoke.BLEND_ATOL, or the script fails). The
 last line names the card.
 """
 
+import argparse
 import ctypes
 import json
 import sys
@@ -37,10 +38,10 @@ CP_ASYNC = ("  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared
             "::\"r\"(s),\n"
             "               \"l\"(gmem)\n"
             "               : \"memory\");\n")
-# Shared with tools/ablate_blend_single.py (the same common.cuh text).
-PIXEL_OF = ("  const int w = s >> 5, l = s & 31;\n"
-            "  return ((w >> 1) * 4 + (l >> 3)) * BLEND_TILE + (w & 1) * 8 +"
-            " (l & 7);")
+# The body of common.cuh's pixel_of, read from the source (shared with
+# tools/ablate_blend_single.py).
+PIXEL_OF = ablate_build.function_body(
+    (ROOT / "fovsplat_torch" / "csrc" / COMMON).read_text(), "pixel_of")
 ORDER = ("    order[atomicAdd(&cursor[length_bucket(seg_end[t] - "
          "seg_start[t])],\n                    1)] = t;")
 SYNC_LOADS = (COMMON, CP_ASYNC, "  *static_cast<float*>(smem) = "
@@ -85,14 +86,21 @@ VARIANTS = {
     # Plain loads and stores in place of cp.async: the ring stays, but a
     # thread waits for its copies of batch k + 1 before it blends batch k.
     "sync_loads": [SYNC_LOADS],
+    # common.cuh's stage_records in place of stage_batch: thread i copies
+    # every row of record i, so half the block issues the copies.
+    "owner_staging": [(K3, ablate_build.function_body(
+        (ROOT / "fovsplat_torch" / "csrc" / K3).read_text(), "stage_batch"),
+        "  fs::stage_records<NUM_ATTRS, REC>(attrs, cap, base, count,\n"
+        "                                    reinterpret_cast<float*>(dst));")],
 }
 
 
-def build(out_dir):
+def build(out_dir, names):
     from fovsplat_torch.ops.kernels import _build
     texts = {name: (_build.CSRC / name).read_text() for name in (K3, COMMON)}
     jobs = {}
-    for name, subs in VARIANTS.items():
+    for name in names:
+        subs = VARIANTS[name]
         ablate_build.write_variant(out_dir / name, texts, subs)
         jobs[name] = out_dir / name / K3
     return ablate_build.build(jobs)
@@ -118,6 +126,12 @@ def call(lib, pairs, seg, l1, l2, gx):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", nargs="+", choices=list(VARIANTS),
+                    default=list(VARIANTS),
+                    help="the variants to build and time (all by default; "
+                         "the source is always among them)")
+    a = ap.parse_args()
     import torch
     import chip_smoke as cs
     from fovsplat_torch.ops.kernels import blend_fov as bf
@@ -125,7 +139,8 @@ def main():
         print("ablate_blend_fov: no CUDA card", file=sys.stderr)
         return 2
     smi = ablate_build.card_name()
-    libs = build(ROOT / "build" / "ablate")
+    libs = build(ROOT / "build" / "ablate",
+                 ["source"] + [v for v in a.variants if v != "source"])
     dev = torch.device("cuda")
     for gaze in ((0.5, 0.5), (0.2, 0.2)):
         inputs = cs.frame_inputs(cs.N_FULL, cs.W_FULL, cs.H_FULL, gaze, dev)

@@ -6,15 +6,28 @@ replacement) over a set of sources: a kernel's .cu file and common.cuh.
 Each variant is written to its own directory, so that the .cu file's
 `#include "common.cuh"` finds the variant's header, and built there with
 the port's nvcc flags, one nvcc process per library, all started
-together.
+together. function_body reads a device function's text out of a source,
+so a tool's substitution need not hold a copy of it.
 """
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def function_body(text, name):
+    """The body of the device function `name` in a source's text: what
+    lies between its opening brace's line and its closing brace, which
+    stands alone at the start of a line."""
+    m = re.search(r"^__device__ inline [^(]*\b" + name + r"\([^)]*\) \{\n"
+                  r"(.*?)\n\}$", text, re.S | re.M)
+    if m is None:
+        raise AssertionError(f"no device function {name}")
+    return m[1]
 
 
 def write_variant(out_dir, texts, subs):

@@ -4,6 +4,13 @@ fovsplat_torch/csrc/common.cuh) mirrored in numpy float32, on the CPU.
 
     python3 tools/check_window_blocks.py [--samples N]
 
+The mirror reads its constants (the K limit, the widenings, mark_blocks'
+slack) and pixel_of's layout from common.cuh's text, and fails
+(read_cull) if the form of those functions changed since the mirror
+was written: then follow the change in window_blocks() below and set
+CULL_FORM to the digest the error names. tests/test_torch_window_blocks.py
+runs both checks of part 1 on a smaller sample.
+
 1. Safety: for random pairs (means around a tile at image and at tile-local
    coordinates, conics of rotated Gaussians with axis ratios up to 1,000)
    and for pairs whose window boundary passes within 1e-6 of a pixel, no
@@ -21,41 +28,110 @@ fovsplat_torch/csrc/common.cuh) mirrored in numpy float32, on the CPU.
 """
 
 import argparse
+import functools
+import hashlib
+import re
 import sys
 from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import ablate_build  # noqa: E402
 
 F32 = np.float32
 CUTOFF = F32(-4.5)
+CUH = ROOT / "fovsplat_torch" / "csrc" / "common.cuh"
+CULL_FUNCTIONS = ("pixel_of", "window_blocks", "mark_blocks")
+# sha256 of the three functions' text with every float literal replaced
+# by '#': the form the mirror follows.
+CULL_FORM = ("93c0941300156b3664c20f38bf86894d"
+             "6d3ddbc86881dfb049e61f82c01a7c6c")
+_F = r"(-?[0-9.]+(?:e[-+]?[0-9]+)?)f"
+# Each constant of the cull: the regex of the line that holds it.
+_CONSTANTS = {
+    "k_max": r"det > 0\.0f && k < " + _F + " &&",
+    "k_widen": r"const float q = -2\.0f \* power_cutoff \* \(1\.0f \+ "
+               + _F + r" \* k\);",
+    "widen_x": r"const float ex = sqrtf\(q \* cc / det\) \* \(1\.0f \+ "
+               + _F + r"\) \+ slack;",
+    "widen_y": r"const float ey = sqrtf\(q \* ca / det\) \* \(1\.0f \+ "
+               + _F + r"\) \+ slack;",
+    "slack0": _F + r" \+ [0-9.e-]+f \* \(fabsf\(q0\.x\)",
+    "slack_rel": r"[0-9.e-]+f \+ " + _F + r" \* \(fabsf\(q0\.x\)",
+    "slack_pad": r"fabsf\(q0\.y\) \+ ox \+ oy \+ " + _F + r"\);",
+}
+
+
+def cull_form(texts):
+    return hashlib.sha256(re.sub(_F, "#", "\n".join(texts))
+                          .encode()).hexdigest()
+
+
+@functools.cache
+def read_cull():
+    """The cull's constants ({name: float32}) and pixel_of's expression,
+    read from common.cuh; raises if the cull's form changed."""
+    text = CUH.read_text()
+    bodies = [ablate_build.function_body(text, f) for f in CULL_FUNCTIONS]
+    form = cull_form(bodies)
+    if form != CULL_FORM:
+        raise AssertionError(
+            f"the form of {', '.join(CULL_FUNCTIONS)} in {CUH.name} changed "
+            f"(digest {form}): follow it in {Path(__file__).name}'s "
+            "window_blocks and set CULL_FORM to that digest")
+    consts = {}
+    for name, rx in _CONSTANTS.items():
+        found = re.findall(rx, text)
+        if len(found) != 1:
+            raise AssertionError(f"{name}: {rx!r} matches {len(found)} "
+                                 f"lines of {CUH.name}")
+        consts[name] = F32(float(found[0]))
+    tile = int(re.search(r"constexpr int BLEND_TILE = (\d+);", text)[1])
+    expr = re.fullmatch(r"\s*const int w = s >> 5, l = s & 31;\n"
+                        r"\s*return (.+);", bodies[0], re.S)[1]
+    return consts, tile, expr
 
 
 def pixel_of(s):
-    w, l = s >> 5, s & 31
-    return ((w >> 1) * 4 + (l >> 3)) * 16 + (w & 1) * 8 + (l & 7)
+    """common.cuh's pixel_of: the pixel (row-major in the tile) of slot s
+    (an int or an integer array)."""
+    _, tile, expr = read_cull()
+    return eval(expr, {}, {"w": s >> 5, "l": s & 31, "BLEND_TILE": tile})
 
 
 def fma(a, b, c):
     return (a.astype(np.float64) * b + c.astype(np.float64)).astype(F32)
 
 
+def mark_slack(mx, my, ox, oy):
+    """common.cuh's mark_blocks' slack for a mean (mx, my) in the
+    record's coordinates and the tile's origin (ox, oy) in them."""
+    c = read_cull()[0]
+    return c["slack0"] + c["slack_rel"] * (np.abs(mx) + np.abs(my) + ox + oy
+                                           + c["slack_pad"])
+
+
 def window_blocks(mx, my, ca, cb, cc, cut, slack):
     """common.cuh's window_blocks, elementwise over float32 arrays."""
+    c, tile, _ = read_cull()
     p = cb * cb
     det = fma(ca, cc, -p) - fma(cb, cb, -p)
     with np.errstate(all="ignore"):
         k = F32(1) + (ca + cc) * (ca + cc) / det
-        ok = (ca > 0) & (cc > 0) & (det > 0) & (k < F32(1e6)) & (cut < 0)
-        q = F32(-2) * cut * (F32(1) + F32(1e-5) * k)
-        ex = np.sqrt(q * cc / det) * F32(1 + 1e-5) + slack
-        ey = np.sqrt(q * ca / det) * F32(1 + 1e-5) + slack
+        ok = (ca > 0) & (cc > 0) & (det > 0) & (k < c["k_max"]) & (cut < 0)
+        q = F32(-2) * cut * (F32(1) + c["k_widen"] * k)
+        ex = np.sqrt(q * cc / det) * (F32(1) + c["widen_x"]) + slack
+        ey = np.sqrt(q * ca / det) * (F32(1) + c["widen_y"]) + slack
     mask = np.zeros(mx.shape, np.uint32)
     for w in range(8):
         first, last = pixel_of(32 * w), pixel_of(32 * w + 31)
-        clear = ((F32(first % 16) > mx + ex) | (F32(last % 16) < mx - ex)
-                 | (F32(first // 16) > my + ey) | (F32(last // 16) < my - ey))
+        clear = ((F32(first % tile) > mx + ex)
+                 | (F32(last % tile) < mx - ex)
+                 | (F32(first // tile) > my + ey)
+                 | (F32(last // tile) < my - ey))
         mask |= np.where(clear, 0, 1 << w).astype(np.uint32)
     return np.where(ok, mask, 0xFF).astype(np.uint32)
 
@@ -97,8 +173,7 @@ def false_culls(rng, n, local, boundary):
         mxl, myl = rng.uniform(-60, 76, n), rng.uniform(-60, 76, n)
     mx, my = (tx0 + mxl).astype(F32), (ty0 + myl).astype(F32)
     # common.cuh's mark_blocks: the tile-local mean and the slack.
-    slack = F32(1e-3) + F32(5e-7) * (np.abs(mx) + np.abs(my) + tx0 + ty0
-                                     + F32(32))
+    slack = mark_slack(mx, my, tx0, ty0)
     mask = window_blocks((mx - tx0).astype(F32), (my - ty0).astype(F32), ca,
                          cb, cc, CUTOFF, slack)
     bad = 0
@@ -137,8 +212,7 @@ def proxy_reach(n=60_000):
             for tx in range(g["rx0"][i], min(g["rx1"][i], g["rx0"][i] + 6)):
                 x0, y0 = F32(tx * 16), F32(ty * 16)
                 mx, my = g["mx"][i:i + 1], g["my"][i:i + 1]
-                slack = F32(1e-3) + F32(5e-7) * (np.abs(mx) + np.abs(my)
-                                                 + x0 + y0 + F32(32))
+                slack = mark_slack(mx, my, x0, y0)
                 mask = int(window_blocks(mx - x0, my - y0, g["ca"][i:i + 1],
                                          g["cb"][i:i + 1], g["cc"][i:i + 1],
                                          CUTOFF, slack)[0])
