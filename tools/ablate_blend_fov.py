@@ -156,11 +156,12 @@ def main():
             raise AssertionError(f"blend_fov.cu vs plain: {err}")
         for name, lib in libs.items():
             out = call(lib, pairs, seg, l1, l2, gx)
-            ms, events, split = cs.device_ms(
+            ms, events, split, origin = cs.device_ms(
                 lambda: call(lib, pairs, seg, l1, l2, gx), 20)
             print(json.dumps({
                 "variant": name, "gaze": gaze, "device_ms": ms,
                 "device_split": split, "events": events,
+                "device_ms_from": origin,
                 "bit_identical_to_source": bool(torch.equal(out, ref)),
                 "num_pairs": int(seg[-1])}), flush=True)
     print(json.dumps({"card": smi}), flush=True)

@@ -257,14 +257,15 @@ def main():
                 continue
             scratch_arg = name != "parent"
             outs = run(kernel, lib, scratch_arg, args)
-            ms, events, split = cs.device_ms(
+            ms, events, split, origin = cs.device_ms(
                 lambda: run(kernel, lib, scratch_arg, args), 20)
             n = len(args)
             print(json.dumps({
                 "variant": name, "case": case, "inputs": tag,
                 "device_ms": ms / n,
                 "device_split": {x: v / n for x, v in split.items()},
-                "events": events, **compare(kernel, outs, ref)}),
+                "events": events, "device_ms_from": origin,
+                **compare(kernel, outs, ref)}),
                 flush=True)
     print(json.dumps({"card": smi}), flush=True)
     return 0
