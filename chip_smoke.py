@@ -26,9 +26,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
      1<<22 + N candidates, 3,145,728 kept): kernel 4 exact (rows, keys,
      two launches; also with a pair_capacity that ends inside a rect and
      a cap_out at half the kept count), the blend forward
-     within T_EPS and bit-identical over two launches, the backward's per-pair rows within 1e-4 of each row's
-     largest value, the gid reduce within 1e-5 of the largest sum and
-     bit-identical over two launches;
+     within T_EPS and bit-identical over two launches, the backward's
+     per-pair rows within 1e-4 of each row's largest value on the loss
+     cotangent and on a seeded random g_T, and bit-identical over two
+     launches (its work counts beside its bound), the gid reduce within
+     1e-5 of the largest sum and bit-identical over two launches;
   5. the frame path: the foveated "ours" frame at full width over the 9
      gazes (3 warm-ups, 20 timed reps each) through eval/fps.py, with every
      launch counter set to 0 just before and read just after; kernels 1-3
@@ -47,8 +49,9 @@ into build/kernels first. Phases, one JSON line each on stdout:
      depths, sorted keys and the five rows bit-identical, also at cut
      capacities as in phase 4), kernel 5q
      within T_EPS and bit-identical over two launches on the full and on
-     emptied segments, kernel 9
-     bit-identical on the ps1 table and on the frame's fov table;
+     emptied segments, kernel 9 bit-identical to its plain version and
+     over two launches on the ps1 table, on the frame's fov table and on
+     that table with no column and with every column valid;
   9. the PS1 frame at full width, compaction off and on, 3 warm-ups and
      20 timed frames each, counters set to 0 before and read after: both
      images bit-identical with equal num_pairs, overflow 0, kernels 1p,
@@ -105,9 +108,10 @@ into build/kernels first. Phases, one JSON line each on stdout:
  21. torch.profiler windows over one score view and one HVS step (with
      the HVS step's time without the profiler, CUDA events over 3);
  22. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
-     MM-FR and kernel 7's argmax stream) its launches on its path, time (CUDA events over 20
-     calls), own device time (device_ms, a profiler window over 20
-     more, split by CUDA kernel), plain time, bound and error, the
+     MM-FR and kernel 7's argmax stream) its launches on its path, time
+     (CUDA events over 20 calls), own device time (device_ms, a profiler
+     window over 20 more, split by CUDA kernel, and the CUDA kernels a
+     call launches), plain time, bound and error, the
      index_add_ time of kernel 7's sums as its library time, and the
      torch.sort times of the frame's and the train route's keys as
      library rows.
@@ -184,16 +188,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def own_kernel_names():
-    """The __global__ functions of fovsplat_torch/csrc: the port's own
-    kernels, as the profiler names them."""
-    from fovsplat_torch.ops.kernels import _build
+def kernel_names(sources):
+    """The __global__ functions defined in the CUDA sources (paths), as
+    the profiler names them."""
     names = set()
-    for src in sorted(_build.CSRC.glob("*.cu*")):
+    for src in sources:
         names.update(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
             src.read_text()))
     return names
+
+
+def own_kernel_names():
+    """The __global__ functions of fovsplat_torch/csrc: the port's own
+    kernels."""
+    from fovsplat_torch.ops.kernels import _build
+    return kernel_names(sorted(_build.CSRC.glob("*.cu*")))
 
 
 def profiled(run, holds, attempts=3):
@@ -217,10 +227,11 @@ def profiled(run, holds, attempts=3):
     return None, wall_us, attempts
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, names=None):
     """The kernel's own device time per call: the CUDA time of the port's
-    kernels (own_kernel_names, not the allocations or torch ops of the
-    wrapper) in a torch.profiler window over `reps` calls of fn(), after
+    kernels (`names`, by default own_kernel_names; not the allocations or
+    torch ops of the wrapper) in a torch.profiler window over `reps` calls
+    of fn(), after
     one warm-up call. Each kernel name counts its mean time per event
     times its launches per call (its events over `reps`, rounded, at
     least 1), so an event the profiler drops does not shorten the time.
@@ -230,7 +241,8 @@ def device_ms(fn, reps):
     "cuda_events")."""
     import torch
     from torch.autograd import DeviceType
-    pat = re.compile(r"\b(%s)\s*[(<]" % "|".join(sorted(own_kernel_names())))
+    pat = re.compile(r"\b(%s)\s*[(<]" % "|".join(
+        sorted(names or own_kernel_names())))
 
     def by_name(events):
         out = {}
@@ -264,11 +276,13 @@ def kernel_times(fn, reps=20):
     the kernel's own device time per call over another `reps`,
     "device_events": the kernel events that window saw, "device_split":
     device ms per call by kernel name, "device_ms_from": "profiler", or
-    "cuda_events" where no profiler window held the kernels}."""
+    "cuda_events" where no profiler window held the kernels,
+    "launches_per_call": the events over `reps` (None without them)}."""
     dev_ms, events, split, origin = device_ms(fn, reps)
     return {"ms": cuda_ms(fn, reps), "device_ms": dev_ms,
             "device_events": events, "device_split": split,
-            "device_ms_from": origin}
+            "device_ms_from": origin,
+            "launches_per_call": events / reps if events else None}
 
 
 def same_outputs(a, b):
@@ -354,6 +368,20 @@ def forward_work(work):
     counts = dict(zip(("pair_pixels_walked", "pair_pixels_in_window",
                        "pair_pixels_touched", "pixels_frozen"), w))
     return counts, 13 * w[0] + 4 * w[1] + 10 * w[2] + 3 * w[3]
+
+
+def backward_work(work):
+    """(counts, FLOP) of kernel 6 from its plain version's work counts
+    (blend.blend_backward_plain's return_work), each operation counted on
+    the pair-pixels that need it, as the backward's header in
+    csrc/blend_fwd.cu sets out: 13 FLOP per pair-pixel up to the pixel's
+    last contributor, 4 more where the power lies in the window, 48 more
+    where the pair contributes."""
+    w = [int(x) for x in work.reshape(3, -1).long().sum(1)]
+    counts = dict(zip(("pair_pixels_to_last_contributor",
+                       "pair_pixels_in_window", "pair_pixels_contributing"),
+                      w))
+    return counts, 13 * w[0] + 4 * w[1] + 48 * w[2]
 
 
 def frame_inputs(n, width, height, gaze, device):
@@ -660,6 +688,7 @@ def check_train_kernels(st, cam, gt, results):
     inputs at full width: the 19 columns of the state, the sorted pairs,
     the cotangent of the photometric loss of the forward's image, and
     the gid-sorted stream of the backward's rows."""
+    import numpy as np
     import torch
     from fovsplat_torch.ops import blend, foveated as fov
     from fovsplat_torch.ops import projection, sh
@@ -728,35 +757,51 @@ def check_train_kernels(st, cam, gt, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{cam.width}x{cam.height}, pairs={num_pairs}", **counts)
 
-    # --- kernel 6, on the cotangent of the photometric loss
+    # --- kernel 6, on the cotangent of the photometric loss (g_T = 0, the
+    # step's) and with a seeded random g_T of the colour cotangent's scale
     tile_c = ck.detach().clone().requires_grad_(True)
     with torch.enable_grad():
         img = blend.tiles_to_image(tile_c, gx, gy, cam.width, cam.height)
         g_c, = torch.autograd.grad(losses.photometric_loss(img, gt), tile_c)
-    g_T = torch.zeros_like(Tk)
-    bargs = (pairs, seg, gx, g_c, g_T, Tk, nk)
-    gk = bfw.blend_backward(*bargs)
-    gp = blend.blend_backward_plain(*bargs)
-    row_max = gp.abs().amax(1)
-    b_rel = float(((gk - gp).abs().amax(1) / row_max.clamp(min=1e-30))
-                  .max())
-    emit({"phase": "check", "kernel": "blend_backward",
-          "max_rel_err_of_row_max": b_rel, "tol": BWD_RTOL,
-          "row_max": [float(x) for x in row_max]})
-    if not b_rel <= BWD_RTOL:
-        raise AssertionError(f"blend_backward: rel err {b_rel}")
-    # ~66 FLOP per pair and pixel up to the pixel's last contributor,
-    # counted from csrc/blend_fwd.cu (its header), one expf counted as one.
+    rand_g_T = torch.from_numpy(np.random.default_rng(6).normal(
+        0.0, 1.0, tuple(Tk.shape)).astype(np.float32)).to(Tk.device) \
+        * g_c.abs().max()
+    checks, b_err = {}, 0.0
+    for tag, g_T in (("loss", torch.zeros_like(Tk)), ("random_g_T",
+                                                       rand_g_T)):
+        bargs = (pairs, seg, gx, g_c, g_T, Tk, nk)
+        gk = bfw.blend_backward(*bargs)
+        twice = bool(torch.equal(gk, bfw.blend_backward(*bargs)))
+        gp, work = blend.blend_backward_plain(*bargs, return_work=True)
+        row_max = gp.abs().amax(1)
+        rel = float(((gk - gp).abs().amax(1) / row_max.clamp(min=1e-30))
+                    .max())
+        b_err = max(b_err, float((gk - gp).abs().max()))
+        checks[tag] = {"max_rel_err_of_row_max": rel,
+                       "bit_identical_twice": twice,
+                       "row_max": [float(x) for x in row_max]}
+        if tag == "loss":
+            counts, flop = backward_work(work)
+    # FLOP by need (backward_work); bytes: 72 B per pair (rows in,
+    # gradients out) and 24 B per pixel.
     nbytes = num_pairs * 72 + T * P * 24
-    b_ms, b_by = bound(nbytes, 66.0 * float(nk.double().sum()))
+    b_ms, b_by = bound(nbytes, float(flop))
+    emit({"phase": "check", "kernel": "blend_backward",
+          "num_pairs": num_pairs, **checks, "tol": BWD_RTOL, **counts,
+          "flop": flop, "bytes": nbytes, "bound_ms": b_ms,
+          "bound_by": b_by})
+    if not all(c["max_rel_err_of_row_max"] <= BWD_RTOL
+               and c["bit_identical_twice"] for c in checks.values()):
+        raise AssertionError(f"blend_backward: {checks}")
+    bargs = (pairs, seg, gx, g_c, torch.zeros_like(Tk), Tk, nk)
     results["blend_backward"] = dict(
-        max_abs_err=float((gk - gp).abs().max()),
+        max_abs_err=b_err,
         **kernel_times(lambda: bfw.blend_backward(*bargs)),
         plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*bargs), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{cam.width}x{cam.height}, pairs={num_pairs}",
-        max_rel_err_of_row_max=b_rel,
-        pair_pixels_to_last_contributor=int(nk.long().sum()))
+        max_rel_err_of_row_max=max(c["max_rel_err_of_row_max"]
+                                   for c in checks.values()), **counts)
 
     # --- kernel 7
     gid, vals = rast.gid_sorted_stream(gk, full[9].to(torch.int32),
@@ -1360,22 +1405,33 @@ def check_inference_kernels(dev, fov_table, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{W_FULL}x{H_FULL}, pairs={num_pairs}", **counts)
 
-    # --- 9, on the ps1 table (timed) and on the "ours" frame's table
+    # --- 9, on the ps1 table (timed), on the "ours" frame's table, and on
+    # that table with no column valid and with every column valid
     checks = {}
-    for tag, table, flag, tn in (
-            ("ps1", tk, ep1.ROW_TNUM, ep1.ROW_TNUM),
-            ("fov", fov_table, bt.ROW_VALID, bt.ROW_TNUM)):
+    for tag, table, flag, tn, valid in (
+            ("ps1", tk, ep1.ROW_TNUM, ep1.ROW_TNUM, None),
+            ("fov", fov_table, bt.ROW_VALID, bt.ROW_TNUM, None),
+            ("fov_none_kept", fov_table, bt.ROW_VALID, bt.ROW_TNUM, 0.0),
+            ("fov_all_kept", fov_table, bt.ROW_VALID, bt.ROW_TNUM, 1.0)):
+        if valid is not None:
+            table = table.clone()
+            table[flag] = valid
         ko = ct.compact_table(table, flag, 0.5, tn)
+        again = ct.compact_table(table, flag, 0.5, tn)
         po = ct.compact_table_plain(table, flag, 0.5, tn)
-        checks[tag] = {"bit_identical": all(torch.equal(a, b)
-                                            for a, b in zip(ko, po)),
+        checks[tag] = {"bit_identical": same_outputs(ko, po),
+                       "bit_identical_twice": same_outputs(ko, again),
                        "live": int(ko[2]), "columns": table.shape[1],
                        "total": int(ko[3])}
+    del table, ko, again, po
     emit({"phase": "check", "kernel": "compact_table", **checks})
-    if not all(c["bit_identical"] for c in checks.values()):
+    if not all(c["bit_identical"] and c["bit_identical_twice"]
+               for c in checks.values()):
         raise AssertionError(f"compact_table differs: {checks}")
     live = checks["ps1"]["live"]
-    b_ms, b_by = bound(tk.numel() * 4 + tk.shape[0] * 4 * live + n * 4, 0.0)
+    # Bytes: the table read once and the whole output table written once
+    # (the zeroed columns included), and cum.
+    b_ms, b_by = bound(2 * tk.numel() * 4 + n * 4, 0.0)
     results["compact_table"] = dict(
         max_abs_err=0.0,
         **kernel_times(lambda: ct.compact_table(tk, ep1.ROW_TNUM, 0.5,
@@ -1922,6 +1978,7 @@ def main():
                      "device_ms": r["device_ms"],
                      "device_split": r["device_split"],
                      "device_ms_from": r["device_ms_from"],
+                     "launches_per_call": r.get("launches_per_call"),
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),

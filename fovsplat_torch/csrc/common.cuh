@@ -1,10 +1,10 @@
 // Shared pieces of the port's CUDA sources: the block-local exclusive scan
-// and the linear carry that finishes it across blocks (the tiles-touched
-// cumsum of build_table.cu, the block offsets of expand_fov.cu and
-// expand_ps1.cu, the column offsets of compact_table.cu), the candidate
-// search of the two candidate-parallel expansions, the schedule and
-// staging of the tile blends (blend_fov.cu, blend_fwd.cu's forward,
-// blend_stats.cu), and the error-string export.
+// (of any integer type) and the linear carry that finishes it across
+// blocks (the tiles-touched cumsum of build_table.cu, the block offsets
+// of expand_fov.cu and expand_ps1.cu; compact_table.cu scans packed
+// 64-bit words), the candidate search of the two candidate-parallel
+// expansions, the schedule and staging of the tile blends (blend_fov.cu,
+// blend_fwd.cu, blend_stats.cu), and the error-string export.
 //
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that the Python wrapper can raise on a
@@ -24,51 +24,38 @@ constexpr int SCAN_BLOCK = 256;
 constexpr int SUMS_BLOCK = 1024;
 constexpr int SUMS_ITEMS = 4;
 
-// Exclusive prefix sum of one int per thread over a BLOCK-thread block.
-// Returns the thread's exclusive prefix; *block_total receives the block's
-// sum (valid in every thread). Warp shuffles, then one warp scans the warp
-// sums.
-template <int BLOCK = SCAN_BLOCK>
-__device__ inline int block_exclusive_scan(int v, int* block_total) {
+// Exclusive prefix sum of one value per thread over a BLOCK-thread block
+// (T an integer type). Returns the thread's exclusive prefix;
+// *block_total receives the block's sum (valid in every thread). Warp
+// shuffles, then one warp scans the warp sums.
+template <int BLOCK = SCAN_BLOCK, typename T = int>
+__device__ inline T block_exclusive_scan(T v, T* block_total) {
   static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "block of whole warps");
-  __shared__ int warp_sums[BLOCK / 32];
+  __shared__ T warp_sums[BLOCK / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int incl = v;
+  T incl = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    int up = __shfl_up_sync(0xffffffffu, incl, d);
+    T up = __shfl_up_sync(0xffffffffu, incl, d);
     if (lane >= d) incl += up;
   }
   if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < BLOCK / 32 ? warp_sums[lane] : 0;
+    T w = lane < BLOCK / 32 ? warp_sums[lane] : T(0);
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      int up = __shfl_up_sync(0xffffffffu, w, d);
+      T up = __shfl_up_sync(0xffffffffu, w, d);
       if (lane >= d) w += up;
     }
     if (lane < BLOCK / 32) warp_sums[lane] = w;  // inclusive
   }
   __syncthreads();
-  const int warp_base = warp > 0 ? warp_sums[warp - 1] : 0;
+  const T warp_base = warp > 0 ? warp_sums[warp - 1] : T(0);
   *block_total = warp_sums[BLOCK / 32 - 1];
   __syncthreads();  // warp_sums may be reused by the caller's next scan
   return warp_base + incl - v;
-}
-
-// out[i] = exclusive prefix of in[] within its SCAN_BLOCK block;
-// block_sums[b] = that block's sum.
-__global__ void __launch_bounds__(SCAN_BLOCK)
-scan_local_kernel(const int* __restrict__ in, int* __restrict__ out,
-                  int* __restrict__ block_sums, int n) {
-  const int i = blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  const int v = i < n ? in[i] : 0;
-  int total;
-  const int excl = block_exclusive_scan(v, &total);
-  if (i < n) out[i] = excl;
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
 }
 
 // One block turns block_sums[0, nblocks) into its exclusive prefix, in
@@ -143,7 +130,7 @@ __device__ inline int block_span(const int* __restrict__ cum,
 
 inline int scan_blocks(int n) { return (n + SCAN_BLOCK - 1) / SCAN_BLOCK; }
 
-// ---- The tile blends' schedule and staging (kernels 3, 5, 5q and 8) ----
+// ---- The tile blends' schedule and staging (kernels 3, 5, 5q, 6, 8) ----
 //
 // A persistent grid of the resident blocks takes the tiles heaviest
 // first: order_kernel sorts them by segment length and each block takes
@@ -243,7 +230,7 @@ __device__ inline unsigned window_blocks(float mx, float my, float ca,
   return mask;
 }
 
-// A staged pair of the single-chain blends (kernels 5, 5q and 8): q[0] =
+// A staged pair of the single-chain blends (kernels 5, 5q, 6, 8): q[0] =
 // (mx, my, ca, cb), q[1] = (cc, op, r, g), q[2] = (b, blocks, -, -),
 // blocks the bits of window_blocks.
 struct alignas(16) PairRec {
@@ -322,23 +309,30 @@ inline cudaError_t tile_order(const int* seg_start, const int* seg_end,
   return cudaGetLastError();
 }
 
-// *blocks = the blocks of `kernel` (threads a block) resident on the
-// current device at once: the persistent grid's size. cache[dev] keeps
-// it per device; the caller owns one cache (MAX_DEVICES ints, zeroed)
-// per kernel.
+// *blocks = the blocks of `kernel` (threads a block, smem bytes of
+// dynamic shared memory, which it is allowed first where that exceeds
+// the default 48 KB) resident on the current device at once: the
+// persistent grid's size. cache[dev] keeps it per device; the caller owns
+// one cache (MAX_DEVICES ints, zeroed) per kernel.
 template <typename Kernel>
 inline cudaError_t resident_blocks(Kernel kernel, int threads, int* cache,
-                                   int* blocks) {
+                                   int* blocks, size_t smem = 0) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (cache[dev] == 0) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, 0);
+                                                        threads, smem);
     if (err != cudaSuccess) return err;
     if (sms * per_sm < 1) return cudaErrorInvalidConfiguration;
     cache[dev] = sms * per_sm;

@@ -9,11 +9,25 @@
 // at or past `live` (binning.py:366-370), live and total.
 //
 // The TPU kernel carries its write position and pair total across a
-// sequential grid; here it is count, scan, write: a flag pass writes each
-// column's keep bit and its kept tnum, common.cuh's scan turns both into
-// offsets (and live) and the compacted cum (and total), a write pass
-// copies each kept column to its offset, and a tail pass zeroes the
-// columns past live. No atomics: every lane is deterministic.
+// sequential grid; here one pass with a decoupled look-back carries them
+// across blocks. Each block takes its index from an atomic counter, so
+// every block before it has started and the look-back cannot deadlock,
+// and takes CHUNK columns:
+// 1. it flags its columns and takes each kept column's tnum, as one
+//    packed word (kept | tnum << 32), read coalesced and scanned through
+//    shared memory (each thread ITEMS consecutive columns, then one block
+//    scan of the thread sums);
+// 2. warp 0 (the kept count) and warp 1 (the tnum sum) publish the
+//    block's aggregate in its status word, then walk back over the
+//    predecessors' words to the nearest inclusive prefix and publish
+//    their own (64-bit words: a flag in bits 62-63, the value in the low
+//    32 bits, so a word is read whole; acquire loads, release stores);
+// 3. it copies each kept column's R rows to its offset and writes cum
+//    there. The last block writes live and total.
+// A second launch zeroes the columns from live on, with cum = total
+// there. The status words and the counter are zeroed on the stream first
+// (cudaMemsetAsync). Integer sums, so every output is exact: the tnum
+// sums wrap mod 2^32 as the plain version's i32 cumsum does.
 //
 // Why it exists: the TPU's expand kernels need one dummy pair per invalid
 // row to keep their bounded-window property (compact_table.py:4-10), and
@@ -22,11 +36,11 @@
 // (every thread of a warp then owns a Gaussian with tiles). It stays off
 // by default (RasterizeConfig.compact_table).
 //
-// Bound: bytes. The table is read once (R x 4 B a column) and each kept
-// column is written once, plus 12 B a lane of cum, flag and scan traffic.
-// The column copy is coalesced on the read (thread i reads column i of
-// every row) and nearly so on the write (kept columns of a warp land on
-// consecutive offsets).
+// Bound: bytes. The table is read once and the whole output table is
+// written once (R x 4 B a column each way, the zeroed columns included),
+// plus 4 B a lane of cum. Reads are coalesced (thread i of a block reads
+// column i of every row); the kept columns of a warp land on consecutive
+// offsets, so the writes nearly are.
 
 #include <cuda_runtime.h>
 
@@ -34,29 +48,151 @@
 
 namespace {
 
-__global__ void __launch_bounds__(fs::SCAN_BLOCK)
-flag_kernel(const float* __restrict__ table, int n, int flag_row,
-            float flag_thresh, int tnum_row, int* __restrict__ keep,
-            int* __restrict__ kept_tnum) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const bool k = table[static_cast<size_t>(flag_row) * n + i] > flag_thresh;
-  keep[i] = k;
-  kept_tnum[i] =
-      k ? static_cast<int>(table[static_cast<size_t>(tnum_row) * n + i]) : 0;
+constexpr int THREADS = 256;
+constexpr int ITEMS = 4;                  // columns a thread
+constexpr int CHUNK = THREADS * ITEMS;    // columns a block
+constexpr int ROW_BATCH = 4;              // rows copied at once
+constexpr unsigned FULL = 0xffffffffu;
+// Status word flags: nothing yet, the block's own aggregate, the
+// inclusive prefix through the block.
+constexpr unsigned long long AGGREGATE = 1ull << 62;
+constexpr unsigned long long PREFIX = 2ull << 62;
+
+__device__ inline unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(fs::SCAN_BLOCK)
-write_kernel(const float* __restrict__ table, int n, int rows,
-             const int* __restrict__ keep, const int* __restrict__ offsets,
-             const int* __restrict__ kept_cum, float* __restrict__ out,
-             int* __restrict__ cum_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !keep[i]) return;
-  const int o = offsets[i];
-  for (int r = 0; r < rows; ++r)
-    out[static_cast<size_t>(r) * n + o] = table[static_cast<size_t>(r) * n + i];
-  cum_out[o] = kept_cum[i];
+__device__ inline void store_release(unsigned long long* p,
+                                     unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// One warp: the sum, mod 2^32, of the values of blocks [0, b) from their
+// status words, 32 predecessors at a time; it waits while any of them is
+// empty and stops at the nearest inclusive prefix.
+__device__ inline unsigned look_back(const unsigned long long* status,
+                                     int b) {
+  const int lane = threadIdx.x & 31;
+  unsigned excl = 0u;
+  for (int pred = b - 1; pred >= 0;) {
+    const int i = pred - lane;
+    const unsigned long long w = i >= 0 ? load_acquire(status + i) : PREFIX;
+    if (__any_sync(FULL, (w >> 62) == 0)) continue;
+    const unsigned prefix = __ballot_sync(FULL, (w >> 62) == 2);
+    const int first = prefix ? __ffs(prefix) - 1 : 31;
+    excl += __reduce_add_sync(FULL, lane <= first ? static_cast<unsigned>(w)
+                                                  : 0u);
+    if (prefix) break;
+    pred -= 32;
+  }
+  return excl;
+}
+
+// status: 2 * nblocks words (the kept counts', then the tnum sums'), and
+// the block counter after them, all zero at launch.
+__global__ void __launch_bounds__(THREADS)
+compact_kernel(const float* __restrict__ table, int n, int rows,
+               int flag_row, float flag_thresh, int tnum_row,
+               unsigned long long* __restrict__ status, int nblocks,
+               float* __restrict__ out, int* __restrict__ cum_out,
+               int* __restrict__ live, int* __restrict__ total) {
+  __shared__ unsigned long long words[CHUNK];
+  __shared__ unsigned base[2];   // the kept count and tnum before the block
+  __shared__ int block_id;
+  if (threadIdx.x == 0)
+    block_id = static_cast<int>(
+        atomicAdd(reinterpret_cast<unsigned*>(status + 2 * nblocks), 1u));
+  __syncthreads();
+  const int b = block_id;
+  const int c0 = b * CHUNK;
+
+  // 1. Column c0 + j * THREADS + tid: its flag and packed word.
+  bool keep[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int c = c0 + j * THREADS + threadIdx.x;
+    keep[j] = c < n && table[static_cast<size_t>(flag_row) * n + c] >
+                           flag_thresh;
+    const unsigned tn =
+        keep[j] ? static_cast<unsigned>(static_cast<int>(
+                      table[static_cast<size_t>(tnum_row) * n + c]))
+                : 0u;
+    words[j * THREADS + threadIdx.x] =
+        (keep[j] ? 1ull : 0ull) | (static_cast<unsigned long long>(tn) << 32);
+  }
+  __syncthreads();
+  // Thread i's columns [i * ITEMS, (i + 1) * ITEMS) of the chunk: the
+  // packed sums add the kept counts (below 2^31) and the tnum sums (mod
+  // 2^32) at once.
+  unsigned long long local[ITEMS], sum = 0ull;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    local[i] = sum;
+    sum += words[threadIdx.x * ITEMS + i];
+  }
+  unsigned long long agg;
+  const unsigned long long excl =
+      fs::block_exclusive_scan<THREADS>(sum, &agg);
+
+  // 2. The block's prefix: warp q carries quantity q.
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    unsigned long long* st = status + warp * nblocks;
+    const unsigned a = static_cast<unsigned>(warp == 0 ? agg : agg >> 32);
+    if ((threadIdx.x & 31) == 0) {
+      __threadfence();
+      store_release(st + b, (b == 0 ? PREFIX : AGGREGATE) | a);
+    }
+    const unsigned before = b > 0 ? look_back(st, b) : 0u;
+    if ((threadIdx.x & 31) == 0) {
+      if (b > 0) store_release(st + b, PREFIX | (before + a));
+      base[warp] = before;
+      if (b == nblocks - 1) *(warp == 0 ? live : total) =
+          static_cast<int>(before + a);
+    }
+  }
+  __syncthreads();
+  const unsigned long long start =
+      base[0] | (static_cast<unsigned long long>(base[1]) << 32);
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i)
+    words[threadIdx.x * ITEMS + i] = start + excl + local[i];
+  __syncthreads();
+
+  // 3. Each kept column to its offset: the low word of its prefix. The
+  // rows go ROW_BATCH at a time, all their loads before their stores.
+  int col[ITEMS], off[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const unsigned long long w = words[j * THREADS + threadIdx.x];
+    col[j] = c0 + j * THREADS + threadIdx.x;
+    off[j] = static_cast<int>(static_cast<unsigned>(w));
+    if (keep[j]) cum_out[off[j]] = static_cast<int>(w >> 32);
+  }
+  for (int r0 = 0; r0 < rows; r0 += ROW_BATCH) {
+    float v[ROW_BATCH][ITEMS];
+#pragma unroll
+    for (int i = 0; i < ROW_BATCH; ++i) {
+      const float* src = table + static_cast<size_t>(r0 + i) * n;
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j)
+        v[i][j] = r0 + i < rows && col[j] < n ? src[col[j]] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < ROW_BATCH; ++i) {
+      float* dst = out + static_cast<size_t>(r0 + i) * n;
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j)
+        if (keep[j] && r0 + i < rows) dst[off[j]] = v[i][j];
+    }
+  }
 }
 
 // Lanes at or past live: zero columns, cum = total.
@@ -74,34 +210,27 @@ __global__ void tail_kernel(int n, int rows, const int* __restrict__ live,
 
 }  // namespace
 
+// status: 2 * ceil(n / CHUNK) + 1 words of scratch (zeroed here).
 FS_EXPORT int fs_compact_table(const float* table, int n, int rows,
                                int flag_row, float flag_thresh, int tnum_row,
-                               int* keep, int* kept_tnum, int* offsets,
-                               int* kept_cum, int* block_sums, float* out,
+                               unsigned long long* status, float* out,
                                int* cum_out, int* live, int* total,
                                void* stream) {
+  if (n < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = fs::scan_blocks(n);
-  flag_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(table, n, flag_row, flag_thresh,
-                                            tnum_row, keep, kept_tnum);
-  cudaError_t err = cudaGetLastError();
+  const int nblocks = (n + CHUNK - 1) / CHUNK;
+  cudaError_t err = cudaMemsetAsync(
+      status, 0, (2 * static_cast<size_t>(nblocks) + 1) * sizeof(*status),
+      s);
   if (err != cudaSuccess) return err;
-  // The two scans share block_sums: the second starts after the first's
-  // carry pass on the same stream.
-  fs::scan_local_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(keep, offsets,
-                                                      block_sums, n);
-  err = fs::scan_carry(offsets, block_sums, nb, n, live, s);
-  if (err != cudaSuccess) return err;
-  fs::scan_local_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(kept_tnum, kept_cum,
-                                                      block_sums, n);
-  err = fs::scan_carry(kept_cum, block_sums, nb, n, total, s);
-  if (err != cudaSuccess) return err;
-  write_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(table, n, rows, keep, offsets,
-                                             kept_cum, out, cum_out);
+  compact_kernel<<<nblocks, THREADS, 0, s>>>(table, n, rows, flag_row,
+                                             flag_thresh, tnum_row, status,
+                                             nblocks, out, cum_out, live,
+                                             total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int tail_blocks = nb < 1024 ? nb : 1024;
-  tail_kernel<<<tail_blocks, fs::SCAN_BLOCK, 0, s>>>(n, rows, live, total,
-                                                     out, cum_out);
+  const int nb = fs::scan_blocks(n);
+  tail_kernel<<<nb < 1024 ? nb : 1024, fs::SCAN_BLOCK, 0, s>>>(
+      n, rows, live, total, out, cum_out);
   return cudaGetLastError();
 }

@@ -196,7 +196,7 @@ def _blend_forward(pairs, seg_start, seg_end, grid_x: int,
 
 def blend_backward_plain(pairs, seg_start, grid_x: int, g_color, g_T,
                          final_T, n_contrib, power_cutoff: float = -4.5,
-                         chunk: int = 1 << 16):
+                         chunk: int = 1 << 16, return_work: bool = False):
     """Plain single-chain blend backward (fovsplat/ops/blend.py:144-238,
     with the T recovery of fovsplat/ops/pallas/blend_fwd.py:705-716).
 
@@ -204,14 +204,27 @@ def blend_backward_plain(pairs, seg_start, grid_x: int, g_color, g_T,
     rank is below the pixel's n_contrib. T before pair j is the saved
     final T times the suffix product of 1 / (1 - a) from j on, clamped at
     1. Returns the (9, CAP) per-pair gradient rows [mx, my, ca, cb, cc,
-    op, r, g, b]; lanes that contributed nowhere are zero."""
+    op, r, g, b]; lanes that contributed nowhere are zero. With
+    return_work, also the data-dependent work of the kernel: a (3, T,
+    PIX) i32 count, per pixel, of the pairs up to its last contributor,
+    of those whose power lies in the window, and of those that
+    contribute."""
+    dev = pairs.device
     grads = torch.zeros((9, pairs.shape[1]), dtype=torch.float32,
-                        device=pairs.device)
+                        device=dev)
+    work = torch.zeros((3,) + tuple(n_contrib.shape), dtype=torch.int32,
+                       device=dev)
     for t0, t1, idx, in_seg in _tile_groups(seg_start, chunk):
-        a, dx, dy, G, alpha, ok, _ = _pair_pixel(pairs, idx, in_seg, t0,
-                                                 t1, grid_x, power_cutoff)
-        rank = torch.arange(idx.shape[1], device=pairs.device)
-        contrib = ok & (rank[None, :, None] < n_contrib[t0:t1, None, :])
+        a, dx, dy, G, alpha, ok, geo = _pair_pixel(pairs, idx, in_seg, t0,
+                                                   t1, grid_x, power_cutoff)
+        rank = torch.arange(idx.shape[1], device=dev)
+        walked = (rank[None, :, None] < n_contrib[t0:t1, None, :]) \
+            & in_seg[..., None]
+        contrib = ok & walked
+        if return_work:
+            work[0, t0:t1] = walked.sum(1).int()
+            work[1, t0:t1] = (geo & walked).sum(1).int()
+            work[2, t0:t1] = contrib.sum(1).int()
         a_eff = torch.where(contrib, alpha, torch.zeros_like(alpha))
         inv_om = 1.0 / (1.0 - a_eff)
         sfx = torch.flip(torch.cumprod(torch.flip(inv_om, [1]), 1), [1])
@@ -238,6 +251,8 @@ def blend_backward_plain(pairs, seg_start, grid_x: int, g_color, g_T,
             (w * g[..., 0]).sum(-1), (w * g[..., 1]).sum(-1),
             (w * g[..., 2]).sum(-1)])                         # (9, G, S)
         grads[:, idx[in_seg]] = rows[:, in_seg]
+    if return_work:
+        return grads, work
     return grads
 
 

@@ -13,9 +13,10 @@ and recovers T by division (blend_fwd.py:23-27). The plain versions are
 ops/blend.blend_forward_plain, blend_backward_plain and
 blend_forward_q_plain.
 
-Bound on the card: operations for both (see the source header). The
-backward reduces each pair's terms over the tile's pixels in a fixed
-order and uses no floating-point atomics, so gradients are deterministic.
+Bound on the card: operations for both, counted by need (see the
+source header). The backward reduces each pair's terms over the tile's
+pixels in a fixed order and uses no floating-point atomics, so gradients
+are deterministic.
 """
 
 from __future__ import annotations
@@ -105,14 +106,16 @@ def blend_backward(pairs, seg_start, grid_x: int, g_color, g_T, final_T,
             ("n_contrib", n_contrib, torch.int32, (T, PIX))])
     cap = pairs.shape[1]
     grads = torch.empty((NROWS, cap), dtype=torch.float32, device=dev)
+    # The kernel's tile order and tile counter.
+    scratch = torch.empty(T + 1, dtype=torch.int32, device=dev)
     lib = _build.load("blend_fwd")
     fn = lib.fs_blend_bwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, I, I, ctypes.c_float, P, P, P, P]
+    fn.argtypes = [P, I, P, I, I, ctypes.c_float, P, P, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), cap, seg_start.data_ptr(), T, grid_x,
              float(power_cutoff), fin.data_ptr(), n_contrib.data_ptr(),
-             grads.data_ptr(), _build.stream_ptr(dev))
+             scratch.data_ptr(), grads.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "blend_backward")
     blend_backward.launches += 1
     return grads

@@ -15,8 +15,9 @@ tnum >= 1 there). The port has no dummy pairs, so the JAX motive for the
 kernel (compact_table.py:4-10) is gone; all it can buy is denser warps in
 kernels 2 and 4. RasterizeConfig.compact_table keeps it off by default.
 
-Bound on the card: bytes (see the source header); count, scan, write,
-no atomics.
+Bound on the card: bytes (see the source header): one pass with a
+decoupled look-back across blocks, then a pass that zeroes the columns
+past live.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import ctypes
 import torch
 
 from fovsplat_torch.ops.kernels import _build
+
+CHUNK = 1024   # columns a block of the kernel takes (csrc/compact_table.cu)
 
 
 def compact_table_plain(table, flag_row: int, flag_thresh: float,
@@ -65,15 +68,16 @@ def compact_table(table, flag_row: int, flag_thresh: float, tnum_row: int):
     rows, n = table.shape
     _build.check_tensors("compact_table", dev,
                          (("table", table, torch.float32, (rows, n)),))
-    if n < 1 or not (0 <= flag_row < rows and 0 <= tnum_row < rows):
+    # Kept counts and offsets are i32 on the card: n must leave room for
+    # the last block's columns.
+    if (not 1 <= n <= 2**31 - 1 - CHUNK
+            or not (0 <= flag_row < rows and 0 <= tnum_row < rows)):
         raise ValueError(f"compact_table: n={n}, rows {flag_row} and "
                          f"{tnum_row} of {rows}")
     i32 = dict(dtype=torch.int32, device=dev)
-    keep = torch.empty(n, **i32)
-    kept_tnum = torch.empty(n, **i32)
-    offsets = torch.empty(n, **i32)
-    kept_cum = torch.empty(n, **i32)
-    block_sums = torch.empty(_build.scan_blocks(n), **i32)
+    # The look-back's status words (two a block) and block counter.
+    status = torch.empty(2 * ((n + CHUNK - 1) // CHUNK) + 1,
+                         dtype=torch.int64, device=dev)
     out = torch.empty_like(table)
     cum = torch.empty(n, **i32)
     live = torch.empty(1, **i32)
@@ -82,13 +86,11 @@ def compact_table(table, flag_row: int, flag_thresh: float, tnum_row: int):
     lib = _build.load("compact_table")
     fn = lib.fs_compact_table
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, I, ctypes.c_float, I] + [P] * 10
+    fn.argtypes = [P, I, I, I, ctypes.c_float, I] + [P] * 6
     fn.restype = I
     err = fn(table.data_ptr(), n, rows, flag_row, float(flag_thresh),
-             tnum_row, keep.data_ptr(), kept_tnum.data_ptr(),
-             offsets.data_ptr(), kept_cum.data_ptr(), block_sums.data_ptr(),
-             out.data_ptr(), cum.data_ptr(), live.data_ptr(),
-             total.data_ptr(), _build.stream_ptr(dev))
+             tnum_row, status.data_ptr(), out.data_ptr(), cum.data_ptr(),
+             live.data_ptr(), total.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "compact_table")
     compact_table.launches += 1
     return out, cum, live, total

@@ -1,7 +1,8 @@
 """Edge cases of the single-chain blends: the plain twins of kernel 5q
-(blend_forward_q on CPU tensors) and kernel 8 (blend_stats_plain) against
-the JAX kernels on the CPU, blend_pallas_fwd_only and blend_stats_pallas
-in interpret mode.
+(blend_forward_q on CPU tensors), kernel 6 (blend_backward_plain) and
+kernel 8 (blend_stats_plain) against the JAX kernels on the CPU,
+blend_pallas_fwd_only, blend_pallas's VJP (with the XLA blend's VJP
+beside it) and blend_stats_pallas in interpret mode.
 
 The inputs are tests/test_torch_cuda.py's single_edge_case frames, which
 the card tests hold the CUDA kernels to: emptied and partly emptied
@@ -12,11 +13,13 @@ tests/test_torch_infer.py's 5q test and tests/test_torch_stats.py's
 kernel 8 test.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fovsplat.ops import blend as jblend
 from fovsplat.ops.pallas import blend_fwd as jbf
 from fovsplat.ops.pallas import blend_stats as jbs
 from fovsplat_torch.ops import blend as tblend
@@ -176,3 +179,91 @@ def test_blend_stats_plain_outside_pixels_match_jax(stats_edges):
     assert (T[out] == 1).all() and (c["ref"][1][out] == 1).all()
     assert (best_lane[out] == cap).all() and (arg[..., 0][out] == cap).all()
     assert (first_trig[out] == tblend.BIG).all() and not best_w[out].any()
+
+
+# ------------------------------------------------------------- backward
+
+BWD_RTOL = 1e-4   # of each row's largest value (chip_smoke.BWD_RTOL)
+
+
+def _bwd_frame(frame):
+    """blend_backward_plain and the VJPs of blend_pallas (interpret) and of
+    the XLA blend on one single_edge_case frame, for seeded random colour
+    and T cotangents; the forward's final T and n_contrib are the plain
+    twin's. The "border" frame's tile 3 is faded below the alpha floor,
+    so its pairs contribute nowhere. One jit, so one JAX compile."""
+    rows, seg, (gx, gy, _, _), _ = single_edge_case(frame)
+    if frame == "border":
+        rows = rows.copy()
+        rows[5, seg[3]:seg[4]] = 0.002
+    T, cap, m = gx * gy, rows.shape[1], int(seg[-1])
+    rng = np.random.default_rng(21)
+    g_c = rng.normal(0, 1, (T, tblend.PIX, 3)).astype(np.float32)
+    g_T = rng.normal(0, 1, (T, tblend.PIX)).astype(np.float32)
+    tile = np.full(cap, T, np.int32)
+    tile[:m] = np.repeat(np.arange(T), np.diff(seg))
+
+    def losses(p):
+        pal = jbf.blend_pallas(p, jnp.asarray(seg[:-1]),
+                               jnp.asarray(seg[1:]), gx, gy, 128, -4.5, True)
+        xla = jblend.blend(jnp.asarray(tile), p[0:2].T, p[2:5].T, p[5],
+                           p[6:9].T, jnp.asarray(seg), jnp.int32(m), gx, gy,
+                           128, -4.5)
+        return jnp.stack([jnp.sum(o[0] * g_c) + jnp.sum(o[1] * g_T)
+                          for o in (pal, xla)])
+    refs = np.asarray(jax.jit(jax.jacrev(losses))(jax_rows(rows)))[:, :9]
+    pairs, sg = torch.from_numpy(rows), torch.from_numpy(seg)
+    _, final_T, nc = tblend.blend_forward_plain(pairs, sg, gx)
+    port = tblend.blend_backward_plain(pairs, sg, gx, torch.from_numpy(g_c),
+                                       torch.from_numpy(g_T), final_T, nc)
+    return dict(seg=seg, gx=gx, gy=gy, nc=nc.numpy(), port=port.numpy(),
+                refs=refs)
+
+
+@pytest.fixture(scope="module")
+def bwd_frames():
+    """_bwd_frame of each frame, made once."""
+    cache = {}
+
+    def get(frame):
+        if frame not in cache:
+            cache[frame] = _bwd_frame(frame)
+        return cache[frame]
+    return get
+
+
+@pytest.mark.parametrize("tiles", ["border", "emptied", "deep", "needles"])
+def test_blend_backward_plain_edge_tiles_match_jax(bwd_frames, tiles):
+    """Kernel 6's plain twin against the VJPs of blend_pallas and of the
+    XLA blend, on the lanes of: the 70x45 frame's right and bottom edge
+    tiles ("border"); its tile without pairs and its faded tile, whose
+    rows are zero on all three ("emptied"); the deep frame's saturated
+    tile, whose pixels freeze within their first 128 pairs ("deep"); and
+    every tile of the needles frame. Within BWD_RTOL of each row's
+    largest value."""
+    c = bwd_frames("deep" if tiles == "deep" else
+                   "needles" if tiles == "needles" else "border")
+    seg, gx, gy = c["seg"], c["gx"], c["gy"]
+    t = np.arange(gx * gy)
+    sel = {"border": ((t % gx) == gx - 1) | ((t // gx) == gy - 1),
+           "emptied": (t == 3) | (t == 7), "deep": t == 5,
+           "needles": np.ones_like(t, bool)}[tiles]
+    lanes = np.concatenate([np.arange(seg[i], seg[i + 1])
+                            for i in np.nonzero(sel)[0]])
+    port = c["port"]
+    for ref in c["refs"]:
+        row_max = np.abs(ref).max(1, keepdims=True)
+        assert (np.abs(port[:, lanes] - ref[:, lanes])
+                <= BWD_RTOL * row_max).all()
+    if tiles == "emptied":
+        assert seg[7] == seg[8] and seg[4] > seg[3]
+        assert not c["nc"][3].any()
+        assert not port[:, lanes].any()
+        assert not np.abs(c["refs"][:, :, lanes]).any()
+    elif tiles == "deep":
+        deep = seg[5] + int(c["nc"][5].max())
+        assert deep < seg[5] + 128 < seg[6]
+        assert not port[:, deep:seg[6]].any()
+        assert np.abs(port[:, seg[5]:deep]).max() > 0
+    else:
+        assert np.abs(port[:, lanes]).max() > 0

@@ -769,20 +769,62 @@ SINGLE_CASES = ([("fwd", c) for c in ("deep", "staggered", "border", "ties",
                                           "emptied", "all_empty", "needles",
                                           "zero_pairs")]
                 + [("stats", c) for c in ("deep", "staggered", "border",
-                                          "ties", "needles", "zero_pairs")])
+                                          "ties", "needles", "zero_pairs")]
+                + [("bwd", c) for c in ("deep", "staggered", "border",
+                                        "needles", "zero_pairs")])
+BWD_RTOL = 1e-4   # kernel 6 vs plain, of each row's largest value
+
+
+def _bwd_edge_case(pairs, seg, seg_np, gx, case):
+    """Kernel 6 against its plain version on one single_edge_case frame,
+    with seeded random colour and T cotangents and the plain forward's
+    final T and n_contrib: within BWD_RTOL of each row's largest value,
+    bit-identical over two launches, zero past the last segment and past
+    each tile's deepest contributor."""
+    T = seg.shape[0] - 1
+    _, final_T, nc = blend.blend_forward_plain(pairs, seg, gx)
+    rng = np.random.default_rng(11)
+    g_c, g_T = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+                .to(pairs.device) for shape in ((T, blend.PIX, 3),
+                                                (T, blend.PIX)))
+    args = (pairs, seg, gx, g_c, g_T, final_T, nc)
+    launches = bfw.blend_backward.launches
+    gk, gp = bfw.blend_backward(*args), blend.blend_backward_plain(*args)
+    row_max = gp.abs().amax(1, keepdim=True)
+    assert bool(((gk - gp).abs() <= BWD_RTOL * row_max).all())
+    assert torch.equal(gk, bfw.blend_backward(*args))
+    if pairs.device.type == "cuda":
+        assert bfw.blend_backward.launches == launches + 2
+    m = int(seg_np[-1])
+    assert not bool(gk[:, m:].any())
+    for t in range(T):
+        deep = int(seg_np[t]) + int(nc[t].max())
+        assert not bool(gk[:, deep:int(seg_np[t + 1])].any())
+    if case == "zero_pairs":
+        assert not bool(gk.any())
+    else:
+        assert float(gk.abs().max()) > 0
+    if case == "deep":
+        # The deep tile's pixels froze within its first 128 pairs: its
+        # rows past them are zero.
+        assert int(nc[5].max()) < 128 < int(seg_np[6] - seg_np[5])
 
 
 @pytest.mark.parametrize("kernel,case", SINGLE_CASES)
 def test_single_chain_edge_cases_match_plain(cuda, kernel, case):
-    """Kernels 5, 5q and 8 against their plain versions on the edge cases
-    of single_edge_case (colour and T within T_EPS, n_contrib on all but
-    a thousandth of the pixels; kernel 8's integer outputs exact, its
-    float rows 1e-5 relative) and bit-identical over two launches."""
+    """Kernels 5, 5q, 6 and 8 against their plain versions on the edge
+    cases of single_edge_case (colour and T within T_EPS, n_contrib on all
+    but a thousandth of the pixels; kernel 8's integer outputs exact, its
+    float rows 1e-5 relative; kernel 6 as _bwd_edge_case) and
+    bit-identical over two launches."""
     rows, seg_np, (gx, gy, width, height), ties = single_edge_case(
         "border" if case in ("emptied", "all_empty") else case)
     T = gx * gy
     seg = torch.from_numpy(seg_np).to(cuda)
     pairs = torch.from_numpy(rows).to(cuda)
+    if kernel == "bwd":
+        _bwd_edge_case(pairs, seg, seg_np, gx, case)
+        return
     if kernel == "stats":
         args = (pairs, seg, gx, width, height)
         k, q = bs.blend_stats(*args), blend.blend_stats_plain(*args)
@@ -848,3 +890,49 @@ def test_single_chain_edge_cases_match_plain(cuda, kernel, case):
                                    == seg_np[:-1]).to(cuda)
         assert bool((final_T[emptied] == 1).all())
         assert float(final_T[~emptied].min()) < 0.9
+
+
+COMPACT_CASES = ("none_kept", "all_kept", "ragged", "block_boundary",
+                 "n_2_21")
+
+
+def _compact_case(case, rows=20, flag_row=7, tnum_row=3, seed=4):
+    """A (rows, n) f32 table for kernel 9: random payload, flag row 0 / 1,
+    tnum row 0-39 tiles. "none_kept" and "all_kept": no column and every
+    column flagged; "ragged": n not a multiple of a block's columns;
+    "block_boundary": exactly the first two blocks' columns kept, so live
+    ends at a block boundary; "n_2_21": 2^21 columns, 60% kept."""
+    rng = np.random.default_rng(seed)
+    n = {"n_2_21": 1 << 21, "ragged": 5 * ct.CHUNK + 77}.get(
+        case, 6 * ct.CHUNK)
+    table = rng.normal(0, 1, (rows, n)).astype(np.float32)
+    flag = rng.uniform(0, 1, n) < 0.6
+    if case == "none_kept":
+        flag[:] = False
+    elif case == "all_kept":
+        flag[:] = True
+    elif case == "block_boundary":
+        flag[:] = False
+        flag[:2 * ct.CHUNK] = True
+    table[flag_row] = flag
+    table[tnum_row] = rng.integers(0, 40, n)
+    return table, flag_row, tnum_row, int(flag.sum())
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
+def test_compact_table_edge_cases_match_plain(cuda, case):
+    """Kernel 9 bit-identical to its plain version and over two launches,
+    one launch counted a call."""
+    table, flag_row, tnum_row, live = _compact_case(case)
+    t = torch.from_numpy(table).to(cuda)
+    launches = ct.compact_table.launches
+    k = ct.compact_table(t, flag_row, 0.5, tnum_row)
+    p = ct.compact_table_plain(t, flag_row, 0.5, tnum_row)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert all(torch.equal(a, b) for a, b in
+               zip(k, ct.compact_table(t, flag_row, 0.5, tnum_row)))
+    if t.device.type == "cuda":
+        assert ct.compact_table.launches == launches + 2
+    assert int(k[2]) == live
+    assert not bool(k[0][:, live:].any())
+    assert bool((k[1][live:] == k[3]).all())

@@ -249,14 +249,24 @@ def test_rasterize_fwd_only_matches_xla(ps1_case):
 
 # -------------------------------------------------------------------- 9
 
-def test_compact_table_plain_matches_pallas():
+@pytest.mark.parametrize("flags", ["near_full", "none", "all", "run_511"])
+def test_compact_table_plain_matches_pallas(flags):
     """test_compact_table_near_full_live's input, scaled down to 1024
     columns: the port's table carries tnum in row 3, where the TPU table
-    keeps its cum splits (rows 3-5), which the kernel rebuilds."""
+    keeps its cum splits (rows 3-5), which the kernel rebuilds. Flag
+    patterns: four columns invalid ("near_full"), none valid, all valid,
+    and a valid run ending at column 511. One shape, so one interpret
+    compile."""
     rng = np.random.default_rng(5)
     n = 1024
     valid = np.ones(n, bool)
-    valid[[37, 410, 800, 1023]] = False
+    if flags == "near_full":
+        valid[[37, 410, 800, 1023]] = False
+    elif flags == "none":
+        valid[:] = False
+    elif flags == "run_511":
+        valid[:] = False
+        valid[300:512] = True
     tnum = rng.integers(1, 9, n).astype(np.float32) * valid
     dt = np.zeros((64, n), np.float32)
     payload = [r for r in range(64) if r not in (3, 4, 5, 45)]
