@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch / CUDA port renders (the foveated
 "ours" frame and the PS1, SM-FR and MM-FR inference frames), trains,
-prunes and masks on the GPU.
+prunes and masks on the GPU, and that it loads a scene, trains a model
+from scratch and runs the whole pipeline there.
 
     python3 chip_smoke.py
 
@@ -107,14 +108,47 @@ into build/kernels first. Phases, one JSON line each on stdout:
      loss within 1e-5 relative, DC and opacity gradients as in phase 15;
  21. torch.profiler windows over one score view and one HVS step (with
      the HVS step's time without the profiler, CUDA events over 3);
- 22. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
+ 22. scene_io: a COLMAP binary scene written under build/scene_io by the
+     port's writer (the 16 ring cameras as PINHOLE entries, PNGs rendered
+     from the full-width proxy, 100,000 points: the centres and DC
+     colours of the 100,000-Gaussian proxy of seed 1), loaded with
+     dataset.load_scene(resolution=1): cameras within 1e-6 of the ring
+     cameras, 14 train and 2 test views (LLFF hold 8), points and colours
+     exact; seconds to write and to load;
+ 23. scratch: create_from_points on the card (knn over the 100,000
+     points), from_params at the pipeline's capacity of 1,040,000 rows,
+     train_scratch on a cut schedule (SCRATCH_CUT: 300 iterations,
+     densify events at 100, 150, 200 and 250, an opacity reset at 200,
+     the SH degree raised every 100, one LG prune at 280), every counter
+     set to 0 just before and read just after: overflow 0 and a finite
+     loss on every step, kernels 4-8 launched exactly as the schedule
+     implies; live and dropped counts at every event, ms a step (CUDA
+     events); then the first 100 iterations twice from one init and seed,
+     params, Adam moments, live mask and DensifyStats bit-identical, and
+     a profiler window over 3 scratch steps from the state after the
+     first densify event;
+ 24. scratch_vs_cpu: 20 scratch steps with one densify event on the 20k
+     proxy at 320x224, card against the CPU plain path with the same
+     split noise: DensifyStats within 1e-4 of the largest sum, clone and
+     split selections equal but near the threshold, params within 1e-4
+     of each row's largest value on at least 99.5% of the rows (new rows
+     matched by the candidate they came from);
+ 25. pipeline: run_pipeline(small=True) on the scene_io scene with
+     PipelineConfig(scratch_iters=300) and the scratch cut, counters set
+     to 0 before and read after: every stage file there, base.npz
+     reloading bit-identically, point_cloud_ps1.ply reloading to ps1.npz's
+     live rows, no bad step; a second call skips every stage (its
+     seconds); stage seconds, the live ladder and one "ours" frame of the
+     composed model at the centre gaze;
+ 26. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
      MM-FR and kernel 7's argmax stream) its launches on its path, time
      (CUDA events over 20 calls), own device time (device_ms, a profiler
      window over 20 more, split by CUDA kernel, and the CUDA kernels a
      call launches), plain time, bound and error, the
      index_add_ time of kernel 7's sums as its library time, and the
      torch.sort times of the frame's and the train route's keys as
-     library rows.
+     library rows; the rows of kernels 4-8 also give their launches on
+     the scratch and pipeline phases.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero without that line, after printing
 {"phase": "error", "at": <the last phase printed>, "error": <message>};
@@ -123,6 +157,7 @@ too.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -1095,16 +1130,27 @@ class View:
         self.image = image
 
 
-def ring_cameras(count, width, height, device):
-    """`count` cameras on the proxy camera's capture ring (radius 4, the
-    first at the proxy camera's eye), looking at the object."""
-    from fovsplat_torch.data.cameras import look_at_camera
+def ring_extrinsics(count, width, height):
+    """(R_c2w, t, fovx, fovy) of `count` cameras on the proxy camera's
+    capture ring (radius 4, the first at the proxy camera's eye), looking
+    at the object."""
+    from fovsplat_torch.data.cameras import look_at_extrinsics
     a0 = math.atan2(-2.4, 3.2)
-    return [look_at_camera(
-        [4.0 * math.cos(a0 + 2 * math.pi * i / count), -1.1,
-         4.0 * math.sin(a0 + 2 * math.pi * i / count)], [0.0, 0.0, 0.0],
-        [0, -1, 0], fovx=1.20, fovy=1.20 * height / width * 1.24,
-        width=width, height=height, device=device) for i in range(count)]
+    out = []
+    for i in range(count):
+        R, t = look_at_extrinsics(
+            [4.0 * math.cos(a0 + 2 * math.pi * i / count), -1.1,
+             4.0 * math.sin(a0 + 2 * math.pi * i / count)], [0.0, 0.0, 0.0],
+            [0, -1, 0])
+        out.append((R, t, 1.20, 1.20 * height / width * 1.24))
+    return out
+
+
+def ring_cameras(count, width, height, device):
+    """The cameras of ring_extrinsics."""
+    from fovsplat_torch.data.cameras import make_camera
+    return [make_camera(R, t, fx, fy, width, height, device=device)
+            for R, t, fx, fy in ring_extrinsics(count, width, height)]
 
 
 @contextlib.contextmanager
@@ -1293,6 +1339,660 @@ def hvs_vs_cpu(cfg):
     if not (loss_rel <= LOSS_RTOL and bc == bh == 0 and oc == oh == 0
             and all(v <= GRAD_ATOL for v in worst.values())):
         raise AssertionError("card HVS step differs from the CPU step")
+
+
+# ----------------------------------------------------- scene, scratch, pipeline
+
+SCENE_VIEWS = 16
+SCENE_POINTS = 100_000           # dataset.py:156's Blender init count
+SCENE_DIR = "build/scene_io"
+# pipeline.py:117: from-scratch capacity = points * headroom 1.3 * 8.
+SCRATCH_CAPACITY = int(SCENE_POINTS * 1.3 * 8)
+# The scratch schedule, cut from ScratchConfig's 30,000 iterations
+# (densify from 500 every 100 until 15,000, opacity reset every 3,000, SH
+# up every 1,000, LG prunes at 16,000 and 24,000): densify events at 100,
+# 150, 200 and 250, an opacity reset at 200 (so the screen-size prune
+# runs at 250), the SH degree raised at 100, 200 and 300, one LG prune at
+# 280.
+#
+# The threshold is not a cut: the JAX package's accumulate scales the
+# pixel-space gradient by 2 / size where the reference's NDC gradient is
+# the pixel gradient times size / 2 (ROADMAP section 3), so its default
+# 2e-4 never densifies at this width. 2e-4 (2 / 1237)^2 is the
+# reference's 2e-4 in that scaling (for x; y's factor is (1237 / 822)^2
+# larger).
+def jax_scaled_threshold(width, ref=2e-4):
+    return ref * (2.0 / width) ** 2
+
+
+SCRATCH_CUT = dict(iterations=300, densify_from=50, densify_every=50,
+                   densify_until=260, opacity_reset_every=200,
+                   sh_up_every=100, prune_iterations=(280,),
+                   densify_grad_threshold=jax_scaled_threshold(W_FULL))
+SCRATCH_RTOL = 1e-4              # card vs CPU: DensifyStats (of the largest sum),
+                                 # params (of each row's largest value)
+
+
+def qvec_of(R):
+    """A unit quaternion (w, x, y, z) whose colmap.qvec2rotmat is the
+    rotation R (Shepperd's method: the largest of the four terms first)."""
+    import numpy as np
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+    if tr > 0:
+        s = math.sqrt(tr + 1.0) * 2
+        q = [s / 4, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+             (R[1, 0] - R[0, 1]) / s]
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = math.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        q = [(R[2, 1] - R[1, 2]) / s, s / 4, (R[0, 1] + R[1, 0]) / s,
+             (R[0, 2] + R[2, 0]) / s]
+    elif R[1, 1] > R[2, 2]:
+        s = math.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        q = [(R[0, 2] - R[2, 0]) / s, (R[0, 1] + R[1, 0]) / s, s / 4,
+             (R[1, 2] + R[2, 1]) / s]
+    else:
+        s = math.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        q = [(R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s,
+             (R[1, 2] + R[2, 1]) / s, s / 4]
+    q = np.array(q)
+    return q / np.linalg.norm(q)
+
+
+def write_scene(root, width, height, cfg, device):
+    """A COLMAP binary scene at `root`: the 16 ring cameras as PINHOLE
+    entries, their PNGs rendered from the full-width proxy (as
+    chain_inputs renders its ground truth) and 100,000 points, the centres
+    of the 100,000-Gaussian proxy of seed 1 with their level-0 DC colours.
+    Returns (ring cameras, points f32, colours f32 as the loader reads
+    them)."""
+    import os
+    import numpy as np
+    import torch
+    from PIL import Image
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import colmap, proxy
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.ops import sh
+    from fovsplat_torch.train import loops
+    from fovsplat_torch.utils import graphics
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=N_FULL, seed=0))
+    teacher = S.from_params(convert.params_from_numpy(**raw, device=device))
+    ext = ring_extrinsics(SCENE_VIEWS, width, height)
+    cams = ring_cameras(SCENE_VIEWS, width, height, device)
+    imgs = {}
+    with torch.no_grad():
+        for i, ((R, t, fovx, fovy), c) in enumerate(zip(ext, cams)):
+            img = loops.render_state(teacher, c, cfg)["render"]
+            u8 = torch.round(torch.clamp(img, 0.0, 1.0) * 255).to(
+                torch.uint8).cpu().numpy()
+            name = f"view_{i:03d}.png"
+            Image.fromarray(u8).save(os.path.join(root, "images", name))
+            imgs[i + 1] = colmap.ColmapImage(i + 1, qvec_of(R.T), t, 1, name)
+    del teacher
+    fovx, fovy = ext[0][2], ext[0][3]
+    cam = colmap.ColmapCamera(1, "PINHOLE", width, height, np.array(
+        [graphics.fov2focal(fovx, width), graphics.fov2focal(fovy, height),
+         width / 2, height / 2]))
+    pts = proxy.bicycle_proxy(n=SCENE_POINTS, seed=1)
+    rgb = np.round(np.clip(sh.sh_dc_to_rgb(pts["shs_dcs"][:, 0, :]), 0.0,
+                           1.0) * 255).astype(np.uint8)
+    colmap.write_model(os.path.join(root, "sparse", "0"), {1: cam}, imgs,
+                       pts["means"], rgb)
+    return cams, pts["means"], rgb.astype(np.float32) / 255.0
+
+
+def run_scene_io(cfg, device):
+    """Phase scene_io: write the scene, load it with dataset.load_scene
+    (resolution 1) and check it. Returns (scene, its directory)."""
+    import os
+    import numpy as np
+    from fovsplat_torch.data import dataset
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SCENE_DIR)
+    t0 = time.perf_counter()
+    cams, pts, cols = write_scene(root, W_FULL, H_FULL, cfg, device)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = dataset.load_scene(root, resolution=1, device=device)
+    t_load = time.perf_counter() - t0
+    views = sorted(scene.train_views + scene.test_views,
+                   key=lambda v: v.image_name)
+    cam_err = max(float((getattr(v.camera, f) - getattr(c, f)).abs().max())
+                  for v, c in zip(views, cams)
+                  for f in ("world_view", "full_proj"))
+    sizes = {(v.camera.width, v.camera.height) for v in views}
+    shapes = {v.image.shape for v in views}
+    test_names = [v.image_name for v in scene.test_views]
+    points_exact = bool(np.array_equal(scene.points, pts.astype(np.float32)))
+    colors_exact = bool(np.array_equal(scene.colors, cols))
+    row = {"phase": "scene_io", "root": SCENE_DIR, "views": len(views),
+           "train": len(scene.train_views), "test": len(scene.test_views),
+           "test_views": test_names, "camera_max_abs_err": cam_err,
+           "sizes": sorted(sizes), "points": len(scene.points),
+           "points_exact": points_exact, "colors_exact": colors_exact,
+           "spatial_scale": scene.spatial_scale,
+           "seconds": {"write": t_write, "load": t_load},
+           "tol": {"camera": 1e-6}}
+    emit(row)
+    if not (cam_err <= 1e-6 and len(scene.train_views) == 14
+            and test_names == ["view_000", "view_008"]
+            and sizes == {(W_FULL, H_FULL)}
+            and shapes == {(H_FULL, W_FULL, 3)} and points_exact
+            and colors_exact and len(views) == SCENE_VIEWS):
+        raise AssertionError("the loaded scene differs from the written one")
+    return scene, root
+
+
+@contextlib.contextmanager
+def recorded_scratch_steps(scratch, rows, last, timed):
+    """Keep every scratch step's output row (and, with `timed`, a pair of
+    CUDA events around it), and the last step's DensifyStats in
+    last["dstats"], while train_scratch runs."""
+    import torch
+    saved = scratch.make_scratch_step
+
+    def made(*a, **k):
+        step = saved(*a, **k)
+
+        def run(*sa, **sk):
+            ev = None
+            if timed:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            new, dstats, aux = step(*sa, **sk)
+            if timed:
+                ev[1].record()
+            rows.append((aux, ev))
+            last["dstats"] = dstats
+            return new, dstats, aux
+        return run
+    scratch.make_scratch_step = made
+    try:
+        yield
+    finally:
+        scratch.make_scratch_step = saved
+
+
+def bad_rows(rows):
+    """Indices of step rows with overflow, non-finite gradients or a
+    non-finite loss."""
+    out = []
+    for i, r in enumerate(rows):
+        if not (int(r["overflow"]) == 0 and int(r["nonfinite"]) == 0
+                and math.isfinite(float(r["loss"]))):
+            out.append(i)
+    return out
+
+
+def scratch_launches(iterations, views, lg_prunes):
+    """The launches of kernels 4-8 a train_scratch run implies: one
+    expansion, forward and backward blend and gid reduce a step, and per
+    view of each LG prune one expansion, stats blend and reduce (the
+    count_opacity contributions)."""
+    lg = views * lg_prunes
+    return {"expand_ps1": iterations + lg, "blend_forward": iterations,
+            "blend_backward": iterations,
+            "reduce_by_sorted_gid": iterations + lg, "blend_stats": lg}
+
+
+def scratch_config(**kw):
+    from fovsplat_torch.train import scratch
+    return scratch.ScratchConfig(**{**SCRATCH_CUT, **kw})
+
+
+def run_scratch(scene, cfg, kernels, device):
+    """Phase scratch: create_from_points on the card (knn over the scene's
+    100,000 points), from_params at the pipeline's capacity, train_scratch
+    on the cut schedule with every launch counter set to 0 just before
+    and read just after; then the first 100 iterations twice from the same
+    init and seed, bit-identical."""
+    import torch
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.models import gaussians as G
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.train import scratch
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    cfg = dataclasses.replace(cfg, spatial_lr_scale=scene.spatial_scale)
+    t0 = time.perf_counter()
+    params = G.create_from_points(scene.points, scene.colors, device=device)
+    init = S.from_params(params, capacity=SCRATCH_CAPACITY)
+    sync()
+    seconds = {"init": time.perf_counter() - t0}
+    events = []
+
+    def log(msg):
+        events.append(msg)
+        print(msg, file=sys.stderr, flush=True)
+
+    rows, last = [], {}
+    scfg = scratch_config()
+    wants = []
+    clone = D.densify_and_clone
+
+    def counted_clone(state, stats, thr, extent, pd, budget):
+        # Live rows over the threshold at each event, small and large.
+        g = stats.grad_accum / torch.clamp(stats.denom, min=1.0)
+        big = state.params.get_scaling().detach().amax(1) > pd * extent
+        over = state.live & (g >= thr)
+        wants.append({"clone": int((over & ~big).sum()),
+                      "split": int((over & big).sum())})
+        return clone(state, stats, thr, extent, pd, budget)
+
+    for kf in kernels.values():
+        kf.launches = 0
+    t0 = time.perf_counter()
+    D.densify_and_clone = counted_clone
+    try:
+        with recorded_scratch_steps(scratch, rows, last, device != "cpu"):
+            out = scratch.train_scratch(init, scene.train_views, cfg, scfg,
+                                        scene_extent=scene.spatial_scale,
+                                        log=log, seed=0)
+    finally:
+        D.densify_and_clone = clone
+    sync()
+    seconds["train_scratch"] = time.perf_counter() - t0
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    want = scratch_launches(scfg.iterations, len(scene.train_views),
+                            len(scfg.prune_iterations))
+    step_ms = ([a[1][0].elapsed_time(a[1][1]) for a in rows]
+               if device != "cpu" else [])
+    dens = [{"it": int(re.search(r"it=(\d+)", m).group(1)),
+             "live": int(re.search(r"live=(\d+)", m).group(1)),
+             "dropped": int(re.search(r"dropped=(\d+)", m).group(1))}
+            for m in events if "densify live=" in m]
+    lg = [m for m in events if "LG prune" in m]
+    steps = [r[0] for r in rows]
+    bad = bad_rows(steps)
+    losses = [float(r["loss"]) for r in steps]
+    row = {"phase": "scratch", "width": W_FULL, "height": H_FULL,
+           "points": len(scene.points), "capacity": SCRATCH_CAPACITY,
+           "schedule": {k: v for k, v in SCRATCH_CUT.items()},
+           "cuts": "iterations 300 of 30,000; densify from 50 every 50 "
+                   "until 260 (500 / 100 / 15,000); opacity reset every 200 "
+                   "(3,000); SH up every 100 (1,000); LG prune at 280 "
+                   "(16,000 and 24,000); densify threshold 2e-4 (2/1237)^2 "
+                   "for the JAX package's 2/size gradient scaling",
+           "want_at_events": wants,
+           "raster": {"pair_capacity": cfg.raster.pair_capacity,
+                      "compact_capacity": cfg.raster.compact_capacity},
+           "spatial_scale": scene.spatial_scale,
+           "live": {"init": int(init.live_count()),
+                    "end": int(out.live_count())},
+           "densify_events": dens, "lg_prune": lg,
+           "steps": len(steps), "bad_steps": bad,
+           "loss_first_last": [losses[0], losses[-1]],
+           "max_num_pairs": max(int(r["num_pairs"]) for r in steps),
+           "step_ms_mean": (sum(step_ms) / len(step_ms)) if step_ms else None,
+           "step_ms_min_max": ([min(step_ms), max(step_ms)] if step_ms
+                               else None),
+           "seconds": seconds, "launches": launches,
+           "launches_expected": want}
+    emit(row)
+    events = [i for i in range(1, scfg.iterations + 1)
+              if scfg.densify_from < i < scfg.densify_until
+              and i % scfg.densify_every == 0]
+    if (bad or [e["it"] for e in dens] != events
+            or len(lg) != len(scfg.prune_iterations)):
+        raise AssertionError("the scratch run failed a check")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"{k}: {launches[k]} launches on the "
+                                 f"scratch path, the schedule implies {n}")
+
+    # Determinism: the first 100 iterations twice from one init and seed.
+    # The state after them (the first densify event, at 100, done) is the
+    # profiled state.
+    outs = []
+    for _ in range(2):
+        rows2, last2 = [], {}
+        with recorded_scratch_steps(scratch, rows2, last2, False):
+            st = scratch.train_scratch(init, scene.train_views, cfg,
+                                       scratch_config(iterations=100),
+                                       scene_extent=scene.spatial_scale,
+                                       log=lambda m: None, seed=0)
+        outs.append((st, last2["dstats"]))
+    (a, da), (b, db) = outs
+    same = {"live": bool(torch.equal(a.live, b.live)),
+            "count": bool(torch.equal(a.opt.count, b.opt.count))}
+    for f in a.params.fields():
+        same[f] = bool(torch.equal(getattr(a.params, f),
+                                   getattr(b.params, f)))
+        same["mu_" + f] = bool(torch.equal(a.opt.mu[f], b.opt.mu[f]))
+        same["nu_" + f] = bool(torch.equal(a.opt.nu[f], b.opt.nu[f]))
+    for f in ("grad_accum", "denom", "max_radii"):
+        same["stats_" + f] = bool(torch.equal(getattr(da, f),
+                                              getattr(db, f)))
+    emit({"phase": "scratch_determinism", "iterations": 100,
+          "live": int(a.live_count()), "bit_identical": same})
+    if not all(same.values()):
+        raise AssertionError(f"two scratch runs differ: {same}")
+    if device != "cpu":
+        step = scratch.make_scratch_step(cfg)
+        v = scene.train_views[0]
+        gt = torch.as_tensor(v.image, device=device)
+        d0 = D.init_stats(a.capacity, device)
+
+        def one():
+            return step(a, d0, v.camera, gt, 101, 1)
+        emit({"phase": "profile", "path": "scratch step, first densify "
+                                          "event (iteration 101)",
+              "live": int(a.live_count()),
+              "step_ms_unprofiled": cuda_ms(one, 3),
+              **profile_window(one, 3)})
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_densify(D, split_noise, rec):
+    """While train_scratch runs: the split takes `split_noise` (moved to the
+    state's device) in place of its own draw, and each densify event
+    records the statistics and the clone's and split's placements (the
+    dead slots filled, the candidate lanes and which were placed)."""
+    import torch
+    saved = (D.densify_and_clone, D.densify_and_split, D._place_rows)
+
+    def clone(state, stats, *a, **k):
+        rec.setdefault("stats", stats)
+        return saved[0](state, stats, *a, **k)
+
+    def split(state, stats, *a, noise=None):
+        return saved[1](state, stats, *a,
+                        noise=split_noise.to(state.live.device))
+
+    def place(state, new_params, priority, want, budget):
+        # The dead slots _place_rows fills, in its order.
+        _, slots = D._top(torch.where(state.live, -1.0, 1.0), budget)
+        out = saved[2](state, new_params, priority, want, budget)
+        rec.setdefault("places", []).append(
+            (slots.cpu(), out[1].cpu(), out[2].cpu(), want.cpu()))
+        return out
+
+    D.densify_and_clone, D.densify_and_split, D._place_rows = (clone, split,
+                                                               place)
+    try:
+        yield
+    finally:
+        D.densify_and_clone, D.densify_and_split, D._place_rows = saved
+
+
+def scratch_vs_cpu(cfg, n=20_000, w=320, h=224, devices=("cuda", "cpu")):
+    """Phase scratch_vs_cpu: 20 scratch steps with one densify event (at
+    iteration 10) on the 20k proxy of train_vs_cpu (capacity 40,000) at
+    320x224 against renders of the 20k proxy of seed 0 on 4 ring cameras,
+    on the card and on the CPU plain path, with the same split noise
+    and the threshold of SCRATCH_CUT's rule at this width. DensifyStats at the event within 1e-4 relative; clone
+    and split selections equal but for rows whose mean gradient lies
+    within 1e-4 relative of the threshold (counted); params after the 20
+    steps within 1e-4 of each row's largest value, new rows matched by
+    the candidate they came from."""
+    import numpy as np
+    import torch
+    from fovsplat_torch import convert
+    from fovsplat_torch.data import dataset, proxy
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.train import loops, scratch
+    cap = 2 * n          # room for the clones and the splits
+    teacher = S.from_params(convert.params_from_numpy(
+        **proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=0)),
+        device="cpu"))
+    with torch.no_grad():
+        images = [torch.clamp(loops.render_state(teacher, c, cfg)["render"],
+                              0.0, 1.0).numpy()
+                  for c in ring_cameras(4, w, h, "cpu")]
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=1))
+    extent = dataset._nerfpp_norm(np.stack(
+        [-R @ t for R, t, _, _ in ring_extrinsics(4, w, h)]))
+    scfg = scratch.ScratchConfig(
+        iterations=20, densify_from=9, densify_every=10, densify_until=19,
+        opacity_reset_every=1000, sh_up_every=1000,
+        densify_grad_threshold=jax_scaled_threshold(w))
+    noise = torch.randn((2, cap, 3), generator=torch.Generator().manual_seed(7))
+    res = []
+    for d in devices:
+        views = [View(c, img) for c, img in zip(ring_cameras(4, w, h, d),
+                                               images)]
+        st = S.from_params(convert.params_from_numpy(**raw, device=d), cap)
+        rows, last, rec = [], {}, {}
+        with recorded_scratch_steps(scratch, rows, last, False), \
+                recorded_densify(D, noise, rec):
+            out = scratch.train_scratch(st, views, cfg, scfg,
+                                        scene_extent=extent,
+                                        log=lambda m: None, seed=0)
+        res.append((out, rec, [r[0] for r in rows]))
+    (oc, rc, sc_rows), (oh, rh, sh_rows) = res
+    thr = scfg.densify_grad_threshold
+    # Statistics at the event.
+    sc_, sh_ = rc["stats"], rh["stats"]
+    ga_c, ga_h = sc_.grad_accum.cpu(), sh_.grad_accum
+    nz = ga_h != 0
+    # Relative to the largest sum, as gradients are compared: a row whose
+    # gradients cancel has a small sum with the absolute error of a
+    # large one (the elementwise worst is printed beside it).
+    stats_rel = float((ga_c - ga_h).abs().max() / ga_h.abs().max())
+    stats_rel_elementwise = float(
+        ((ga_c - ga_h).abs()[nz] / ga_h.abs()[nz]).max())
+    stats_exact = {"zero_rows": bool((ga_c[~nz] == 0).all()),
+                   "denom": bool(torch.equal(sc_.denom.cpu(), sh_.denom)),
+                   "max_radii": bool(torch.equal(sc_.max_radii.cpu(),
+                                                 sh_.max_radii))}
+    g_h = ga_h / torch.clamp(sh_.denom, min=1.0)
+    near = (g_h - thr).abs() <= SCRATCH_RTOL * thr
+    # Selections, and for each CPU row the card row that holds the same
+    # Gaussian: a new row is matched by the candidate it came from, since
+    # near-equal priorities may rank in another order on the card.
+    src_row = torch.arange(cap)
+    excluded = torch.zeros(cap, dtype=torch.bool)
+    sel = []
+    for (s_c, c_c, p_c, w_c), (s_h, c_h, p_h, w_h) in zip(rc["places"],
+                                                          rh["places"]):
+        diff = w_c != w_h
+        sel.append({"want": int(w_h.sum()), "want_differs": int(diff.sum()),
+                    "differs_off_threshold": int((diff & ~near).sum()),
+                    "placed": int(p_h.sum())})
+        slot_c = dict(zip(c_c[p_c].tolist(), s_c[p_c].tolist()))
+        slot_h = dict(zip(c_h[p_h].tolist(), s_h[p_h].tolist()))
+        for cand in set(slot_c) | set(slot_h):
+            if cand in slot_c and cand in slot_h:
+                src_row[slot_h[cand]] = slot_c[cand]
+            else:
+                for sl in (slot_c.get(cand), slot_h.get(cand)):
+                    if sl is not None:
+                        excluded[sl] = True
+                excluded[cand] = True
+    live_c, live_h = oc.live.cpu(), oh.live
+    live_same = bool(torch.equal(live_c[src_row][~excluded],
+                                 live_h[~excluded]))
+    keep = live_h & ~excluded
+    # Params within 1e-4 of each row's largest value, but for at most
+    # 0.5% of the rows of a field: an Adam step moves an entry by ~lr
+    # whatever its gradient's size, so an entry whose gradient is ~0 at
+    # some step moves by the sign of summation noise there (as in
+    # tests/test_torch_scratch.py). Those rows stay within 2 lr a step.
+    lrs = {"xyz": cfg.optim.position_lr_init * cfg.spatial_lr_scale,
+           "features_dc": cfg.optim.feature_lr,
+           "features_rest": cfg.optim.feature_lr / 20.0,
+           "scaling": cfg.optim.scaling_lr,
+           "rotation": cfg.optim.rotation_lr,
+           "opacity": cfg.optim.opacity_lr}
+    param_err, rows_off, worst_lr = {}, {}, {}
+    for f in oh.params.fields():
+        a = getattr(oc.params, f).detach().cpu()[src_row][keep].reshape(
+            int(keep.sum()), -1)
+        b = getattr(oh.params, f).detach()[keep].reshape(int(keep.sum()), -1)
+        rmax = b.abs().amax(1, keepdim=True)
+        excess = (a - b).abs() - SCRATCH_RTOL * rmax
+        param_err[f] = float(excess.max())
+        rows_off[f] = float((excess > 0).any(1).float().mean())
+        worst_lr[f] = float((a - b).abs().max()) / lrs[f]
+    bad = bad_rows(sc_rows) + bad_rows(sh_rows)
+    row = {"phase": "scratch_vs_cpu", "shape": f"N={n}, {w}x{h}",
+           "capacity": cap, "steps": len(sc_rows), "bad_steps": bad,
+           "threshold": thr, "stats_rel_err": stats_rel,
+           "stats_rel_err_elementwise": stats_rel_elementwise,
+           "stats_exact": stats_exact,
+           "rows_near_threshold": int(near.sum()),
+           "selections": dict(zip(("clone", "split"), sel)),
+           "rows_excluded": int(excluded.sum()),
+           "live": [int(oc.live_count()), int(oh.live_count())],
+           "live_equal_mapped": live_same,
+           "param_excess_over_tol": param_err,
+           "param_rows_over_tol": rows_off, "param_worst_in_lr": worst_lr,
+           "tol": {"rtol": SCRATCH_RTOL, "rows_over": 0.005,
+                   "worst_in_lr": 2 * scfg.iterations}}
+    emit(row)
+    if not (not bad and stats_rel <= SCRATCH_RTOL and all(stats_exact.values())
+            and all(s["differs_off_threshold"] == 0 for s in sel)
+            and sel[0]["placed"] + sel[1]["placed"] > 0 and live_same
+            and all(v <= 0.005 for v in rows_off.values())
+            and all(v <= 2 * scfg.iterations for v in worst_lr.values())):
+        raise AssertionError("card scratch run differs from the CPU run")
+
+
+@contextlib.contextmanager
+def pipeline_probes(pipeline, scratch, loops, rows, seconds, saved_states):
+    """While run_pipeline runs: train_scratch takes the cut schedule
+    (SCRATCH_CUT) in place of the pipeline's iterations-only config; the
+    loops' and the scratch step's rows are recorded; each training stage's
+    seconds are summed by name; and each checkpoint saved is kept by its
+    file name."""
+    import os
+    orig = {"train_scratch": scratch.train_scratch,
+            "prune_training": loops.prune_training,
+            "finetune": loops.finetune, "mask_training": loops.mask_training}
+    save = pipeline.ckpt.save
+
+    def timed(name):
+        def run(*a, **k):
+            if name == "train_scratch":
+                a = list(a)
+                a[3] = scratch_config(iterations=a[3].iterations)
+            t0 = time.perf_counter()
+            out = orig[name](*a, **k)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def keep_save(path, state, *a, **k):
+        saved_states[os.path.basename(path)] = state
+        return save(path, state, *a, **k)
+
+    scratch.train_scratch = timed("train_scratch")
+    for name in ("prune_training", "finetune", "mask_training"):
+        setattr(loops, name, timed(name))
+    pipeline.ckpt.save = keep_save
+    try:
+        with recorded_scratch_steps(scratch, rows, {}, False), \
+                recorded_steps(loops, rows):
+            yield
+    finally:
+        scratch.train_scratch = orig["train_scratch"]
+        for name in ("prune_training", "finetune", "mask_training"):
+            setattr(loops, name, orig[name])
+        pipeline.ckpt.save = save
+
+
+def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
+    """Phase pipeline: run_pipeline(small=True) on the scene_io scene with
+    PipelineConfig(scratch_iters=300) and the scratch cut, every launch
+    counter set to 0 just before and read just after; every stage file
+    present, base.npz reloading bit-identically, point_cloud_ps1.ply
+    reloading to ps1.npz's live rows; a second call skipping every stage;
+    one "ours" frame of the composed model at the centre gaze."""
+    import io
+    import os
+    import shutil
+    import torch
+    from fovsplat_torch import pipeline
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.models import checkpoint as ckpt
+    from fovsplat_torch.models import gaussians as G
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.train import loops, scratch
+    out_dir = os.path.join(root, "pipeline_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pcfg = pipeline.PipelineConfig(scratch_iters=300)
+    lcfg = dataclasses.replace(cfg, spatial_lr_scale=scene.spatial_scale)
+    rows, seconds, saved = [], {}, {}
+    for kf in kernels.values():
+        kf.launches = 0
+    t0 = time.perf_counter()
+    with pipeline_probes(pipeline, scratch, loops, rows, seconds, saved), \
+            contextlib.redirect_stdout(sys.stderr):
+        model, layers = pipeline.run_pipeline(root, out_dir, cfg=pcfg,
+                                              loop_cfg=lcfg, small=True,
+                                              device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds["total"] = time.perf_counter() - t0
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    files = ["base.npz", "pruned.npz", "ps1.npz"] + [
+        f"layer{i}_ps{ps}.npz" for i, ps in
+        enumerate(pipeline.pooling_ladder(pcfg)[1:], start=1)] + [
+        "ours_composed.npz", "pnum.txt", "naive_fr.npz",
+        "point_cloud_ps1.ply", "log.txt"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out_dir,
+                                                                    f))]
+    base, _, _ = ckpt.load(os.path.join(out_dir, "base.npz"), device=device)
+    ref = saved["base.npz"]
+    base_same = (bool(torch.equal(base.live, ref.live))
+                 and bool(torch.equal(base.opt.count, ref.opt.count))
+                 and all(torch.equal(getattr(base.params, f),
+                                     getattr(ref.params, f))
+                         and torch.equal(base.opt.mu[f], ref.opt.mu[f])
+                         and torch.equal(base.opt.nu[f], ref.opt.nu[f])
+                         for f in base.params.fields()))
+    ps1, _, _ = ckpt.load(os.path.join(out_dir, "ps1.npz"), device=device)
+    ply, _ = G.load_ply(os.path.join(out_dir, "point_cloud_ps1.ply"),
+                        device=device)
+    compact, _ = S.compact(ps1)
+    ply_same = all(torch.equal(getattr(ply, f), getattr(compact, f))
+                   for f in ply.fields())
+    log_first = open(os.path.join(out_dir, "log.txt")).read()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline.run_pipeline(root, out_dir, cfg=pcfg, loop_cfg=lcfg,
+                              small=True, device=device)
+    resume_s = time.perf_counter() - t0
+    log_second = open(os.path.join(out_dir, "log.txt")).read()[
+        len(log_first):]
+    skips = ["base model", "pruned model", "ps1 model"] + [
+        f"layer {i}" for i in range(1, len(layers))]
+    not_skipped = [s for s in skips if f"[skip] {s}" not in log_second]
+    render = fps.make_fov_render(model, frame_cfg, alpha=ALPHA)
+    cam = scene.test_views[0].camera
+    frame = render(cam, torch.tensor((0.5, 0.5), dtype=torch.float32,
+                                     device=cam.device))
+    img = frame["render"]
+    finite = bool(torch.isfinite(img).all())
+    bad = bad_rows([r[0] if isinstance(r, tuple) else r for r in rows])
+    row = {"phase": "pipeline", "config": "PipelineConfig(scratch_iters=300)"
+                                          ", small=True, scratch cut as the "
+                                          "scratch phase",
+           "raster": {"pair_capacity": lcfg.raster.pair_capacity,
+                      "compact_capacity": lcfg.raster.compact_capacity},
+           "stage_files_missing": missing, "base_reload_bit_identical":
+               base_same, "ply_matches_ps1_live_rows": ply_same,
+           "live_ladder": [int(s.live_count()) for s in layers],
+           "base_live": int(ref.live_count()),
+           "steps": len(rows), "bad_steps": bad, "seconds": seconds,
+           "resume_seconds": resume_s, "resume_not_skipped": not_skipped,
+           "frame": {"camera": scene.test_views[0].image_name,
+                     "finite": finite, "num_pairs": int(frame["num_pairs"]),
+                     "overflow": int(frame["overflow"]),
+                     "mean": float(img.mean())},
+           "launches": launches}
+    emit(row)
+    if (missing or not base_same or not ply_same or not_skipped or bad
+            or not finite or row["frame"]["overflow"] != 0):
+        raise AssertionError("the pipeline phase failed a check")
+    for k in ("expand_ps1", "blend_forward", "blend_backward",
+              "reduce_by_sorted_gid", "blend_stats"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} never launched in the pipeline")
+    return launches
 
 
 def ps1_inputs(n, width, height, seed, device):
@@ -1938,6 +2638,13 @@ def main():
           "step_ms_unprofiled": cuda_ms(lambda: hvs_step(st, tcam, gt, 1), 3),
           **profile_window(lambda: hvs_step(st, tcam, gt, 1), 3)})
 
+    # --- scene and model I/O, from-scratch training, the pipeline ---
+    scene, scene_root = run_scene_io(chain_cfg, dev)
+    scratch_l = run_scratch(scene, chain_cfg, all_kernels, dev)
+    scratch_vs_cpu(train_config(1 << 20, None))
+    pipeline_l = run_pipeline_phase(scene_root, scene, chain_cfg, cfg,
+                                    all_kernels, dev)
+
     # --- kernels line ---
     src = {"build_table": ("fovsplat_torch/csrc/build_table.cu",
                            "fovsplat/ops/pallas/build_table.py:418"),
@@ -1983,6 +2690,10 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "shape": r["shape"]})
+        if k in ("expand_ps1", "blend_forward", "blend_backward",
+                 "reduce_by_sorted_gid", "blend_stats"):
+            rows[-1]["launches_scratch"] = scratch_l[k]
+            rows[-1]["launches_pipeline"] = pipeline_l[k]
     emit({"kernels": rows,
           "blend_fov_150k": results["blend_fov_150k"],
           "library": [{"name": "torch.sort (i32 fused key, stable), frame",

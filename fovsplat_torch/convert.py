@@ -7,7 +7,7 @@ the JAX packings' fields; mmfr_models_from_numpy builds the four MM-FR
 level models from a proxy's arrays as bench.py:255-268 does;
 camera_from_numpy takes a JAX Camera's fields; params_from_numpy takes a
 JAX GaussianParams' raw fields, so that both packages train the same
-model.
+model, and densify_stats_from_numpy a JAX DensifyStats' fields.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from fovsplat_torch.data.cameras import camera_from_numpy  # noqa: F401
+from fovsplat_torch.models.densify import DensifyStats
 from fovsplat_torch.models.gaussians import GaussianParams
 from fovsplat_torch.ops.foveated import FovModelSoA, pack_fov_model
 from fovsplat_torch.ops.rasterize import Ps1ModelSoA, pack_ps1_model
@@ -79,3 +80,12 @@ def params_from_numpy(xyz, features_dc, features_rest, scaling, rotation,
     t = _tensor_fn(device)
     return GaussianParams(t(xyz), t(features_dc), t(features_rest),
                           t(scaling), t(rotation), t(opacity))
+
+
+def densify_stats_from_numpy(grad_accum, denom, max_radii,
+                             device=None) -> DensifyStats:
+    """A JAX DensifyStats' fields as numpy arrays -> the port's
+    DensifyStats on `device`, bit for bit (f32)."""
+    t = _tensor_fn(device)
+    return DensifyStats(grad_accum=t(grad_accum), denom=t(denom),
+                        max_radii=t(max_radii))

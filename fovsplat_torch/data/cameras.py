@@ -73,10 +73,9 @@ def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
                              math.tan(fovy * 0.5), width, height, device)
 
 
-def look_at_camera(eye, target, up, fovx: float, fovy: float,
-                   width: int, height: int, device=None) -> Camera:
-    """Camera at `eye` looking at `target` (+x right, +y down, +z
-    forward, the COLMAP convention)."""
+def look_at_extrinsics(eye, target, up):
+    """(R_c2w, t) of a camera at `eye` looking at `target` (+x right, +y
+    down, +z forward, the COLMAP convention), as make_camera takes them."""
     eye = np.asarray(eye, np.float64)
     target = np.asarray(target, np.float64)
     up = np.asarray(up, np.float64)
@@ -86,5 +85,11 @@ def look_at_camera(eye, target, up, fovx: float, fovy: float,
     right = right / np.linalg.norm(right)
     down = np.cross(fwd, right)
     R_c2w = np.stack([right, down, fwd], axis=1)
-    t = -R_c2w.T @ eye
+    return R_c2w, -R_c2w.T @ eye
+
+
+def look_at_camera(eye, target, up, fovx: float, fovy: float,
+                   width: int, height: int, device=None) -> Camera:
+    """Camera at `eye` looking at `target` (look_at_extrinsics)."""
+    R_c2w, t = look_at_extrinsics(eye, target, up)
     return make_camera(R_c2w, t, fovx, fovy, width, height, device=device)

@@ -1,4 +1,5 @@
-"""Per-Gaussian projection on (N,) columns (fovsplat/ops/projection.py).
+"""Per-Gaussian projection on (N,) columns (fovsplat/ops/projection.py:
+preprocess_cols and its helpers, and quat_to_rotmat).
 
 Torch column math with the JAX package's operation order, so that a
 kernel that mirrors it (csrc/build_table.cu, built without FMA
@@ -23,6 +24,19 @@ import torch
 TILE = 16
 NEAR_CULL_Z = 0.2
 LOWPASS = 0.3
+
+
+def quat_to_rotmat(q):
+    """(..., 4) wxyz quaternion (assumed normalized) -> (..., 3, 3)."""
+    r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - r * z),
+                     2 * (x * z + r * y)], -1),
+        torch.stack([2 * (x * y + r * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - r * x)], -1),
+        torch.stack([2 * (x * z - r * y), 2 * (y * z + r * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
 
 
 def _cov3d_cols(scales, rotations, scale_modifier):

@@ -156,13 +156,18 @@ class PairBuilder(torch.autograd.Function):
 
 def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
               shs=None, sh_degree: int = 3, bg_color=None,
-              config: RasterizeConfig = RasterizeConfig(), live_mask=None):
+              config: RasterizeConfig = RasterizeConfig(), live_mask=None,
+              mean2d_offset=None):
     """Render one view through the fused train route.
 
     means3d (N, 3); scales (N, 3) activated; rotations (N, 4) unit
     quaternions; opacities (N,) activated; colors (N, 3) precomputed RGB,
     or None to evaluate shs (N, K, 3); bg_color (3,) or None (black);
-    live_mask (N,) bool or None.
+    live_mask (N,) bool or None; mean2d_offset (N, 2) or None, added to
+    the projected pixel centres: the reference's screenspace_points
+    trick (gaussian_renderer/__init__.py:28-32, rasterize.py:192-196).
+    Its gradient is the view-space positional gradient densification
+    reads: the pair rows' mx / my cotangents, which kernel 7 sums.
 
     Returns a dict: render (H, W, 3), final_T (H, W), n_contrib (H, W)
     i32, radii (N,) i32 and binned (ops/binning.Binned: overflow,
@@ -175,6 +180,9 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
     prep = projection.preprocess_cols(means3d, scales, rotations, camera,
                                       scale_modifier=cfg.scale_modifier,
                                       live_mask=live_mask)
+    if mean2d_offset is not None:
+        prep = dataclasses.replace(prep, mx=prep.mx + mean2d_offset[:, 0],
+                                   my=prep.my + mean2d_offset[:, 1])
     if colors is None:
         colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
     if cfg.fwd_only:

@@ -1,6 +1,7 @@
 """Real spherical harmonics, degree 0..3, with N last
-(fovsplat/ops/sh.py: _eval_sh_nlast, sh_to_rgb, _unit_dirs). Constants
-and basis order follow the reference CUDA tables."""
+(fovsplat/ops/sh.py: num_sh_coeffs, _eval_sh_nlast, sh_to_rgb,
+_unit_dirs, rgb_to_sh_dc, sh_dc_to_rgb). Constants and basis order follow
+the reference CUDA tables."""
 
 from __future__ import annotations
 
@@ -13,6 +14,19 @@ SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
          0.3731763325901154, -0.4570457994644658, 1.445305721320277,
          -0.5900435899266435)
+
+
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
+def rgb_to_sh_dc(rgb):
+    """Inverse of the DC term: (rgb - 0.5) / C0 (utils/sh_utils.py RGB2SH)."""
+    return (rgb - 0.5) / SH_C0
+
+
+def sh_dc_to_rgb(dc):
+    return dc * SH_C0 + 0.5
 
 
 def _eval_sh_nlast(degree: int, sh_t: torch.Tensor, x, y, z) -> torch.Tensor:

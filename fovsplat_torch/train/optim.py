@@ -1,11 +1,11 @@
-"""Per-group Adam (counterpart of fovsplat/train/optim.py:25-98).
+"""Per-group Adam (counterpart of fovsplat/train/optim.py).
 
 The reference's torch.optim.Adam param groups (scene/gaussian_model.py:
 273-301: per-tensor learning rates, eps=1e-15, xyz on an exponential
 schedule), written out by hand with the JAX package's formula so that the
 moments stay plain tensors keyed like the parameters: the row surgery of
 pruning (models/state.prune_mask, replace_field) and densification
-(select_rows, concat_rows, not ported yet) edits them in lockstep with
+(select_rows, concat_rows) edits them in lockstep with
 the parameters, which torch.optim.Adam's per-parameter state does not
 allow.
 """
@@ -98,6 +98,25 @@ def apply_updates(params: GaussianParams, grads: dict, state: AdamState,
             torch.sqrt(nu[f] * nu_hat_scale) + cfg.eps)
         new[f] = old - step
     return GaussianParams(**new), AdamState(mu=mu, nu=nu, count=count)
+
+
+def select_rows(state: AdamState, idx) -> AdamState:
+    """Row surgery to mirror pruning (reference _prune_optimizer keeps
+    exp_avg/exp_avg_sq rows of survivors)."""
+    return AdamState(mu={f: v[idx] for f, v in state.mu.items()},
+                     nu={f: v[idx] for f, v in state.nu.items()},
+                     count=state.count)
+
+
+def concat_rows(state: AdamState, n_new: int) -> AdamState:
+    """Append zero-state rows for densified Gaussians
+    (cat_tensors_to_optimizer)."""
+    def cat(x):
+        return torch.cat([x, x.new_zeros((n_new,) + tuple(x.shape[1:]))],
+                         dim=0)
+    return AdamState(mu={f: cat(v) for f, v in state.mu.items()},
+                     nu={f: cat(v) for f, v in state.nu.items()},
+                     count=state.count)
 
 
 def replace_field(state: AdamState, field: str) -> AdamState:

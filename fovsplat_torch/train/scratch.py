@@ -1,0 +1,199 @@
+"""From-scratch 3DGS training with densification (counterpart of
+fovsplat/train/scratch.py).
+
+Counterpart of LightGaussian/train_densify_prune.py (and the stock Inria
+trainer it extends): photometric loss, clone/split densification every 100
+iters in [500, 15000), opacity resets every 3000, optional
+global-significance prune rounds (LightGaussian, at 16k/24k by default),
+progressive SH degree (oneupSHdegree every 1000 iters).
+
+The step renders through rasterize's fused train route (kernels 4-7) with
+a zero mean2d_offset whose gradient feeds the densification statistics;
+the active SH degree is an argument of the step, so raising it builds
+nothing new. The global-significance scores run the count_opacity stats
+pass (kernel 8). The split's normal samples are drawn from a
+torch.Generator on the state's device, seeded from `seed`, in place of
+the JAX package's key chain.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+from fovsplat_torch.models import densify as D
+from fovsplat_torch.models import state as S
+from fovsplat_torch.ops import rasterize as rast
+from fovsplat_torch.ops import stats as stats_ops
+from fovsplat_torch.train import loops, losses, optim
+from fovsplat_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ScratchConfig:
+    iterations: int = 30_000
+    densify_from: int = 500
+    densify_until: int = 15_000
+    densify_every: int = 100
+    densify_grad_threshold: float = 2e-4
+    opacity_reset_every: int = 3_000
+    percent_dense: float = 0.01
+    sh_up_every: int = 1_000
+    prune_iterations: tuple = ()          # LightGaussian: (16_000, 24_000)
+    prune_percent: float = 0.1
+    prune_decay: float = 0.6
+    v_pow: float = 0.1
+    densify_budget: int = 16384
+
+
+def make_scratch_step(cfg: loops.LoopConfig, device=None):
+    """step(state, dstats, camera, gt, it, sh_degree) -> (new state, new
+    dstats, {loss, nonfinite, overflow, num_pairs}), the values 0-d
+    tensors on the device (not synchronised). `device` None means CUDA
+    and raises without it; pass "cpu" for the plain path."""
+    dev = resolve_device(device)
+
+    def step(state: S.TrainerState, dstats: D.DensifyStats, camera, gt, it,
+             sh_degree: int):
+        if state.params.xyz.device.type != dev.type:
+            raise ValueError(f"state on {state.params.xyz.device}, step "
+                             f"made for {dev}")
+        p = state.params
+        fields = p.fields()
+        offset = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                             device=p.xyz.device, requires_grad=True)
+        with torch.enable_grad():
+            out = rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
+                                 p.get_opacity(), camera,
+                                 shs=p.get_features(), sh_degree=sh_degree,
+                                 config=cfg.raster, live_mask=state.live,
+                                 mean2d_offset=offset)
+            loss = losses.photometric_loss(out["render"], gt,
+                                           cfg.lambda_dssim)
+            g = torch.autograd.grad(loss, [*fields.values(), offset])
+        grads, n_bad = loops._mask_dead_grads(dict(zip(fields, g[:-1])),
+                                              state.live)
+        lrs = optim.learning_rates(p, it, cfg.optim, cfg.spatial_lr_scale)
+        params, opt = optim.apply_updates(p, grads, state.opt, lrs,
+                                          cfg.optim)
+        dstats = D.accumulate(dstats, g[-1], out["radii"], camera.width,
+                              camera.height)
+        bn = out["binned"]
+        return (dataclasses.replace(state, params=params, opt=opt), dstats,
+                {"loss": loss.detach(), "nonfinite": n_bad,
+                 "overflow": bn.overflow, "num_pairs": bn.num_pairs})
+
+    return step
+
+
+def v_importance_score(state: S.TrainerState, gs_count, important_score,
+                       v_pow: float = 0.1):
+    """LightGaussian calculate_v_imp_score (prune.py:112-128): importance *
+    (volume / 90th-percentile-volume)^v_pow."""
+    volume = torch.prod(state.params.get_scaling().detach(), dim=1)
+    live_vol = torch.where(state.live, volume, torch.zeros_like(volume))
+    sorted_v = torch.sort(live_vol).values
+    n_live = state.live.sum()
+    idx90 = (state.capacity - n_live
+             + (0.9 * n_live.to(torch.float32)).to(torch.int32))
+    v90 = sorted_v[torch.clamp(idx90, max=state.capacity - 1)]
+    v_norm = volume / torch.clamp(v90, min=1e-12)
+    return torch.pow(torch.clamp(v_norm, min=1e-12), v_pow) * important_score
+
+
+def global_significance_scores(state: S.TrainerState, views,
+                               cfg: loops.LoopConfig):
+    """LightGaussian prune_list (prune.py:133-157): accumulate per-Gaussian
+    count and opacity-importance over all training views via the counting
+    rasterizer (rasterize_stats' count_opacity mode, kernel 8)."""
+    dev = state.live.device
+    gs_count = torch.zeros(state.capacity, dtype=torch.int32, device=dev)
+    imp = torch.zeros(state.capacity, dtype=torch.float32, device=dev)
+    p = state.params
+    for v in views:
+        out = stats_ops.rasterize_stats(
+            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(),
+            v.camera, shs=p.get_features(), sh_degree=cfg.sh_degree,
+            mode="count_opacity", config=cfg.raster, live_mask=state.live)
+        gs_count = gs_count + out["gs_count"]
+        imp = imp + out["contribs"]
+    return gs_count, imp
+
+
+def lightgaussian_prune(state: S.TrainerState, views, cfg: loops.LoopConfig,
+                        percent: float, prune_type: str = "v_important_score",
+                        v_pow: float = 0.1) -> S.TrainerState:
+    """prune_finetune.py:214-243 percentile prune by the chosen score."""
+    gs_count, imp = global_significance_scores(state, views, cfg)
+    if prune_type == "important_score":
+        score = imp
+    elif prune_type == "v_important_score":
+        score = v_importance_score(state, gs_count, imp, v_pow)
+    elif prune_type == "count":
+        score = gs_count.to(torch.float32)
+    elif prune_type == "opacity":
+        score = torch.sigmoid(state.params.opacity.detach()[:, 0])
+    else:
+        raise ValueError(prune_type)
+    return S.metric_prune(state, score, percent)
+
+
+def train_scratch(state: S.TrainerState, train_views: Sequence,
+                  cfg: loops.LoopConfig, scfg: ScratchConfig = ScratchConfig(),
+                  scene_extent: float = 1.0, start_iter: int = 0,
+                  log: Callable = print, seed: int = 0,
+                  log_every: int = 500) -> S.TrainerState:
+    """The from-scratch loop on the device of `state`: the reference's
+    seeded view stack, densification (clone, then split, then the size
+    prune) every densify_every iterations strictly between densify_from
+    and densify_until, opacity resets, the SH degree raised every
+    sh_up_every iterations and LightGaussian prunes at prune_iterations.
+    Each densify event logs the live and dropped counts."""
+    dev = state.live.device
+    dstats = D.init_stats(state.capacity, dev)
+    stack = loops._ViewStack(train_views, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    active_sh = 0
+    step_fn = make_scratch_step(cfg, device=dev)
+    max_sh = state.params.sh_degree
+
+    for it in range(start_iter + 1, start_iter + scfg.iterations + 1):
+        if it % scfg.sh_up_every == 0 and active_sh < max_sh:
+            active_sh += 1
+        v = stack.pop()
+        state, dstats, aux = step_fn(state, dstats, v.camera,
+                                     loops.view_image(v, dev), it, active_sh)
+        if it % log_every == 0:
+            log(f"[scratch] it={it} loss={float(aux['loss']):.4f} "
+                f"live={int(state.live_count())}")
+
+        if scfg.densify_from < it < scfg.densify_until:
+            if it % scfg.densify_every == 0:
+                state, d1 = D.densify_and_clone(
+                    state, dstats, scfg.densify_grad_threshold, scene_extent,
+                    scfg.percent_dense, scfg.densify_budget)
+                noise = torch.randn((2, state.capacity, 3), generator=gen,
+                                    device=dev)
+                state, d2 = D.densify_and_split(
+                    state, dstats, scfg.densify_grad_threshold, scene_extent,
+                    scfg.percent_dense, scfg.densify_budget, noise=noise)
+                max_screen = 20.0 if it > scfg.opacity_reset_every else None
+                state = D.prune_oversized(state, dstats, max_screen,
+                                          scene_extent)
+                log(f"[scratch] it={it} densify live="
+                    f"{int(state.live_count())} dropped={int(d1) + int(d2)}")
+                dstats = D.init_stats(state.capacity, dev)
+            if it % scfg.opacity_reset_every == 0:
+                state = D.reset_opacity(state, 0.01)
+
+        if it in scfg.prune_iterations:
+            i = list(scfg.prune_iterations).index(it)
+            pct = scfg.prune_percent * (scfg.prune_decay ** i)
+            state = lightgaussian_prune(state, train_views, cfg, pct,
+                                        v_pow=scfg.v_pow)
+            log(f"[scratch] it={it} LG prune {pct:.3f} -> "
+                f"live={int(state.live_count())}")
+    return state

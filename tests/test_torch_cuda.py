@@ -936,3 +936,80 @@ def test_compact_table_edge_cases_match_plain(cuda, case):
     assert int(k[2]) == live
     assert not bool(k[0][:, live:].any())
     assert bool((k[1][live:] == k[3]).all())
+
+
+# -------------------------------------------- scene I/O and densification
+
+def test_knn_matches_cpu(cuda):
+    """ops/knn on the card against its CPU run on the 100,000 centres of
+    the scene phase's proxy: Morton codes exact, distances 1e-6 relative."""
+    from fovsplat_torch.ops import knn
+    pts = torch.from_numpy(proxy.bicycle_proxy(n=100_000, seed=1)["means"])
+    np.testing.assert_array_equal(knn.morton_codes(pts.to(cuda)).cpu(),
+                                  knn.morton_codes(pts))
+    np.testing.assert_allclose(knn.mean_knn_sqdist(pts.to(cuda)).cpu(),
+                               knn.mean_knn_sqdist(pts), rtol=1e-6)
+
+
+@pytest.mark.parametrize("budget", [64, 4096])
+def test_place_rows_matches_cpu_with_ties(cuda, budget):
+    """densify._place_rows on the card against the CPU: priorities in
+    four exact tie groups, dead slots between live rows; the same
+    candidate lanes, placements, dropped count and rows."""
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.models import gaussians as G
+    rng = np.random.default_rng(budget)
+    n, cap = 3000, 5000
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=3))
+    kill = torch.from_numpy(rng.random(cap) < 0.1)
+    prio = torch.from_numpy(rng.choice([1.0, 2.0, 3.0, 4.0], cap).astype(
+        np.float32))
+    want = torch.from_numpy(rng.random(cap) < 0.5)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        st = S.from_params(convert.params_from_numpy(**raw, device=dev), cap)
+        st = S.prune_mask(st, kill.to(dev))
+        new = {f: t.detach() * 2.0 for f, t in st.params.fields().items()}
+        out.append(D._place_rows(st, new, prio.to(dev),
+                                 want.to(dev) & st.live, budget))
+    (sk, ck, pk, dk), (sp, cp, pp, dp) = out
+    assert torch.equal(pk.cpu(), pp) and int(dk) == int(dp)
+    assert torch.equal(ck.cpu()[pp], cp[pp])
+    assert torch.equal(sk.live.cpu(), sp.live)
+    for f in G.FIELDS:
+        assert torch.equal(getattr(sk.params, f).cpu(),
+                           getattr(sp.params, f)), f
+        assert torch.equal(sk.opt.mu[f].cpu(), sp.opt.mu[f]), f
+
+
+def test_scratch_step_offset_gradient_matches_cpu(cuda):
+    """One scratch step on the card against the CPU plain path at
+    train_vs_cpu's shape: loss within 1e-5 relative; the offset gradient
+    (through the DensifyStats it feeds) and the first moments within
+    chip_smoke.py's gradient tolerance (scaled, rtol 2e-3, atol 2e-4)."""
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.train import scratch
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=N, seed=1))
+    gt = np.random.default_rng(1).uniform(0, 1, (H, W, 3)).astype(
+        np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        st = S.from_params(convert.params_from_numpy(**raw, device=dev),
+                           int(N * 1.3))
+        cam = proxy.proxy_camera(W, H, device=dev)
+        step = scratch.make_scratch_step(
+            loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20)),
+            device=dev)
+        new, ds, aux = step(st, D.init_stats(st.capacity, dev), cam,
+                            torch.from_numpy(gt).to(dev), 1, 3)
+        assert int(aux["overflow"]) == 0 and int(aux["nonfinite"]) == 0
+        out.append((float(aux["loss"]), ds.grad_accum.cpu(), ds.denom.cpu(),
+                    {f: v.cpu() for f, v in new.opt.mu.items()}))
+    (lk, gk, dk, mk), (lp, gp, dp, mp) = out
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    assert torch.equal(dk, dp) and float(dp.max()) == 1.0
+    for a, b in [(gk, gp)] + [(mk[f], mp[f]) for f in mp]:
+        scale = float(b.abs().max())
+        assert scale > 0
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale,
+                                   rtol=2e-3, atol=2e-4)
