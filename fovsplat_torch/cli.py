@@ -1,10 +1,19 @@
-"""fovsplat_torch command-line interface (counterpart of fovsplat/cli.py:
-the pipeline and fps subcommands, with the same flags).
+"""fovsplat_torch command-line interface (counterpart of fovsplat/cli.py,
+with the same flags):
 
-  python -m fovsplat_torch.cli pipeline -s <scene> -m <out>   full chain
-  python -m fovsplat_torch.cli fps      -m <out> -s <scene>   foveated FPS
+  python -m fovsplat_torch.cli pipeline    -s <scene> -m <out>  full chain
+  python -m fovsplat_torch.cli render      -m <out> -s <scene>  test views
+                                                                to PNG
+  python -m fovsplat_torch.cli eval        -m <out> -s <scene>  quality
+                                                                JSONs
+  python -m fovsplat_torch.cli eval-layers -m <out> -s <scene>  per-layer
+                                                                HVS JSONs
+  python -m fovsplat_torch.cli video       -m <out> -s <scene>  ellipse-path
+                                                                frames
+  python -m fovsplat_torch.cli fps         -m <out> -s <scene>  foveated FPS
 
-Both run on the GPU and raise where CUDA is not available.
+All run on the GPU and raise where CUDA is not available. The JAX
+command line's `vq` and `dryrun` are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,14 +42,26 @@ def main(argv=None):
     p.add_argument("--small", action="store_true",
                    help="tiny iteration budgets (smoke test)")
 
+    p = sub.add_parser("render", help="render test views to PNG")
+    _add_common(p)
+
+    p = sub.add_parser("eval", help="quality eval -> JSON")
+    _add_common(p)
+
     p = sub.add_parser("fps", help="foveated FPS benchmark")
     _add_common(p)
     p.add_argument("--mode", default="ours",
                    choices=["ours", "naive", "mmfr"])
     p.add_argument("--alpha", type=float, default=0.05)
 
-    args = ap.parse_args(argv)
+    p = sub.add_parser("video", help="render an ellipse-path video")
+    _add_common(p)
+    p.add_argument("--frames", type=int, default=120)
 
+    p = sub.add_parser("eval-layers", help="per-PS-layer quality eval")
+    _add_common(p)
+
+    args = ap.parse_args(argv)
     if args.cmd == "pipeline":
         from fovsplat_torch import pipeline
         pipeline.run_pipeline(args.source, args.model,
@@ -48,14 +69,27 @@ def main(argv=None):
                               resolution=args.resolution, small=args.small,
                               loop_cfg=None)
         return 0
+    return _run(args)
 
-    # fps
+
+def _composed(model_dir, state, dev):
+    """The composed model of ours_composed.npz on `dev`."""
     import torch
+    from fovsplat_torch.train import compose as compose_mod
+    hl, dcs, opac, live = compose_mod.load_composed_arrays(
+        os.path.join(model_dir, "ours_composed.npz"))
+    return compose_mod.ComposedModel(
+        params=state.params, live=torch.as_tensor(live, device=dev),
+        highest_levels=torch.as_tensor(hl, device=dev),
+        shs_dcs=torch.as_tensor(dcs, device=dev),
+        opacities=torch.as_tensor(opac, device=dev))
+
+
+def _run(args):
+    """The subcommands that read a trained model (ps1.npz) and a scene."""
     from fovsplat_torch.data import dataset
-    from fovsplat_torch.eval import fps as fps_mod
     from fovsplat_torch.models import checkpoint as ckpt
     from fovsplat_torch.ops.rasterize import RasterizeConfig
-    from fovsplat_torch.train import compose as compose_mod
     from fovsplat_torch.utils.device import resolve_device
 
     dev = resolve_device(None)
@@ -63,20 +97,58 @@ def main(argv=None):
     scene = dataset.load_scene(args.source, resolution=args.resolution,
                                device=dev)
     state, _, _ = ckpt.load(os.path.join(args.model, "ps1.npz"), device=dev)
-    hl, dcs, opac, live = compose_mod.load_composed_arrays(
-        os.path.join(args.model, "ours_composed.npz"))
-    model = compose_mod.ComposedModel(
-        params=state.params, live=torch.as_tensor(live, device=dev),
-        highest_levels=torch.as_tensor(hl, device=dev),
-        shs_dcs=torch.as_tensor(dcs, device=dev),
-        opacities=torch.as_tensor(opac, device=dev))
+    views = scene.test_views or scene.train_views
+
+    if args.cmd in ("render", "eval"):
+        from fovsplat_torch.eval import quality
+        render = quality.make_ps1_render(state, rcfg)
+        if args.cmd == "render":
+            import numpy as np
+            import torch
+            from PIL import Image
+            rd = os.path.join(args.model, "renders")
+            os.makedirs(rd, exist_ok=True)
+            for v in views:
+                img = torch.clamp(render(v.camera), 0, 1).cpu().numpy()
+                Image.fromarray((img * 255).astype(np.uint8)).save(
+                    os.path.join(rd, v.image_name + ".png"))
+            print(f"wrote {len(views)} renders to {rd}")
+        else:
+            res = quality.quality_eval(render, views, args.model, "scene")
+            print(json.dumps(res, indent=2))
+        return 0
+
+    if args.cmd == "video":
+        from fovsplat_torch.eval import quality, video
+        render = quality.make_ps1_render(state, rcfg)
+        cams = video.ellipse_path(scene.train_views, n_frames=args.frames)
+        n = video.render_video(render, cams,
+                               os.path.join(args.model, "video"))
+        print(f"wrote {n} frames")
+        return 0
+
+    if args.cmd == "eval-layers":
+        from fovsplat_torch import pipeline as pl_mod
+        from fovsplat_torch.eval import layers as layers_mod
+        model = _composed(args.model, state, dev)
+        ladder = pl_mod.pooling_ladder(pl_mod.PipelineConfig())
+        res = layers_mod.eval_layers(
+            lambda i: layers_mod.layer_render_ours(state.params, model.live,
+                                                   model, i, rcfg),
+            views, ladder, os.path.join(args.model, "layers_eval"), "scene")
+        print(json.dumps({str(k): v for k, v in res.items()}))
+        return 0
+
+    # fps
+    from fovsplat_torch.eval import fps as fps_mod
+    model = _composed(args.model, state, dev)
     if args.mode == "mmfr":
         render = fps_mod.make_mmfr_render(
             fps_mod.mmfr_models_from_composed(model), rcfg, alpha=args.alpha)
     else:
         render = fps_mod.make_fov_render(model, rcfg, alpha=args.alpha,
                                          mode=args.mode)
-    cams = [v.camera for v in (scene.test_views or scene.train_views)]
+    cams = [v.camera for v in views]
     res = fps_mod.fps_benchmark(render, cams)
     print(json.dumps(res))
     with open(os.path.join(args.model, f"fps_{args.mode}.json"), "w") as f:

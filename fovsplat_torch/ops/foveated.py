@@ -1,4 +1,5 @@
-"""Foveated "ours" frame over a packed model (fovsplat/ops/foveated.py:630-887).
+"""Foveated "ours" frame over a packed model (fovsplat/ops/foveated.py:630-887)
+and over an unpacked f32 model (rasterize_fov, foveated.py:404).
 
 rasterize_fov_soa renders one frame in five stages:
 
@@ -16,8 +17,10 @@ the valid columns of the table before stage 3. A shared-colour model
 (pack_fov_model(shared_colors=True), the SM-FR baseline) has one colour
 and opacity per Gaussian; the cull still runs at every level.
 
-On a model on the card the kernels run; on a CPU model the same wrappers
-take their plain versions.
+rasterize_fov builds stage 2's table in f32 from torch columns instead of
+kernel 1, as the JAX function builds it with XLA (build_fov_dtable), and
+then runs stages 3-5. On a model on the card the kernels run; on a CPU
+model the same wrappers take their plain versions.
 """
 
 from __future__ import annotations
@@ -103,17 +106,11 @@ def level_bboxes(levels, grid_x: int, grid_y: int, L: int,
         torch.where(ok, tys + 1, zero).amax((1, 2))]).to(torch.int32)
 
 
-def fov_soa_cols(xyz, scales, rotations, rest_t, dc_t, opac_t, hl, camera,
-                 bbox, L: int, sh_degree: int, scale_modifier: float = 1.0):
-    """Per-Gaussian preprocess, level-rect clip and per-level colour and
-    opacity columns (fovsplat/ops/foveated.py:705). bbox: (4, L) i32 for
-    the L levels of the cull; the colour layout has L_lay =
-    dc_t.shape[1] levels (L, or 1 for the SM-FR shared layout).
-    Returns (t1cols, t2cols, valid, depth): t1cols the 16 columns [rx0,
-    ry0, rw, tnum, mx, my, v1x, v1y, v2x, v2y, len1, len2, ca, cb, cc,
-    hl] and t2cols the 4 L_lay columns [op_0.., r_*, g_*, b_*]."""
-    pc = projection.preprocess_cols(xyz, scales, rotations, camera,
-                                    scale_modifier=scale_modifier)
+def clipped_geometry(pc, hl, bbox, L: int):
+    """The level-rect clip (foveated.py:44-81) of preprocess_cols' output:
+    each rect cut to the bbox of its Gaussian's highest level. Returns
+    (t1cols, valid): the 16 columns [rx0, ry0, rw, tnum, mx, my, v1x, v1y,
+    v2x, v2y, len1, len2, ca, cb, cc, hl], tnum 0 on invalid rows."""
     hli = torch.clamp(hl.to(torch.int32), 0, L - 1).long()
     rx0 = torch.maximum(pc.rx0, bbox[0][hli])
     ry0 = torch.maximum(pc.ry0, bbox[1][hli])
@@ -123,6 +120,31 @@ def fov_soa_cols(xyz, scales, rotations, rest_t, dc_t, opac_t, hl, camera,
     valid = pc.valid & (tnum > 0) & (hl >= 0.0)
     tnum = torch.where(valid, tnum, torch.zeros_like(tnum))
     rx1 = torch.maximum(rx1, rx0)
+    t1cols = [rx0.float(), ry0.float(),
+              torch.clamp(rx1 - rx0, min=1).float(), tnum.float(),
+              pc.mx, pc.my, pc.v1x, pc.v1y, pc.v2x, pc.v2y, pc.len1,
+              pc.len2, pc.ca, pc.cb, pc.cc, hl]
+    return t1cols, valid
+
+
+def level_cols(opacities, colors):
+    """The 4 L per-level columns [op_0.., r_*, g_*, b_*] of (N, L)
+    opacities and (N, L, 3) colours."""
+    L = opacities.shape[1]
+    return ([opacities[:, lv] for lv in range(L)]
+            + [colors[:, lv, c] for c in range(3) for lv in range(L)])
+
+
+def fov_soa_cols(xyz, scales, rotations, rest_t, dc_t, opac_t, hl, camera,
+                 bbox, L: int, sh_degree: int, scale_modifier: float = 1.0):
+    """Per-Gaussian preprocess, level-rect clip and per-level colour and
+    opacity columns of a packed model (fovsplat/ops/foveated.py:705).
+    bbox: (4, L) i32 for the L levels of the cull; the colour layout has
+    L_lay = dc_t.shape[1] levels (L, or 1 for the SM-FR shared layout).
+    Returns (t1cols, t2cols, valid, depth) (clipped_geometry, level_cols)."""
+    pc = projection.preprocess_cols(xyz, scales, rotations, camera,
+                                    scale_modifier=scale_modifier)
+    t1cols, valid = clipped_geometry(pc, hl, bbox, L)
 
     # Shared SH rest term + per-level DC. The max guard keeps a Gaussian
     # at the camera centre finite.
@@ -133,17 +155,18 @@ def fov_soa_cols(xyz, scales, rotations, rest_t, dc_t, opac_t, hl, camera,
                                   min=1e-20))
     rest_c = sh._eval_sh_nlast(sh_degree, rest_t, dx_ * inv, dy_ * inv,
                                dz_ * inv) + 0.5                   # (3, N)
+    colors = torch.clamp(sh.SH_C0 * dc_t.float() + rest_c[:, None, :],
+                         min=0.0).permute(2, 1, 0)        # (N, L_lay, 3)
+    return t1cols, level_cols(opac_t.float().T, colors), valid, pc.depth
 
-    t1cols = [rx0.float(), ry0.float(),
-              torch.clamp(rx1 - rx0, min=1).float(), tnum.float(),
-              pc.mx, pc.my, pc.v1x, pc.v1y, pc.v2x, pc.v2y, pc.len1,
-              pc.len2, pc.ca, pc.cb, pc.cc, hl]
-    L_lay = dc_t.shape[1]
-    t2cols = ([opac_t[l].float() for l in range(L_lay)]
-              + [torch.clamp(sh.SH_C0 * dc_t[c, l].float() + rest_c[c],
-                             min=0.0)
-                 for c in range(3) for l in range(L_lay)])
-    return t1cols, t2cols, valid, pc.depth
+
+def compute_fov_colors(means3d, shs_rest, shs_dcs, cam_center,
+                       sh_degree: int = 3) -> torch.Tensor:
+    """(N, L, 3) per-level clamped RGB (foveated.py:93): the shared SH rest
+    term (sh.eval_sh_rest) plus each level's DC, clamped at 0. shs_rest
+    (N, K-1, 3), shs_dcs (N, L, 3)."""
+    rest = sh.eval_sh_rest(sh_degree, shs_rest, means3d, cam_center)
+    return torch.clamp(sh.SH_C0 * shs_dcs + rest[:, None, :], min=0.0)
 
 
 def tile_bits(num_tiles: int) -> int:
@@ -206,38 +229,17 @@ def chain_masks(levels, grad_x, grad_y, tile_blend):
     return est, l1_active.contiguous(), l2_active
 
 
-def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
-                      blending: bool = True, bg_color=None,
-                      sh_degree: int = 3,
-                      config: RasterizeConfig = RasterizeConfig(),
-                      fov_cfg: FoveationConfig = FoveationConfig()):
-    """Foveated render of a packed model. gaze: (2,) f32 tensor in [0, 1]
-    on the model's device; alpha: foveation strength.
-
-    Returns a dict: render (H, W, 3), tile_levels (T,), tile_blend (T,),
-    num_pairs, overflow and candidates (0-d i32 tensors, on the device,
-    not synchronised). overflow counts candidates past pair_capacity plus
-    kept pairs past the compact capacity; candidates has no dummy pairs.
-    The model's colour levels are fov_cfg.fov_num or 1 (shared)."""
-    dev = model.xyz.device
+def _render_table(table, cum, total, levels, grad_x, grad_y, tile_blend,
+                  camera, L: int, bg_color, config: RasterizeConfig,
+                  fov_cfg: FoveationConfig):
+    """Stages 3-5 of a foveated frame over kernel 2's table (kernel 9
+    first with config.compact_table): expansion, the tile sort, the
+    dual-transmittance blend, the background and the smoothstep merge.
+    Returns the dict of rasterize_fov_soa."""
+    dev = table.device
     gx, gy = _grid(camera)
     num_tiles = gx * gy
-    L = fov_cfg.fov_num
-    if model.dc_t.shape[1] not in (1, L):
-        raise ValueError(f"model has {model.dc_t.shape[1]} colour levels, "
-                         f"fov_cfg.fov_num is {L}")
     cap_out = config.kept_capacity()
-
-    levels = foveation.compute_tile_levels(gaze, camera.width, camera.height,
-                                           alpha, fov_cfg)
-    grad_x, grad_y, _, tile_blend = foveation.compute_tile_level_infos(
-        levels, camera.width, camera.height, fov_cfg)
-    if not blending:
-        tile_blend = torch.zeros_like(tile_blend)
-    bbox = level_bboxes(levels, gx, gy, L, config.clip_level_rects)
-
-    table, cum, total = build_table(model, camera, bbox, sh_degree,
-                                    config.scale_modifier)
     if config.compact_table:
         table, cum, _, total = compact_table(table, bt.ROW_VALID, 0.5,
                                              bt.ROW_TNUM)
@@ -273,3 +275,88 @@ def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
     return {"render": image, "tile_levels": levels, "tile_blend": tile_blend,
             "num_pairs": seg_start[-1], "overflow": overflow,
             "candidates": candidates}
+
+
+def _tile_levels(gaze, camera, alpha, blending: bool, config, fov_cfg):
+    """Per-tile levels, gradients, blend flags and per-level clip boxes."""
+    gx, gy = _grid(camera)
+    levels = foveation.compute_tile_levels(gaze, camera.width, camera.height,
+                                           alpha, fov_cfg)
+    grad_x, grad_y, _, tile_blend = foveation.compute_tile_level_infos(
+        levels, camera.width, camera.height, fov_cfg)
+    if not blending:
+        tile_blend = torch.zeros_like(tile_blend)
+    bbox = level_bboxes(levels, gx, gy, fov_cfg.fov_num,
+                        config.clip_level_rects)
+    return levels, grad_x, grad_y, tile_blend, bbox
+
+
+def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
+                      blending: bool = True, bg_color=None,
+                      sh_degree: int = 3,
+                      config: RasterizeConfig = RasterizeConfig(),
+                      fov_cfg: FoveationConfig = FoveationConfig()):
+    """Foveated render of a packed model. gaze: (2,) f32 tensor in [0, 1]
+    on the model's device; alpha: foveation strength.
+
+    Returns a dict: render (H, W, 3), tile_levels (T,), tile_blend (T,),
+    num_pairs, overflow and candidates (0-d i32 tensors, on the device,
+    not synchronised). overflow counts candidates past pair_capacity plus
+    kept pairs past the compact capacity; candidates has no dummy pairs.
+    The model's colour levels are fov_cfg.fov_num or 1 (shared)."""
+    L = fov_cfg.fov_num
+    if model.dc_t.shape[1] not in (1, L):
+        raise ValueError(f"model has {model.dc_t.shape[1]} colour levels, "
+                         f"fov_cfg.fov_num is {L}")
+    levels, grad_x, grad_y, tile_blend, bbox = _tile_levels(
+        gaze, camera, alpha, blending, config, fov_cfg)
+    table, cum, total = build_table(model, camera, bbox, sh_degree,
+                                    config.scale_modifier)
+    return _render_table(table, cum, total, levels, grad_x, grad_y,
+                         tile_blend, camera, L, bg_color, config, fov_cfg)
+
+
+def rasterize_fov(means3d, scales, rotations, opacities, shs_dcs, shs_rest,
+                  highest_levels, camera, gaze, alpha,
+                  blending: bool = True, bg_color=None, sh_degree: int = 3,
+                  config: RasterizeConfig = RasterizeConfig(),
+                  fov_cfg: FoveationConfig = FoveationConfig(),
+                  colors_override=None, opacity_shared=None,
+                  live_mask=None):
+    """Foveated render ("ours" FR) of an unpacked model in f32
+    (foveated.py:404), for inference: not differentiable.
+
+    opacities (N, L) activated per-level opacity, or None with
+    opacity_shared (N,) (the SM-FR baseline); shs_dcs (N, L, 3) per-level
+    DC, or None with colors_override (N, L, 3) precomputed colours;
+    shs_rest (N, K-1, 3); highest_levels (N,); gaze (2,) in [0, 1];
+    live_mask (N,) bool or None.
+
+    The 16 + 4 L columns are built here in f32 (preprocess_cols,
+    clipped_geometry, compute_fov_colors) and assembled into kernel 2's
+    table (build_table.assemble_table, the counterpart of
+    build_fov_dtable); kernel 1 does not run. Then kernel 2, the tile
+    sort and kernel 3, as in rasterize_fov_soa, whose dict it returns."""
+    dev = means3d.device
+    L = fov_cfg.fov_num
+    n = means3d.shape[0]
+    gaze = torch.as_tensor(gaze, dtype=torch.float32, device=dev)
+    levels, grad_x, grad_y, tile_blend, bbox = _tile_levels(
+        gaze, camera, alpha, blending, config, fov_cfg)
+    with torch.no_grad():
+        pc = projection.preprocess_cols(means3d, scales, rotations, camera,
+                                        scale_modifier=config.scale_modifier,
+                                        live_mask=live_mask)
+        hl = highest_levels.float()
+        t1cols, valid = clipped_geometry(pc, hl, bbox, L)
+        colors = (compute_fov_colors(means3d, shs_rest, shs_dcs,
+                                     camera.cam_center, sh_degree)
+                  if colors_override is None else colors_override)
+        if opacity_shared is not None:
+            opacities = opacity_shared[:, None].expand(n, L)
+        table, cum, total = bt.assemble_table(
+            t1cols, level_cols(opacities.float(), colors.float()), valid,
+            pc.depth)
+        return _render_table(table, cum, total, levels, grad_x, grad_y,
+                             tile_blend, camera, L, bg_color, config,
+                             fov_cfg)

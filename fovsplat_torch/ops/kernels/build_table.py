@@ -60,17 +60,13 @@ def camera_consts(camera) -> torch.Tensor:
     return torch.cat([c, c.new_zeros(CAM_LEN - c.numel())]).contiguous()
 
 
-def build_table_plain(model, camera, bbox, sh_degree: int = 3,
-                      scale_modifier: float = 1.0):
-    """The kernel's function in plain PyTorch: fov_soa_cols, the table
-    sanitisation and an exclusive cumsum. Returns (table (R, N) f32,
-    cum (N,) i32, total (1,) i32)."""
-    from fovsplat_torch.ops.foveated import fov_soa_cols
-    L = bbox.shape[1]
-    t1, t2, valid, depth = fov_soa_cols(
-        model.xyz, model.scales, model.rotations, model.rest_t, model.dc_t,
-        model.opac_t, model.hl, camera, bbox, L, sh_degree, scale_modifier)
-
+def assemble_table(t1, t2, valid, depth):
+    """The table of (N,) f32 columns (the counterpart of
+    fovsplat/ops/foveated.py:135 build_fov_dtable, without its bf16 split
+    rows, dummy pairs and padding): t1 the 16 geometry columns and t2 the
+    4 L_lay level columns of foveated.clipped_geometry / level_cols. Every
+    column is sanitised on invalid rows. Returns (table (R, N) f32, cum
+    (N,) i32 exclusive, total (1,) i32)."""
     def vm(x, safe=0.0):
         return torch.where(valid, x.float(), torch.full_like(x.float(), safe))
     rows = ([vm(t1[0]), vm(t1[1]), vm(t1[2], 1.0), vm(t1[3])]
@@ -82,6 +78,18 @@ def build_table_plain(model, camera, bbox, sh_degree: int = 3,
     tnum = table[ROW_TNUM].to(torch.int32)
     incl = torch.cumsum(tnum, 0, dtype=torch.int32)
     return table, incl - tnum, incl[-1:].clone()
+
+
+def build_table_plain(model, camera, bbox, sh_degree: int = 3,
+                      scale_modifier: float = 1.0):
+    """The kernel's function in plain PyTorch: fov_soa_cols and
+    assemble_table. Returns (table (R, N) f32, cum (N,) i32, total (1,)
+    i32)."""
+    from fovsplat_torch.ops.foveated import fov_soa_cols
+    L = bbox.shape[1]
+    return assemble_table(*fov_soa_cols(
+        model.xyz, model.scales, model.rotations, model.rest_t, model.dc_t,
+        model.opac_t, model.hl, camera, bbox, L, sh_degree, scale_modifier))
 
 
 def build_table(model, camera, bbox, sh_degree: int = 3,

@@ -1,5 +1,5 @@
-"""Real spherical harmonics, degree 0..3, with N last
-(fovsplat/ops/sh.py: num_sh_coeffs, _eval_sh_nlast, sh_to_rgb,
+"""Real spherical harmonics, degree 0..3 (fovsplat/ops/sh.py:
+num_sh_coeffs, eval_sh, _eval_sh_nlast, sh_to_rgb, eval_sh_rest,
 _unit_dirs, rgb_to_sh_dc, sh_dc_to_rgb). Constants and basis order follow
 the reference CUDA tables."""
 
@@ -27,6 +27,38 @@ def rgb_to_sh_dc(rgb):
 
 def sh_dc_to_rgb(dc):
     return dc * SH_C0 + 0.5
+
+
+def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """sh (..., K, 3) coefficients, K >= (degree + 1)^2, dirs (..., 3) unit
+    view directions. Returns (..., 3) raw radiance (no +0.5, no clamp)."""
+    result = SH_C0 * sh[..., 0, :]
+    if degree > 0:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        result = (result - SH_C1 * y * sh[..., 1, :]
+                  + SH_C1 * z * sh[..., 2, :] - SH_C1 * x * sh[..., 3, :])
+        if degree > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (result
+                      + SH_C2[0] * xy * sh[..., 4, :]
+                      + SH_C2[1] * yz * sh[..., 5, :]
+                      + SH_C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+                      + SH_C2[3] * xz * sh[..., 7, :]
+                      + SH_C2[4] * (xx - yy) * sh[..., 8, :])
+            if degree > 2:
+                result = (result
+                          + SH_C3[0] * y * (3.0 * xx - yy) * sh[..., 9, :]
+                          + SH_C3[1] * xy * z * sh[..., 10, :]
+                          + SH_C3[2] * y * (4.0 * zz - xx - yy)
+                          * sh[..., 11, :]
+                          + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy)
+                          * sh[..., 12, :]
+                          + SH_C3[4] * x * (4.0 * zz - xx - yy)
+                          * sh[..., 13, :]
+                          + SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
+                          + SH_C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :])
+    return result
 
 
 def _eval_sh_nlast(degree: int, sh_t: torch.Tensor, x, y, z) -> torch.Tensor:
@@ -76,3 +108,16 @@ def sh_to_rgb(degree: int, sh: torch.Tensor, means: torch.Tensor,
     sh_t = sh.permute(2, 1, 0)              # (3, K, N)
     out = _eval_sh_nlast(degree, sh_t, x, y, z) + 0.5
     return torch.clamp(out, min=0.0).T      # (N, 3)
+
+
+def eval_sh_rest(degree: int, sh_rest: torch.Tensor, means: torch.Tensor,
+                 cam_center: torch.Tensor) -> torch.Tensor:
+    """The foveated renderer's shared colour term: the degree >= 1
+    contribution plus the 0.5 shift, no DC (computeRestColorFromSH,
+    ..._fov_pcheck_obb/cuda_rasterizer/rasterizer_impl.cu:34-84).
+    sh_rest (N, K-1, 3), coefficients 1..K-1. Returns (N, 3)."""
+    n = sh_rest.shape[0]
+    x, y, z = _unit_dirs(means, cam_center)
+    sh_t = torch.cat([sh_rest.new_zeros((3, 1, n)),
+                      sh_rest.permute(2, 1, 0)], dim=1)
+    return (_eval_sh_nlast(degree, sh_t, x, y, z) + 0.5).T

@@ -1,7 +1,8 @@
 """Uniform metameric (HVS) loss (counterpart of
 fovsplat/perception/metameric.py: adaptive_area_downsample,
 bilinear_upsample, uniform_blur, statsmaps, loss_from_stats,
-metameric_loss_uniform and resize_for_pyramid).
+metameric_loss_uniform, resize_for_pyramid, gen_metamer, metamer_mse_loss
+and blur_loss).
 
 Parity target: metamer/odak_perception/metameric_loss_uniform.py as the
 reference's training and eval scripts use it (bilinear down/up, 5
@@ -9,8 +10,7 @@ levels, 6 orientations; L1 for mask training, MSE for eval). For the
 highpass band and each oriented band of each level, the mean and std
 over `pooling_size` windows (area-downsample by 1/ps, then bilinear back
 up); the pooling size halves per level and the final lowpass residual
-enters raw. Images are (B, H, W, C) or (H, W, C). gen_metamer,
-metamer_mse_loss and blur_loss are not ported yet.
+enters raw. Images are (B, H, W, C) or (H, W, C).
 
 Both resamplings (area pooling and bilinear resize) are separable linear
 maps, applied one axis at a time as gathers and sums (_Resample): the
@@ -151,13 +151,15 @@ def _find_stats(band, pooling_size, eps=1e-7):
 
 
 def statsmaps(image, pooling_size, n_levels: int = 5,
-              n_orientations: int = 6):
-    """image (B, H, W, 3) or (H, W, 3) in RGB, taken to YCrCb; returns the
+              n_orientations: int = 6, colorspace: str = "RGB"):
+    """image (B, H, W, C) or (H, W, C); a 3-channel RGB image is taken to
+    YCrCb first (colorspace "RGB"), any other enters as it is. Returns the
     list of stats maps."""
     if image.dim() == 3:
         image = image[None]
-    pyr = pyramid.construct_pyramid(color.rgb_to_ycrcb(image), n_levels,
-                                    n_orientations)
+    if image.shape[-1] == 3 and colorspace == "RGB":
+        image = color.rgb_to_ycrcb(image)
+    pyr = pyramid.construct_pyramid(image, n_levels, n_orientations)
     out = list(_find_stats(pyr[0]["h"], pooling_size))
     ps = pooling_size
     for level in pyr[:-1]:
@@ -202,3 +204,74 @@ def resize_for_pyramid(image, n_levels: int = 5):
     if rh == h and rw == w:
         return image
     return bilinear_upsample(image, rh, rw)
+
+
+def gen_metamer(image, pooling_size, n_levels: int = 5,
+                n_orientations: int = 6, generator=None, noise=None):
+    """A metamer of the RGB image (metameric_loss_uniform.py:160-216, after
+    Freeman & Simoncelli): a uniform noise image's pyramid with each band
+    matched to the target's local mean and std maps, the target's lowpass
+    residual, reconstructed and taken back to RGB.
+
+    noise: a (B, H, W, 3) tensor in [0, 1) on the image's device, or None
+    to draw one with `generator` (a torch.Generator on that device; None
+    seeds one with 0). JAX's PRNG is not reproduced: to compare with the
+    JAX function, pass its jax.random.uniform draw as `noise`."""
+    if image.dim() == 3:
+        image = image[None]
+    ycrcb = color.rgb_to_ycrcb(image)
+    stats = statsmaps(ycrcb, pooling_size, n_levels, n_orientations,
+                      colorspace="YCrCb")
+    means, stds = stats[::2], stats[1::2]
+    if noise is None:
+        if generator is None:
+            generator = torch.Generator(device=image.device).manual_seed(0)
+        noise = torch.rand(ycrcb.shape, generator=generator,
+                           device=image.device)
+    npyr = pyramid.construct_pyramid(noise, n_levels, n_orientations)
+    ipyr = pyramid.construct_pyramid(ycrcb, n_levels, n_orientations)
+
+    def match(level, mean_map, std_map):
+        level = level - torch.mean(level)
+        input_std = torch.clamp(torch.sqrt(torch.mean(level * level)),
+                                min=1e-6)
+        return level / input_std * std_map + mean_map
+
+    nbands = len(npyr[0]["b"])
+    npyr[0]["h"] = match(npyr[0]["h"], means[0], stds[0])
+    for lv in range(len(npyr) - 1):
+        for b in range(nbands):
+            idx = 1 + lv * nbands + b
+            npyr[lv]["b"][b] = match(npyr[lv]["b"][b], means[idx],
+                                     stds[idx])
+    npyr[-1]["l"] = ipyr[-1]["l"]
+    metamer = pyramid.reconstruct_from_pyramid(npyr, n_orientations)
+    return color.ycrcb_to_rgb(metamer)
+
+
+def metamer_mse_loss(image, target, pooling_size, n_levels: int = 5,
+                     n_orientations: int = 6, generator=None, noise=None):
+    """MetamerMSELoss (metamer_mse_loss.py): the MSE against a metamer of
+    the target, which carries no gradient."""
+    m = gen_metamer(target, pooling_size, n_levels, n_orientations,
+                    generator, noise).detach()
+    return torch.mean((image - m) ** 2)
+
+
+def blur_loss(image, target, gaze=(0.5, 0.5), alpha: float = 0.2,
+              real_image_width: float = 0.2,
+              real_viewing_distance: float = 0.7, blur_source: bool = False):
+    """BlurLoss (blur_loss.py): the MSE against the target blurred by the
+    radially varying (foveated) blur, optionally blurring the source
+    too."""
+    from fovsplat_torch.perception import foveated_loss as fl
+    if image.dim() == 3:
+        image = image[None]
+    if target.dim() == 3:
+        target = target[None]
+    h, w = target.shape[1:3]
+    lod = fl.make_lod_map(gaze, h, w, alpha, real_image_width,
+                          real_viewing_distance, device=target.device)
+    bt = fl.radially_varying_blur(target, lod)
+    src = fl.radially_varying_blur(image, lod) if blur_source else image
+    return torch.mean((src - bt) ** 2)

@@ -1,10 +1,11 @@
 """Real-valued spatial steerable pyramid (counterpart of
 fovsplat/perception/pyramid.py: load_filters, depthwise_conv,
-area_downsample_2x, construct_pyramid). Images are (B, H, W, C).
+area_downsample_2x, construct_pyramid, reconstruct_from_pyramid).
+Images are (B, H, W, C).
 
-The filters are the public NYU pyrtools steerable-pyramid filters with
-odak's cropped 5x5 variants, in the port's own copy of the data file
-(perception/data/sp_filters_nyu.npz).
+The filters are the public NYU pyrtools steerable-pyramid filters ("full")
+and odak's cropped 5x5 variants ("cropped"), in the port's own copy of the
+data file (perception/data/sp_filters_nyu.npz).
 
 The depthwise convolutions are written without cuDNN: each filter is
 the sum of its k*k shifted, weighted copies of the reflection-padded
@@ -29,11 +30,11 @@ _DATA = Path(__file__).resolve().parent / "data" / "sp_filters_nyu.npz"
 
 
 @functools.lru_cache(maxsize=None)
-def load_filters(n_orientations: int = 6):
-    """The cropped filters, which the HVS loss uses: {'h0': (k, k), 'l0':
-    (k, k), 'l': (m, m), 'b': (O, k, k)} f32 numpy arrays."""
+def load_filters(n_orientations: int = 6, filter_type: str = "cropped"):
+    """{'h0': (k, k), 'l0': (k, k), 'l': (m, m), 'b': (O, k, k)} f32 numpy
+    arrays; filter_type "cropped" (the HVS loss's) or "full"."""
     z = np.load(_DATA)
-    pre = f"o{n_orientations}_cropped_"
+    pre = f"o{n_orientations}_{filter_type}_"
     return {k: np.asarray(z[pre + k], np.float32)
             for k in ("h0", "l0", "l", "b")}
 
@@ -71,20 +72,65 @@ def area_downsample_2x(x):
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 
-def construct_pyramid(image, n_levels: int = 5, n_orientations: int = 6):
+def _downsample(lowpass, f, use_bilinear_downup: bool):
+    if use_bilinear_downup:
+        return area_downsample_2x(lowpass)
+    return depthwise_conv(lowpass, f["l"])[:, ::2, ::2, :]
+
+
+def construct_pyramid(image, n_levels: int = 5, n_orientations: int = 6,
+                      filter_type: str = "cropped",
+                      use_bilinear_downup: bool = True,
+                      multiple_highpass: bool = False):
     """image (B, H, W, C), H and W divisible by 2^n_levels (callers resize
-    first: metameric.resize_for_pyramid). The HVS loss's configuration of
-    the JAX construct_pyramid: cropped filters, 2x area downsampling
-    between levels, one highpass band at the top.
+    first: metameric.resize_for_pyramid). Between levels, a 2x area
+    downsampling (use_bilinear_downup, the HVS loss's configuration) or
+    the lowpass filter `l` and stride-2 sampling; multiple_highpass adds a
+    highpass band 'h' to every level but the last.
 
     Returns [{'h', 'l', 'b' (list)}, ..., {'l'}], largest first."""
-    f = load_filters(n_orientations)
-    h0, lowpass = filter_bank(image, np.stack([f["h0"], f["l0"]]))
+    f = load_filters(n_orientations, filter_type)
+    if f["h0"].shape == f["l0"].shape:
+        h0, lowpass = filter_bank(image, np.stack([f["h0"], f["l0"]]))
+    else:
+        h0, lowpass = (depthwise_conv(image, f["h0"]),
+                       depthwise_conv(image, f["l0"]))
     pyramid = [{"h": h0, "l": lowpass, "b": list(filter_bank(lowpass,
                                                               f["b"]))}]
     for _ in range(n_levels - 2):
-        lowpass = area_downsample_2x(lowpass)
-        pyramid.append({"l": lowpass,
-                        "b": list(filter_bank(lowpass, f["b"]))})
-    pyramid.append({"l": area_downsample_2x(lowpass)})
+        lowpass = _downsample(lowpass, f, use_bilinear_downup)
+        level = {"l": lowpass, "b": list(filter_bank(lowpass, f["b"]))}
+        if multiple_highpass:
+            level["h"] = depthwise_conv(lowpass, f["h0"])
+        pyramid.append(level)
+    pyramid.append({"l": _downsample(lowpass, f, use_bilinear_downup)})
     return pyramid
+
+
+def reconstruct_from_pyramid(pyr, n_orientations: int = 6,
+                             filter_type: str = "cropped",
+                             use_bilinear_downup: bool = True):
+    """The inverse transform (spatial_steerable_pyramid.py:182-223): per
+    level, upsample the lowpass (bilinear, or zero insertion and the
+    lowpass filter `l`) and subtract the bands filtered again; then the
+    l0 / h0 combination. The cropped 6-orientation `l` is 2x2, so its
+    "same" convolution loses a row and a column and the level sizes stop
+    matching: that combination raises, as it does in the JAX package."""
+    from fovsplat_torch.perception.metameric import bilinear_upsample
+    f = load_filters(n_orientations, filter_type)
+
+    def upsample(img, hw):
+        if use_bilinear_downup:
+            return bilinear_upsample(img, hw[0], hw[1])
+        b, h, w, c = img.shape
+        zeros = img.new_zeros((b, h * 2, w * 2, c))
+        zeros[:, ::2, ::2, :] = img
+        return depthwise_conv(zeros, f["l"])
+
+    image = pyr[-1]["l"]
+    for level in reversed(pyr[:-1]):
+        image = upsample(image, level["b"][0].shape[1:3])
+        for b in range(len(level["b"])):
+            image = image + depthwise_conv(level["b"][b], -f["b"][b])
+    image = depthwise_conv(image, f["l0"])
+    return image + depthwise_conv(pyr[0]["h"], f["h0"])

@@ -1,5 +1,5 @@
-"""Image losses: L1, PSNR, SSIM and the photometric training loss
-(counterpart of fovsplat/train/losses.py).
+"""Image losses: L1 (mean and per-pixel map), L2, PSNR, SSIM and the
+photometric training loss (counterpart of fovsplat/train/losses.py).
 
 Parity: fov3dgs/utils/loss_utils.py (11x11 sigma-1.5 Gaussian window SSIM,
 C1 = 0.01^2, C2 = 0.03^2) and utils/image_utils.py:17 (PSNR). Images are
@@ -19,6 +19,14 @@ import torch.nn.functional as F
 
 def l1_loss(a, b):
     return torch.mean(torch.abs(a - b))
+
+
+def l1_loss_map(a, b):
+    return torch.abs(a - b)
+
+
+def l2_loss(a, b):
+    return torch.mean((a - b) ** 2)
 
 
 def psnr(a, b):

@@ -1013,3 +1013,82 @@ def test_scratch_step_offset_gradient_matches_cpu(cuda):
         assert scale > 0
         np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale,
                                    rtol=2e-3, atol=2e-4)
+
+
+def test_lpips_matches_cpu_without_tf32(cuda, tmp_path):
+    """LPIPS on chip_smoke.py's synthetic weights: the card within 1e-5
+    relative of the CPU, two calls bit-identical, with TF32 allowed
+    globally (the module's local cuDNN flag must keep it off)."""
+    import chip_smoke
+    from fovsplat_torch.eval import lpips_torch
+    path = str(tmp_path / "vgg.npz")
+    np.savez(path, **chip_smoke.synthetic_vgg_weights())
+    net = lpips_torch.LPIPS(path)
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 1, (H // 2, W // 2, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(0, 1, a.shape), 0, 1).astype(np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+        first, second = net(ta, tb), net(ta, tb)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    cpu = float(net(torch.from_numpy(a), torch.from_numpy(b)))
+    assert torch.equal(first, second)
+    assert abs(float(first) - cpu) <= 1e-5 * abs(cpu)
+
+
+@pytest.mark.parametrize("gaze", [(0.5, 0.5), (0.2, 0.8)])
+def test_foveated_hvs_matches_cpu(cuda, gaze):
+    """metameric_loss_fov and blur_loss on the card within 1e-5 relative of
+    the CPU; gen_metamer with one injected noise draw within 1e-5 of the
+    image's range."""
+    from fovsplat_torch.perception import foveated_loss as fl
+    from fovsplat_torch.perception import metameric
+    rng = np.random.default_rng(9)
+    a = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(0, 1, a.shape), 0, 1).astype(np.float32)
+    noise = torch.rand((1, H, W, 3),
+                       generator=torch.Generator().manual_seed(5))
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        x, y = torch.from_numpy(a).to(d), torch.from_numpy(b).to(d)
+        with torch.no_grad():
+            out.append((float(fl.metameric_loss_fov(x, y, gaze=gaze)),
+                        float(metameric.blur_loss(x, y, gaze=gaze)),
+                        metameric.gen_metamer(x, 2.0,
+                                              noise=noise.to(d)).cpu()))
+    (fk, bk, mk), (fp, bp, mp) = out
+    assert abs(fk - fp) <= 1e-5 * abs(fp) and fp > 0
+    assert abs(bk - bp) <= 1e-5 * abs(bp) and bp > 0
+    assert float((mk - mp).abs().max()) <= 1e-5 * float(mp.max() - mp.min())
+
+
+def test_rasterize_fov_matches_cpu_and_counts_launches(cuda):
+    """The unpacked foveated render on the card against the CPU (within
+    T_EPS), bit-identical twice; kernels 2 and 3 launch once a frame and
+    kernel 1 never."""
+    sc = proxy.bicycle_proxy(n=N, seed=2)
+    keys = ("means", "scales", "rotations", "opacities4", "shs_dcs",
+            "shs_rest", "highest_levels")
+    cfg = RasterizeConfig(pair_capacity=1 << 20, sort_exact_depth=True)
+    outs = []
+    for d in (cuda, torch.device("cpu")):
+        args = [torch.as_tensor(sc[k], device=d) for k in keys]
+        cam = proxy.proxy_camera(W, H, device=d)
+        gaze = torch.tensor((0.3, 0.6), device=d)
+        for kf in (bt.build_table, ef.expand_fov, bf.blend_fov):
+            kf.launches = 0
+        o = fov.rasterize_fov(*args, cam, gaze, 0.05, bg_color=[0.1, 0.2, 0.3],
+                              config=cfg)
+        if d.type == "cuda":
+            assert (bt.build_table.launches, ef.expand_fov.launches,
+                    bf.blend_fov.launches) == (0, 1, 1)
+            again = fov.rasterize_fov(*args, cam, gaze, 0.05,
+                                      bg_color=[0.1, 0.2, 0.3], config=cfg)
+            assert torch.equal(o["render"], again["render"])
+        assert int(o["overflow"]) == 0
+        outs.append((o["render"].cpu(), int(o["num_pairs"])))
+    assert outs[0][1] == outs[1][1] > 1000
+    assert float((outs[0][0] - outs[1][0]).abs().max()) <= 1e-4

@@ -117,6 +117,11 @@ def test_port_import_leaves_jax_out_of_sys_modules():
         "import fovsplat_torch.ops.kernels.segment_reduce\n"
         "import fovsplat_torch.ops.stats, fovsplat_torch.train.compose\n"
         "import fovsplat_torch.perception.metameric\n"
+        "import fovsplat_torch.perception.foveated_loss\n"
+        "import fovsplat_torch.eval.metrics, fovsplat_torch.eval.quality\n"
+        "import fovsplat_torch.eval.layers, fovsplat_torch.eval.video\n"
+        "import fovsplat_torch.eval.lpips_torch, fovsplat_torch.cli\n"
+        "import fovsplat_torch.utils.config\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fovsplat'))\n"
