@@ -2,8 +2,11 @@
 """Quickest proof that the PyTorch / CUDA port renders (the foveated
 "ours" frame and the PS1, SM-FR and MM-FR inference frames), trains,
 prunes and masks on the GPU, that it loads a scene, trains a model from
-scratch and runs the whole pipeline there, and that it scores models
-(PSNR, SSIM, LPIPS, HVS, per-layer HVS, rendered views and video).
+scratch and runs the whole pipeline there, that it scores models (PSNR,
+SSIM, LPIPS, HVS, per-layer HVS, rendered views and video), that it
+builds the LightGaussian models (VQ compression, SH distillation, MM-FR
+models, the vq subcommand), and that its plain XLA oracle route agrees
+with its kernel route.
 
     python3 chip_smoke.py
 
@@ -177,7 +180,38 @@ into build/kernels first. Phases, one JSON line each on stdout:
      and video --frames 8 on the pipeline phase's output and the
      scene_io scene, the four processes started together: each exits 0
      and leaves its PNG, JSON and frame files; seconds to exit;
- 32. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
+ 32. vq: LightGaussian's VQ compression (models/vq.py) of the 1.16M
+     teacher (codebook 8,192, ratio 0.6, 10 iterations) with importance
+     from global_significance_scores on the scene's 14 train views,
+     counters set to 0 before and read after (kernels 4, 7, 8 once a
+     view): two runs bit-identical with TF32 allowed globally, the
+     round-trip bounds of tests/test_models_data.py, size and ratio, a
+     PS1 render of the decompressed model against the teacher's (PSNR,
+     overflow 0), seconds; the card against the CPU at 20,000 rows and
+     codebook 256 with the same injected draws (codebook within 1e-5
+     relative, keep masks equal, ids equal where the two nearest
+     codewords are further apart than the distance formula's rounding
+     bound, and no near-tie pick further than that);
+ 33. distill: the teacher distilled from SH degree 3 to 1 for 20
+     iterations on the 14 views, twice from one seed (bit-identical),
+     launches of kernels 4-7, the loss against the teacher's render
+     before and after, ms an iteration;
+ 34. mm_models: generate_mm_models from the chain phase's PS1 state with
+     its live ladder as layer_counts (3 finetune iterations a level),
+     live counts against their targets, every step finite with overflow
+     0; a 9-gaze MM-FR frame of mm_render_models, its times and the
+     launches of kernels 4q and 5q;
+ 35. cli_vq: `python -m fovsplat_torch.cli vq` on the pipeline phase's
+     output; its JSON on a line of its own;
+ 36. xla_route: the port's XLA oracle route (config.backend "xla", plain
+     PyTorch) against the kernel route at full width, every counter 0
+     across its calls: the train-step render and gradients (kept pairs
+     equal, images within 1e-4, gradients within 1e-4 of each field's
+     largest, bit-identical twice), the "ours" frame at the centre gaze
+     (within 1e-4), the three score views (within 1e-5 relative), and
+     render_dense against the XLA route at 2,000 Gaussians and 160x112;
+     times labelled "plain PyTorch route";
+ 37. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
      MM-FR and kernel 7's argmax stream) its launches on its path, time
      (CUDA events over 20 calls), own device time (device_ms, a profiler
      window over 20 more, split by CUDA kernel, and the CUDA kernels a
@@ -186,7 +220,8 @@ into build/kernels first. Phases, one JSON line each on stdout:
      torch.sort times of the frame's and the train route's keys as
      library rows; the rows of kernels 4-8 also give their launches on
      the scratch and pipeline phases, and every row its launches in the
-     quality, layers and fov_unpacked phases.
+     quality, layers and fov_unpacked phases and in the vq, distill,
+     mm_models (generation) and mm_frame phases.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero without that line, after printing
 {"phase": "error", "at": <the last phase printed>, "error": <message>};
@@ -1248,7 +1283,8 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
     12) against PS1's HVS at pooling 1, compose_layers and one foveated
     frame of the composed model at the centre gaze, with every launch
     counter set to 0 just before and read just after. Returns (the launch
-    counts, the composed model); raises when a check fails."""
+    counts, the composed model, {"ps1": the PS1 state, "train_views",
+    "counts": the live ladder}); raises when a check fails."""
     import numpy as np
     import torch
     from fovsplat_torch.ops import foveated as fov
@@ -1344,7 +1380,8 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
               "reduce_by_sorted_gid", "blend_stats"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the chain")
-    return launches, model
+    return launches, model, {"ps1": ps1, "train_views": train_views,
+                             "counts": counts}
 
 
 def hvs_vs_cpu(cfg):
@@ -3005,6 +3042,443 @@ def run_cli_eval(scene_root, model_dir):
         raise AssertionError("an eval subcommand failed")
 
 
+VQ_CODEBOOK = 8192               # LightGaussian VecTree's defaults
+VQ_RATIO = 0.6
+VQ_ITERS = 10
+VQ_CHECK_ROWS = 20_000           # card vs CPU check shape
+VQ_CHECK_CODEBOOK = 256
+VQ_RTOL = 1e-5                   # codebook card vs CPU; id near-tie bar
+DISTILL_DEGREE = 1
+DISTILL_ITERS = 20               # of LightGaussian's 2,000 (cut)
+MM_FINETUNE_ITERS = 3            # a level, of multimodel's 1,000 (cut)
+XLA_ATOL = 1e-4                  # routes' images: T_EPS
+XLA_GRAD_RTOL = BWD_RTOL         # routes' gradients, of each field's max:
+                                 # kernel 6's bar against its twin (xyz
+                                 # reads 3.3e-5, kernel 7's chunked sums
+                                 # through the projection's chain rule)
+DENSE_SHAPE = (2_000, 160, 112)  # render_dense check (O(N H W))
+DENSE_T_ATOL, DENSE_ATOL = 2e-5, 2e-4   # tests/test_rasterize_parity.py
+
+
+def vq_id_check(ids, ref_ids, rows, codebook, rtol=VQ_RTOL):
+    """ids against ref_ids on the same rows and the reference codebook
+    (float64 distances). The |a|^2 - 2 a.b + |b|^2 formula rounds at rtol
+    of |a|^2 + |b|^2: on rows whose two nearest codewords are further
+    apart than that the ids must be equal; elsewhere (near ties) the
+    chosen codeword must be as near within it. Returns (rows without a
+    near tie, mismatches there, near-tie rows whose pick is worse)."""
+    import numpy as np
+    r = rows.astype(np.float64)
+    c = codebook.astype(np.float64)
+    d2 = ((r * r).sum(1)[:, None] - 2.0 * r @ c.T + (c * c).sum(1)[None])
+    order = np.argsort(d2, 1)[:, :2]
+    two = np.take_along_axis(d2, order, 1)
+    tol = rtol * ((r * r).sum(1) + (c[order[:, 0]] ** 2).sum(1))
+    clear = (two[:, 1] - two[:, 0]) > tol
+    i = np.arange(len(ids))
+    worse = d2[i, ids] - d2[i, ref_ids] > tol
+    return (int(clear.sum()), int((ids != ref_ids)[clear].sum()),
+            int(worse.sum()))
+
+
+def run_vq(st, scene, cfg, kernels, device):
+    """Phase vq: importance from global_significance_scores on the scene's
+    14 train views, then compress of the 1.16M teacher (codebook 8,192,
+    ratio 0.6, 10 iterations) twice with TF32 allowed globally (only
+    vq's local flag keeps it off): bit-identical; the round-trip bounds
+    of tests/test_models_data.py's test_vq_compress_roundtrip (xyz's fp16
+    bound relative to the larger of |x| and 1, the proxy's positions
+    reaching past 1); a PS1 render of the decompressed model against the
+    teacher's; then the card against the CPU at 20,000 rows and codebook
+    256 with the same injected draws. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.models import vq
+    from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
+    from fovsplat_torch.train import loops, scratch
+    sync = synced(device)
+    p = st.params
+    for kf in kernels.values():
+        kf.launches = 0
+    t0 = time.perf_counter()
+    _, imp = scratch.global_significance_scores(st, scene.train_views, cfg)
+    imp = imp.cpu().numpy()
+    score_s = time.perf_counter() - t0
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        comp = vq.compress(p, imp, VQ_RATIO, VQ_CODEBOOK, VQ_ITERS)
+        sync()
+        compress_s = time.perf_counter() - t0
+        again = vq.compress(p, imp, VQ_RATIO, VQ_CODEBOOK, VQ_ITERS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    bit = sorted(comp) == sorted(again) and all(
+        np.array_equal(comp[k], again[k]) for k in comp)
+    n = p.num_points
+    raw_bytes = sum(getattr(p, f).numel() * 4 for f in FIELDS)
+    size = vq.compressed_size_bytes(comp)
+    t0 = time.perf_counter()
+    dec = vq.decompress(comp, device)
+    sync()
+    decompress_s = time.perf_counter() - t0
+    keep = torch.as_tensor(np.unpackbits(comp["keep_mask_packed"])[:n]
+                           .astype(bool), device=device)
+    cam = scene.train_views[0].camera
+    with torch.no_grad():
+        dc_err = float((dec.features_dc - p.features_dc)[keep].abs().max())
+        rest_err = float((dec.features_rest - p.features_rest).abs().mean())
+        xyz_rel = float(((dec.xyz - p.xyz).abs()
+                         / p.xyz.abs().clamp(min=1.0)).max())
+        ref = loops.render_state(st, cam, cfg)
+        got = loops.render_state(S.from_params(dec), cam, cfg)
+    mse = float(((got["render"] - ref["render"]) ** 2).mean())
+    overflow = int(got["binned"].overflow)
+
+    # The card against the CPU at the check shape, same draws.
+    rows_n, k = VQ_CHECK_ROWS, VQ_CHECK_CODEBOOK
+    n_vq = rows_n - int(rows_n * (1 - VQ_RATIO))
+    init, starts = vq.draws(n_vq, k, VQ_ITERS, 80_000,
+                            torch.Generator().manual_seed(1))
+    small = {d: GaussianParams(**{f: getattr(p, f)[:rows_n].detach().to(d)
+                                  for f in FIELDS})
+             for d in (device, "cpu")}
+    comps = {d: vq.compress(m, imp[:rows_n], VQ_RATIO, k, VQ_ITERS, init,
+                            starts) for d, m in small.items()}
+    kept = np.unpackbits(comps["cpu"]["keep_mask_packed"])[:rows_n].astype(
+        bool)
+    m = small["cpu"]
+    feats = torch.cat([m.features_dc.reshape(rows_n, -1),
+                       m.features_rest.reshape(rows_n, -1)],
+                      1).detach().numpy()[~kept]
+    books = {d: vq.ema_kmeans(torch.as_tensor(feats, device=d), k,
+                              VQ_ITERS, init_idx=init,
+                              starts=starts).cpu().numpy()
+             for d in (device, "cpu")}
+    book_rel = float(np.abs(books[device] - books["cpu"]).max()
+                     / np.abs(books["cpu"]).max())
+
+    def ids(c):
+        b = int(c["bits"])
+        raw = np.unpackbits(c["vq_indices_packed"])[:int(c["num_vq"]) * b]
+        return raw.reshape(-1, b) @ (1 << np.arange(b - 1, -1, -1))
+    same_book = {d: vq._assign(torch.as_tensor(feats, device=d),
+                               torch.as_tensor(books["cpu"], device=d))
+                 .cpu().numpy() for d in (device, "cpu")}
+    same_assign = bool(np.array_equal(same_book[device], same_book["cpu"]))
+    clear, mismatched, worse = vq_id_check(ids(comps[device]),
+                                           ids(comps["cpu"]), feats,
+                                           books["cpu"])
+    same_keep = np.array_equal(comps[device]["keep_mask_packed"],
+                               comps["cpu"]["keep_mask_packed"])
+    row = {"phase": "vq", "n": n, "width": cam.width, "height": cam.height,
+           "views": len(scene.train_views), "codebook": VQ_CODEBOOK,
+           "vq_ratio": VQ_RATIO, "iters": VQ_ITERS,
+           "num_vq": int(comp["num_vq"]), "raw_bytes": raw_bytes,
+           "compressed_bytes": size, "ratio": raw_bytes / size,
+           "bytes_per_row": size / n,
+           "seconds": {"scores": score_s, "compress": compress_s,
+                       "decompress": decompress_s},
+           "bit_identical_twice": bit,
+           "round_trip": {"kept_dc_max_err": dc_err,
+                          "rest_mean_abs_err": rest_err,
+                          "xyz_rel_err": xyz_rel},
+           "render_vs_original": {
+               "psnr_db": -10.0 * math.log10(mse) if mse > 0
+               else float("inf"), "overflow": overflow},
+           "vs_cpu": {"rows": rows_n, "codebook": k, "num_vq": n_vq,
+                      "codebook_rel_err": book_rel,
+                      "keep_mask_equal": same_keep,
+                      "ids_equal_on_one_codebook": same_assign,
+                      "ids_equal": bool(np.array_equal(
+                          ids(comps[device]), ids(comps["cpu"]))),
+                      "rows_without_near_tie": clear,
+                      "ids_differing_there": mismatched,
+                      "near_tie_rows_picking_worse": worse},
+           "launches": launches,
+           "tol": {"kept_dc": 2e-3, "rest_mean": 0.12, "xyz_rel": 2e-3,
+                   "size_of_raw": 0.55, "codebook_rtol": VQ_RTOL}}
+    emit(row)
+    if not (bit and dc_err <= 2e-3 and rest_err < 0.12 and xyz_rel <= 2e-3
+            and size < 0.55 * raw_bytes and overflow == 0
+            and book_rel <= VQ_RTOL and same_keep and same_assign
+            and mismatched == 0 and worse == 0):
+        raise AssertionError("the vq phase failed a check")
+    if not (launches["expand_ps1"] == launches["blend_stats"]
+            == len(scene.train_views)):
+        raise AssertionError(f"vq: kernels 4 and 8 must launch once a "
+                             f"view: {launches}")
+    return launches
+
+
+def run_distill(st, scene, cfg, kernels, device):
+    """Phase distill: the quality phase's teacher (the 1.16M proxy, SH
+    degree 3) distilled to degree 1 for DISTILL_ITERS iterations on the
+    scene's 14 train views, counters set to 0 before and read after
+    (kernels 4 and 5 twice an iteration, 6 and 7 once), twice from the
+    same seed: the students bit-identical; the loss against the teacher's
+    render of view 0 before and after, ms an iteration."""
+    import torch
+    from fovsplat_torch.models.gaussians import FIELDS
+    from fovsplat_torch.train import distill, loops, losses
+    sync = synced(device)
+    views = scene.train_views
+    for kf in kernels.values():
+        kf.launches = 0
+    t0 = time.perf_counter()
+    s1 = distill.distill(st, views, DISTILL_DEGREE, cfg, DISTILL_ITERS,
+                         log=lambda *_: None)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    s2 = distill.distill(st, views, DISTILL_DEGREE, cfg, DISTILL_ITERS,
+                         log=lambda *_: None)
+    bit = all(torch.equal(getattr(s1.params, f), getattr(s2.params, f))
+              and torch.equal(s1.opt.mu[f], s2.opt.mu[f])
+              and torch.equal(s1.opt.nu[f], s2.opt.nu[f]) for f in FIELDS)
+    s_cfg = dataclasses.replace(cfg, sh_degree=DISTILL_DEGREE)
+    cam = views[0].camera
+    with torch.no_grad():
+        pseudo = loops.render_state(st, cam, cfg)["render"]
+        before = float(losses.photometric_loss(loops.render_state(
+            dataclasses.replace(st, params=distill.truncate_sh(
+                st.params, DISTILL_DEGREE)), cam, s_cfg)["render"], pseudo))
+        after = float(losses.photometric_loss(
+            loops.render_state(s1, cam, s_cfg)["render"], pseudo))
+    row = {"phase": "distill", "n": st.capacity, "width": cam.width,
+           "height": cam.height, "views": len(views),
+           "degrees": [cfg.sh_degree, DISTILL_DEGREE],
+           "iters": DISTILL_ITERS,
+           "features_rest": list(s1.params.features_rest.shape),
+           "loss_view0": {"truncated": before, "distilled": after},
+           "seconds": secs, "ms_per_iter": 1000.0 * secs / DISTILL_ITERS,
+           "bit_identical_twice": bit, "launches": launches}
+    emit(row)
+    it = DISTILL_ITERS
+    if not (bit and math.isfinite(after)
+            and row["features_rest"] == [st.capacity, 3, 3]):
+        raise AssertionError("the distill phase failed a check")
+    if not (launches["expand_ps1"] == launches["blend_forward"] == 2 * it
+            and launches["blend_backward"]
+            == launches["reduce_by_sorted_gid"] == it):
+        raise AssertionError(f"distill: kernels 4, 5 twice and 6, 7 once "
+                             f"an iteration: {launches}")
+    return launches
+
+
+def run_mm_models(chain, cfg, kernels, device):
+    """Phase mm_models: generate_mm_models from the chain phase's PS1
+    state with its live ladder as layer_counts (each level a v-importance
+    prune over the chain's 4 train views and MM_FINETUNE_ITERS finetune
+    iterations), counters set to 0 before and read after; every step
+    finite with overflow 0, each level's live count within 1% of its
+    target. Then a 9-gaze MM-FR frame of mm_render_models on the chain's
+    first camera (1 warm-up, 5 timed reps a gaze), overflow 0, launches
+    of 4q and 5q. Returns (generation launches, frame launches by row)."""
+    import torch
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    from fovsplat_torch.train import loops, multimodel
+    sync = synced(device)
+    ps1, views, targets = chain["ps1"], chain["train_views"], chain["counts"]
+    for kf in kernels.values():
+        kf.launches = 0
+    auxs, logs = [], []
+    t0 = time.perf_counter()
+    with recorded_steps(loops, auxs):
+        models = multimodel.generate_mm_models(
+            ps1, views, targets, cfg, finetune_iters=MM_FINETUNE_ITERS,
+            log=logs.append)
+    sync()
+    gen_s = time.perf_counter() - t0
+    gen_l = {k: kf.launches for k, kf in kernels.items()}
+    live = [int(m.live_count()) for m in models]
+    bad = [i for i, a in enumerate(auxs)
+           if not (int(a["overflow"]) == 0 and int(a["nonfinite"]) == 0
+                   and math.isfinite(float(a["loss"])))]
+    cam = views[0].camera
+    dicts = multimodel.mm_render_models(models, cam)
+    render = fps.make_mmfr_render(
+        dicts, RasterizeConfig(pair_capacity=CHAIN_PAIR_CAPACITY,
+                               compact_capacity=CHAIN_COMPACT_CAPACITY),
+        alpha=ALPHA)
+    for kf in kernels.values():
+        kf.launches = 0
+    res = fps.fps_benchmark(render, [cam], warmups=1, reps=5,
+                            log=lambda *_: None)
+    frame_l = {k: kf.launches for k, kf in kernels.items()}
+    rows = gaze_rows(render, cam, lambda o: {
+        "pass_overflow": [int(d["overflow"]) for d in o["passes"]]})
+    for r, ms in zip(rows, res["per_gaze_ms"]):
+        r["ms"] = ms
+    row = {"phase": "mm_models", "width": cam.width, "height": cam.height,
+           "views": len(views), "finetune_iters": MM_FINETUNE_ITERS,
+           "live": live, "targets": targets, "seconds": gen_s,
+           "steps": len(auxs), "bad_steps": bad,
+           "frame": {"per_gaze": rows, "avg_ms": res["avg_ms"],
+                     "warmups": 1, "reps": 5},
+           "launches": gen_l, "frame_launches": frame_l}
+    emit(row)
+    close = all(abs(a - b) <= 0.01 * b for a, b in zip(live, targets))
+    if bad or live[0] != targets[0] or not close or len(live) != 4 or \
+            len(auxs) != 3 * MM_FINETUNE_ITERS:
+        raise AssertionError("the mm_models phase failed a check")
+    if not (gen_l["blend_stats"] > 0 and gen_l["blend_backward"] > 0
+            and frame_l["expand_ps1"] > 0 and frame_l["blend_forward_q"] > 0):
+        raise AssertionError(f"mm_models: kernels 4-8 on the generation, 4q "
+                             f"and 5q on the frame: {gen_l} {frame_l}")
+    return gen_l, {"expand_ps1_q": frame_l["expand_ps1"],
+                   "blend_forward_q_mmfr": frame_l["blend_forward_q"]}
+
+
+def run_cli_vq(scene_root, model_dir):
+    """Phase cli_vq: `python -m fovsplat_torch.cli vq` on the pipeline
+    phase's output; it must exit 0, write vq_compressed.npz and print its
+    JSON (printed here on a line of its own)."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "fovsplat_torch.cli", "vq",
+                        "-s", scene_root, "-m", model_dir], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if p.returncode == 0 and lines else None
+    print(lines[-1] if lines else "", flush=True)
+    emit({"phase": "cli_vq", "rc": p.returncode, "seconds": secs,
+          "json": out, "stderr_tail": p.stderr.strip().splitlines()[-3:]})
+    if out is None or not os.path.exists(
+            os.path.join(model_dir, "vq_compressed.npz")):
+        raise AssertionError("the vq subcommand failed")
+
+
+def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
+    """Phase xla_route: the port's two routes against each other at full
+    width. The XLA route (config.backend "xla": plain PyTorch) must
+    launch no kernel: every counter is set to 0 before its calls and read
+    after. PS1 train-step render and gradients (loops.photometric_grads
+    on the train phase's state): kept pairs equal, images within 1e-4,
+    each field's gradient within 1e-4 of its largest magnitude, the XLA
+    route's gradients bit-identical twice; the "ours" frame at the centre
+    gaze through rasterize_fov (exact depth sort), within 1e-4; the three
+    score views through stats.blend_stats against kernel 8's, within
+    1e-5 relative; render_dense against the XLA route at DENSE_SHAPE
+    within tests/test_rasterize_parity.py's bars."""
+    import torch
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.models.gaussians import FIELDS
+    from fovsplat_torch.ops import dense
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    from fovsplat_torch.train import loops
+    sync = synced(device)
+    xcfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+        cfg.raster, backend="xla"))
+    keys = ("means", "scales", "rotations", "opacities4", "shs_dcs",
+            "shs_rest", "highest_levels")
+    fargs = [torch.as_tensor(sc[k], device=device) for k in keys]
+    fcam = proxy.proxy_camera(W_FULL, H_FULL, device=device)
+    gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=device)
+    fcfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
+                           compact_capacity=COMPACT_CAPACITY,
+                           sort_exact_depth=True)
+    fxcfg = dataclasses.replace(fcfg, backend="xla")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1000.0 * (time.perf_counter() - t0)
+    kern, kern_ms = timed(lambda: loops.photometric_grads(st, cam, gt, cfg))
+    kframe, kframe_ms = timed(lambda: fov.rasterize_fov(
+        *fargs, fcam, gaze, ALPHA, config=fcfg))
+    kscores = {m: loops.make_score_fn(cfg, m)(st, cam) for m in METRICS}
+    for kf in kernels.values():
+        kf.launches = 0
+    xa, xla_ms = timed(lambda: loops.photometric_grads(st, cam, gt, xcfg))
+    xb = loops.photometric_grads(st, cam, gt, xcfg)
+    xframe, xframe_ms = timed(lambda: fov.rasterize_fov(
+        *fargs, fcam, gaze, ALPHA, config=fxcfg))
+    xscores, score_ms = {}, {}
+    for m in METRICS:
+        xscores[m], score_ms[m] = timed(
+            lambda m=m: loops.make_score_fn(xcfg, m)(st, cam))
+    n_d, w_d, h_d = DENSE_SHAPE
+    small = proxy.bicycle_proxy(n=n_d, seed=2)
+    dcam = proxy.proxy_camera(w_d, h_d, device=device)
+    dargs = [torch.as_tensor(small[k], device=device)
+             for k in ("means", "scales", "rotations")]
+    dop = torch.as_tensor(small["opacities4"][:, 0], device=device)
+    dcol = torch.clamp(0.28209479177387814 * torch.as_tensor(
+        small["shs_dcs"][:, 0], device=device) + 0.5, min=0.0)
+    with torch.no_grad():
+        od, dense_ms = timed(lambda: dense.render_dense(
+            *dargs, dop, dcol, dcam, bg_color=[0.1, 0.2, 0.3]))
+        ox = rast.rasterize(*dargs, dop, dcam, colors=dcol,
+                            bg_color=[0.1, 0.2, 0.3],
+                            config=RasterizeConfig(pair_capacity=1 << 20,
+                                                   backend="xla"))
+    launches = {k: kf.launches for k, kf in kernels.items()}
+
+    def max_abs(a, b):
+        return float((a.detach() - b.detach()).abs().max())
+    kept = [int(kern[3]["binned"].num_pairs), int(xa[3]["binned"].num_pairs)]
+    grad_rel = {f: max_abs(xa[1][f], kern[1][f])
+                / max(float(kern[1][f].abs().max()), 1e-30) for f in FIELDS}
+    bit = bool(torch.equal(xa[0], xb[0])) and all(
+        torch.equal(xa[1][f], xb[1][f]) for f in FIELDS)
+    score_rel = {m: float(((xscores[m] - kscores[m]).abs()
+                           / kscores[m].abs().clamp(min=1e-30)).max())
+                 for m in METRICS}
+    frame_pairs = [int(kframe["num_pairs"]), int(xframe["num_pairs"])]
+    row = {"phase": "xla_route", "label": "plain PyTorch route",
+           "n": st.capacity, "width": cam.width, "height": cam.height,
+           "train_render": {"kept_pairs": kept,
+                            "overflow": int(xa[3]["binned"].overflow),
+                            "image_max_abs_err": max_abs(
+                                xa[3]["render"], kern[3]["render"]),
+                            "loss": [float(kern[0]), float(xa[0])],
+                            "grad_err_of_field_max": grad_rel,
+                            "xla_bit_identical_twice": bit,
+                            "ms": {"kernels": kern_ms,
+                                   "plain PyTorch route": xla_ms}},
+           "ours_frame": {"num_pairs": frame_pairs,
+                          "overflow": int(xframe["overflow"]),
+                          "max_abs_err": max_abs(xframe["render"],
+                                                 kframe["render"]),
+                          "ms": {"kernels": kframe_ms,
+                                 "plain PyTorch route": xframe_ms}},
+           "score_views": {"rel_err": score_rel,
+                           "ms_plain PyTorch route": score_ms},
+           "dense": {"shape": f"N={n_d}, {w_d}x{h_d}",
+                     "final_T_max_abs_err": max_abs(ox["final_T"],
+                                                    od["final_T"]),
+                     "image_max_abs_err": max_abs(ox["render"],
+                                                  od["render"]),
+                     "ms": dense_ms},
+           "launches": launches,
+           "tol": {"image": XLA_ATOL, "grad": XLA_GRAD_RTOL,
+                   "scores": STATS_RTOL, "dense_final_T": DENSE_T_ATOL,
+                   "dense_image": DENSE_ATOL}}
+    emit(row)
+    if any(launches.values()):
+        raise AssertionError(f"the XLA route launched kernels: {launches}")
+    if not (kept[0] == kept[1] and row["train_render"]["overflow"] == 0
+            and row["train_render"]["image_max_abs_err"] <= XLA_ATOL
+            and all(v <= XLA_GRAD_RTOL for v in grad_rel.values()) and bit
+            and frame_pairs[0] == frame_pairs[1]
+            and row["ours_frame"]["overflow"] == 0
+            and row["ours_frame"]["max_abs_err"] <= XLA_ATOL
+            and all(v <= STATS_RTOL for v in score_rel.values())
+            and row["dense"]["final_T_max_abs_err"] <= DENSE_T_ATOL
+            and row["dense"]["image_max_abs_err"] <= DENSE_ATOL):
+        raise AssertionError("the XLA route failed a check")
+
+
 def main():
     import os
     import torch
@@ -3178,8 +3652,8 @@ def main():
     launches["reduce_by_sorted_gid_argmax"] = sl["reduce_by_sorted_gid"]
     score_vs_cpu(train_config(1 << 20, None))
     chain_cfg = train_config(CHAIN_PAIR_CAPACITY, CHAIN_COMPACT_CAPACITY)
-    cl, chain_model = run_chain(N_FULL, W_FULL, H_FULL, chain_cfg,
-                                chain_cfg.raster, all_kernels, dev)
+    cl, chain_model, chain = run_chain(N_FULL, W_FULL, H_FULL, chain_cfg,
+                                       chain_cfg.raster, all_kernels, dev)
     launches["blend_stats"] = cl["blend_stats"]
     hvs_vs_cpu(train_config(1 << 20, None))
     score = loops.make_score_fn(tcfg)
@@ -3211,6 +3685,16 @@ def main():
     run_cli_eval(scene_root, os.path.join(scene_root, "pipeline_out"))
     eval_l = {"quality": quality_l, "layers": layers_l,
               "fov_unpacked": unpacked_l}
+
+    # --- the LightGaussian models, the vq subcommand, the XLA route ---
+    vq_l = run_vq(st, scene, chain_cfg, all_kernels, dev)
+    distill_l = run_distill(st, scene, chain_cfg, all_kernels, dev)
+    mm_l, mm_frame_l = run_mm_models(chain, chain_cfg, all_kernels, dev)
+    del chain
+    run_cli_vq(scene_root, os.path.join(scene_root, "pipeline_out"))
+    run_xla_route(st, tcam, gt, tcfg, sc_full, all_kernels, dev)
+    lg_l = {"vq": vq_l, "distill": distill_l, "mm_models": mm_l,
+            "mm_frame": mm_frame_l}
 
     # --- kernels line ---
     src = {"build_table": ("fovsplat_torch/csrc/build_table.cu",
@@ -3265,6 +3749,9 @@ def main():
         # rows of other routes through a shared wrapper get 0).
         rows[-1]["launches_eval"] = {ph: l.get(k, 0)
                                      for ph, l in eval_l.items()}
+        # And in the LightGaussian phases (mm_frame keyed by row).
+        rows[-1]["launches_lightgaussian"] = {ph: l.get(k, 0)
+                                              for ph, l in lg_l.items()}
     emit({"kernels": rows,
           "blend_fov_150k": results["blend_fov_150k"],
           "library": [{"name": "torch.sort (i32 fused key, stable), frame",

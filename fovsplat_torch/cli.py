@@ -11,9 +11,11 @@ with the same flags):
   python -m fovsplat_torch.cli video       -m <out> -s <scene>  ellipse-path
                                                                 frames
   python -m fovsplat_torch.cli fps         -m <out> -s <scene>  foveated FPS
+  python -m fovsplat_torch.cli vq          -m <out> -s <scene>  VQ-compress
+                                                                ps1.npz
 
 All run on the GPU and raise where CUDA is not available. The JAX
-command line's `vq` and `dryrun` are not ported yet.
+command line's `dryrun` is not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +55,11 @@ def main(argv=None):
     p.add_argument("--mode", default="ours",
                    choices=["ours", "naive", "mmfr"])
     p.add_argument("--alpha", type=float, default=0.05)
+
+    p = sub.add_parser("vq", help="VQ-compress a checkpoint")
+    _add_common(p)
+    p.add_argument("--vq-ratio", type=float, default=0.6)
+    p.add_argument("--codebook-size", type=int, default=8192)
 
     p = sub.add_parser("video", help="render an ellipse-path video")
     _add_common(p)
@@ -116,6 +123,27 @@ def _run(args):
         else:
             res = quality.quality_eval(render, views, args.model, "scene")
             print(json.dumps(res, indent=2))
+        return 0
+
+    if args.cmd == "vq":
+        import numpy as np
+        from fovsplat_torch.models import state as S
+        from fovsplat_torch.models import vq as vq_mod
+        from fovsplat_torch.train import loops, scratch
+        _, imp = scratch.global_significance_scores(
+            state, scene.train_views[:10], loops.LoopConfig(raster=rcfg))
+        params, idx = S.compact(state)
+        comp = vq_mod.compress(params, imp[idx].cpu().numpy(),
+                               vq_ratio=args.vq_ratio,
+                               codebook_size=args.codebook_size)
+        out = os.path.join(args.model, "vq_compressed.npz")
+        np.savez_compressed(out, **comp)
+        raw = sum(getattr(params, f).numel() * 4 for f in
+                  ("xyz", "features_dc", "features_rest", "scaling",
+                   "rotation", "opacity"))
+        size = vq_mod.compressed_size_bytes(comp)
+        print(json.dumps({"out": out, "compressed_bytes": size,
+                          "raw_bytes": raw, "ratio": raw / size}))
         return 0
 
     if args.cmd == "video":

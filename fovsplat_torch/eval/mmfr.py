@@ -7,8 +7,9 @@ single-level models, one pass per level that renders only the tiles whose
 level is that pass's, images summed. Each pass bins its whole model once
 (kernel 4's quantized rows and the fused-key sort) and blends with kernel
 5q over segments in which every tile it does not own is emptied, as the
-reference's per-pass tile_skips do. The per-pair tile-mask route through
-the XLA rasterizer is not ported.
+reference's per-pass tile_skips do. With config.backend "xla" a pass is
+instead the XLA rasterizer with a per-pair tile mask (mmfr.py:43-50):
+plain PyTorch, no kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from fovsplat_torch.ops import binning, foveation, projection
+from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops.blend import PIX, tiles_to_image
 from fovsplat_torch.ops.foveation import FoveationConfig
 from fovsplat_torch.ops.kernels.blend_fwd import blend_forward_q
@@ -75,11 +77,30 @@ def _render_level_fused(m, camera, level_i, li: int, config):
             "num_pairs": bn.num_pairs, "candidates": bn.candidates}
 
 
+def _render_level_masked(m, camera, level_i, li: int, config):
+    """One MM-FR level pass on the XLA route (mmfr.py:43-50): the whole
+    model through rasterize with a per-pair mask of the owned tiles."""
+    num_tiles = level_i.shape[0]
+
+    def tile_mask(orig, tile):
+        return level_i[torch.clamp(tile, max=num_tiles - 1)] == li
+
+    out = rast.rasterize(m["xyz"], m["scaling"], m["rotation"], m["opacity"],
+                         camera, colors=m["colors"], config=config,
+                         tile_mask_fn=tile_mask)
+    bn = out["binned"]
+    return {"render": out["render"], "final_T": out["final_T"],
+            "overflow": bn.overflow, "num_pairs": bn.num_pairs,
+            "candidates": bn.candidates}
+
+
 def _level_contrib(m, camera, level_i, li: int, config, bg_color):
     """A pass's image on its own tiles (renderCUDA_mmfr writes 0 on the
     others), the background composited there only; and its diagnostics."""
     gx, gy = _grid(camera)
-    out = _render_level_fused(m, camera, level_i, li, config)
+    render = (_render_level_masked if config.backend == "xla"
+              else _render_level_fused)
+    out = render(m, camera, level_i, li, config)
     own = (level_i == li).float()
     own_img = tiles_to_image(own[:, None, None].expand(-1, PIX, 1), gx, gy,
                              camera.width, camera.height)[..., 0]

@@ -1,6 +1,9 @@
-"""Tile binning of the single-level routes (counterpart of
-fovsplat/ops/binning.py: obb_pass, bin_fused_ps1 / _ps1_expand_sort and
-compact_prebuilt).
+"""Tile binning (counterpart of fovsplat/ops/binning.py: obb_pass,
+bin_gaussians, bin_fused_ps1 / _ps1_expand_sort and compact_prebuilt).
+
+bin_gaussians is the XLA route's binning in plain PyTorch, no kernel:
+depth sort, pair expansion by rank, OBB cull and an optional per-pair
+cull hook, one stable tile sort.
 
 bin_fused_ps1 is the torch glue around kernel 4 (ops/kernels/expand_ps1):
 valid-masked per-Gaussian columns and their exclusive cumsum (or a
@@ -39,6 +42,11 @@ class Binned:
                               # pair (train route; None on the inference
                               # route); lanes at or past num_pairs are
                               # unspecified
+    pair_tile: torch.Tensor | None = None  # (CAP,) i32 ascending tile of
+                              # each sorted pair, num_tiles past num_pairs
+                              # (bin_gaussians only)
+    depth_order: torch.Tensor | None = None  # (N,) Gaussians by depth,
+                              # invalid last (bin_gaussians only)
 
 
 def obb_pass(tile_x, tile_y, center, eigen_vec, eigen_len):
@@ -67,6 +75,73 @@ def obb_pass(tile_x, tile_y, center, eigen_vec, eigen_len):
     pass_1 = torch.abs(base1) <= eigen_len[..., 0] + e1
     pass_2 = torch.abs(base2) <= eigen_len[..., 1] + e2
     return pass_x & pass_y & pass_1 & pass_2
+
+
+def bin_gaussians(prep, grid_x: int, grid_y: int, pair_capacity: int,
+                  tile_mask_fn=None, use_obb: bool = True) -> Binned:
+    """The XLA route's binning (binning.py:82-219) of a
+    projection.Preprocessed, in plain PyTorch:
+
+      1. a stable depth sort of the Gaussians, invalid ones last;
+      2. pair p in [0, pair_capacity) belongs to the Gaussian whose
+         inclusive tile-count cumsum first exceeds p, and to the tile of
+         its rank in that Gaussian's rect (row-major);
+      3. the OBB test on Gaussians whose pre-clip rect spans more than
+         one tile (eigen_len[:, 0] > 0; ROADMAP section 3), and
+         tile_mask_fn(gaussian (P,) i64, tile (P,) i64) -> bool, an extra
+         per-pair cull (tile = ty * grid_x + tx);
+      4. a stable sort of the kept pairs by tile, which keeps each tile's
+         pairs in depth order.
+
+    Returns Binned with pair_gauss (CAP,) i32, pair_tile (CAP,) i32
+    (num_tiles past num_pairs), seg_start, num_pairs, overflow (candidates
+    past the capacity), candidates and depth_order. JAX's carry_geometry,
+    gauss_attrs, attr_table and pair_fn feed its unfused Pallas routes;
+    the port's kernels do their work, so they are not here."""
+    n = prep.depth.shape[0]
+    dev = prep.depth.device
+    num_tiles = grid_x * grid_y
+    cap = pair_capacity
+
+    inf = torch.full_like(prep.depth, float("inf"))
+    depth_order = torch.argsort(torch.where(prep.valid, prep.depth, inf),
+                                stable=True)
+    tnum = prep.tiles_touched.long()[depth_order]
+    cum_incl = torch.cumsum(tnum, 0)
+    total = cum_incl[-1]
+    overflow = torch.clamp(total - cap, min=0)
+
+    p = torch.arange(cap, device=dev)
+    g = torch.clamp(torch.searchsorted(cum_incl, p, right=True), max=n - 1)
+    orig = depth_order[g]
+    local = p - (cum_incl - tnum)[g]
+    rmin = prep.rect_min.long()[orig]
+    rw = torch.clamp(prep.rect_max[:, 0] - prep.rect_min[:, 0],
+                     min=1).long()[orig]
+    tx = rmin[:, 0] + local % rw
+    ty = rmin[:, 1] + local // rw
+    tile = ty * grid_x + tx
+
+    keep = p < total
+    if use_obb:
+        multi = prep.eigen_len[orig, 0] > 0.0
+        ob = obb_pass(tx, ty, prep.mean2d[orig], prep.eigen_vec[orig],
+                      prep.eigen_len[orig])
+        keep = keep & (ob | ~multi)
+    if tile_mask_fn is not None:
+        keep = keep & tile_mask_fn(orig, tile)
+
+    key = torch.where(keep, tile, torch.full_like(tile, num_tiles))
+    sorted_key, perm = torch.sort(key, stable=True)
+    seg_start = torch.searchsorted(
+        sorted_key, torch.arange(num_tiles + 1, device=dev),
+        side="left").to(torch.int32)
+    return Binned(seg_start=seg_start, num_pairs=seg_start[-1].clone(),
+                  overflow=overflow.to(torch.int32),
+                  candidates=total.to(torch.int32),
+                  pair_gauss=orig[perm].to(torch.int32),
+                  pair_tile=sorted_key.to(torch.int32),
+                  depth_order=depth_order)
 
 
 def bin_fused_ps1(cols, valid, depth, grid_x: int, grid_y: int,

@@ -1,5 +1,6 @@
-"""Blend constants, the tile-major to image reshape and the plain
-single-chain blend (fovsplat/ops/blend.py).
+"""Blend constants, the tile-major to image reshape, the plain
+single-chain blend and the XLA route's differentiable blend
+(fovsplat/ops/blend.py).
 
 blend_forward_plain and blend_backward_plain are the plain PyTorch twins
 of kernels 5 and 6 (csrc/blend_fwd.cu), blend_forward_q_plain that of the
@@ -7,7 +8,9 @@ forward-only blend of the quantized inference rows (kernel 5q, the same
 source), blend_stats_plain that of kernel 8 (csrc/blend_stats.cu): the
 tile-sorted pair list is cut into groups of consecutive tiles whose
 segments, padded to the group's longest, are evaluated as (tiles, pairs,
-pixels) tensors."""
+pixels) tensors. blend is the JAX route's custom-VJP blend
+(blend.py:241-272) as an autograd.Function over the plain forward and
+backward: plain PyTorch on any device, no kernel."""
 
 from __future__ import annotations
 
@@ -256,6 +259,50 @@ def blend_backward_plain(pairs, seg_start, grid_x: int, g_color, g_T,
     return grads
 
 
+class _Blend(torch.autograd.Function):
+    """blend_forward_plain forward; blend_backward_plain backward, which
+    walks each tile back to front from the saved final T and n_contrib
+    (blend.py:144-238): deterministic per-pair gradients."""
+
+    @staticmethod
+    def forward(ctx, pair_mean2d, pair_conic, pair_opacity, pair_color,
+                seg_start, grid_x, chunk, power_cutoff):
+        pairs = torch.cat([pair_mean2d.T, pair_conic.T, pair_opacity[None],
+                           pair_color.T]).contiguous()
+        color, final_T, n_contrib = blend_forward_plain(
+            pairs, seg_start, grid_x, power_cutoff, chunk)
+        ctx.save_for_backward(pairs, seg_start, final_T, n_contrib)
+        ctx.args = (grid_x, power_cutoff, chunk)
+        ctx.mark_non_differentiable(n_contrib)
+        return color, final_T, n_contrib
+
+    @staticmethod
+    def backward(ctx, g_color, g_T, _):
+        pairs, seg_start, final_T, n_contrib = ctx.saved_tensors
+        grid_x, power_cutoff, chunk = ctx.args
+        rows = blend_backward_plain(pairs, seg_start, grid_x,
+                                    g_color.contiguous(), g_T.contiguous(),
+                                    final_T, n_contrib, power_cutoff, chunk)
+        return (rows[0:2].T, rows[2:5].T, rows[5], rows[6:9].T,
+                None, None, None, None)
+
+
+def blend(pair_tile, pair_mean2d, pair_conic, pair_opacity, pair_color,
+          seg_start, num_pairs, grid_x: int, grid_y: int, chunk: int,
+          power_cutoff: float):
+    """Differentiable tile blend of the XLA route (blend.py:241-272):
+    per-pair mean2d (CAP, 2), conic (CAP, 3), opacity (CAP,) and colour
+    (CAP, 3) of a tile-sorted pair list with segments seg_start (T+1,).
+    Returns (tile colour (T, PIX, 3), final T (T, PIX), n_contrib (T, PIX)
+    i32), differentiable in the four per-pair inputs. Tile t blends pairs
+    [seg_start[t], seg_start[t + 1]), so pair_tile and num_pairs (JAX's
+    loop bounds) only describe that list; chunk bounds the plain walk's
+    padded pairs a step, as RasterizeConfig.chunk does."""
+    del pair_tile, num_pairs, grid_y
+    return _Blend.apply(pair_mean2d, pair_conic, pair_opacity, pair_color,
+                        seg_start, grid_x, chunk, power_cutoff)
+
+
 BIG = 1 << 30          # first_trig of a pixel that never freezes
 STAT_ROWS = 4          # w_sum, touched, w_max, geo_win
 
@@ -273,7 +320,8 @@ def tile_inside_mask(grid_x: int, grid_y: int, width: int, height: int,
 
 def blend_stats_plain(pairs, seg_start, grid_x: int, width: int,
                       height: int, power_cutoff: float = -4.5,
-                      chunk: int = 1 << 16, return_walked: bool = False):
+                      chunk: int = 1 << 16, return_walked: bool = False,
+                      tie_gid=None):
     """Plain blend forward with per-pair and per-pixel statistics
     (fovsplat/ops/pallas/blend_stats.py:88-141), the function of kernel 8.
 
@@ -292,7 +340,9 @@ def blend_stats_plain(pairs, seg_start, grid_x: int, width: int,
       first_trig: the rank in the tile's segment of the pair that froze
         the pixel, BIG if none did.
     With return_walked, also the (T, PIX) count of pairs each pixel walks
-    before it freezes."""
+    before it freezes. With tie_gid (CAP,) integer, best_lane is the lane
+    of the lowest tie_gid among the largest weights: the XLA oracle's
+    lowest-Gaussian-id rule (stats.py:160-170)."""
     dev = pairs.device
     T = seg_start.shape[0] - 1
     cap = pairs.shape[1]
@@ -325,7 +375,12 @@ def blend_stats_plain(pairs, seg_start, grid_x: int, width: int,
                             (geo & ins & ~done_before).sum(-1).float()])
         stats[:, idx[in_seg]] = rows[:, in_seg]
         wmax = w.amax(1)                                        # (G, PIX)
-        first = ((w == wmax[:, None]) & (w > 0)).int().argmax(1)
+        best = (w == wmax[:, None]) & (w > 0)
+        if tie_gid is None:
+            first = best.int().argmax(1)
+        else:
+            first = torch.where(best, tie_gid[idx].long()[..., None],
+                                torch.iinfo(torch.int64).max).argmin(1)
         has = wmax > 0
         best_lane[t0:t1] = torch.where(
             has, torch.gather(idx, 1, first).to(torch.int32), cap)

@@ -1,5 +1,7 @@
-"""Per-Gaussian projection on (N,) columns (fovsplat/ops/projection.py:
-preprocess_cols and its helpers, and quat_to_rotmat).
+"""Per-Gaussian projection (fovsplat/ops/projection.py): preprocess_cols
+on (N,) columns and its helpers, quat_to_rotmat, and the stacked form of
+the XLA route, preprocess / Preprocessed with compute_cov3d,
+compute_cov2d (a precomputed 3D covariance) and ndc2pix.
 
 Torch column math with the JAX package's operation order, so that a
 kernel that mirrors it (csrc/build_table.cu, built without FMA
@@ -63,6 +65,28 @@ def _cov3d_cols(scales, rotations, scale_modifier):
     syz = r10 * r20 * s0 + r11 * r21 * s1 + r12 * r22 * s2
     szz = r20 * r20 * s0 + r21 * r21 * s1 + r22 * r22 * s2
     return sxx, sxy, sxz, syy, syz, szz
+
+
+def compute_cov3d(scales, rotations, scale_modifier: float = 1.0):
+    """(N, 3) activated scales and (N, 4) unit quaternions -> (N, 3, 3)
+    world covariance R diag(s)^2 R^T."""
+    R = quat_to_rotmat(rotations)
+    M = R * (scales * scale_modifier)[..., None, :]        # R @ diag(s)
+    return M @ M.transpose(-1, -2)
+
+
+def compute_cov2d(means3d, cov3d, world_view, focal_x, focal_y, tan_fovx,
+                  tan_fovy):
+    """EWA projection of a precomputed (N, 3, 3) covariance: (cxx, cxy,
+    cyy) with the +0.3 low-pass."""
+    s = cov3d
+    return _cov2d_from_cols(means3d, (s[:, 0, 0], s[:, 0, 1], s[:, 0, 2],
+                                      s[:, 1, 1], s[:, 1, 2], s[:, 2, 2]),
+                            world_view, focal_x, focal_y, tan_fovx, tan_fovy)
+
+
+def ndc2pix(v, size):
+    return ((v + 1.0) * size - 1.0) * 0.5
 
 
 def _cov2d_from_cols(means3d, sig, world_view, focal_x, focal_y,
@@ -137,11 +161,50 @@ class PreprocessedCols:
     radius: torch.Tensor  # f32 pixel radius (before the valid mask)
 
 
+@dataclasses.dataclass(frozen=True)
+class Preprocessed:
+    """preprocess_cols stacked per Gaussian (the XLA route's layout)."""
+    mean2d: torch.Tensor          # (N, 2) pixel-space centre
+    depth: torch.Tensor           # (N,) view-space z
+    conic: torch.Tensor           # (N, 3) inverse 2D covariance (a, b, c)
+    radius: torch.Tensor          # (N,) i32 pixel radius, 0 when invalid
+    valid: torch.Tensor           # (N,) bool
+    eigen_len: torch.Tensor       # (N, 2) 3-sigma lengths (0: one tile)
+    eigen_vec: torch.Tensor       # (N, 2, 2) unit principal axes (rows)
+    rect_min: torch.Tensor        # (N, 2) i32 tile rect min, inclusive
+    rect_max: torch.Tensor        # (N, 2) i32 tile rect max, exclusive
+    tiles_touched: torch.Tensor   # (N,) i32 tiles in the rect
+
+
+def preprocess(means3d, scales, rotations, camera,
+               scale_modifier: float = 1.0, cov3d_precomp=None,
+               live_mask=None) -> Preprocessed:
+    """preprocess_cols, stacked (projection.py:175-202)."""
+    c = preprocess_cols(means3d, scales, rotations, camera,
+                        scale_modifier=scale_modifier,
+                        cov3d_precomp=cov3d_precomp, live_mask=live_mask)
+    return Preprocessed(
+        mean2d=torch.stack([c.mx, c.my], -1),
+        depth=c.depth,
+        conic=torch.stack([c.ca, c.cb, c.cc], -1),
+        radius=torch.where(c.valid, c.radius,
+                           torch.zeros_like(c.radius)).to(torch.int32),
+        valid=c.valid,
+        eigen_len=torch.stack([c.len1, c.len2], -1),
+        eigen_vec=torch.stack([torch.stack([c.v1x, c.v1y], -1),
+                               torch.stack([c.v2x, c.v2y], -1)], -2),
+        rect_min=torch.stack([c.rx0, c.ry0], -1),
+        rect_max=torch.stack([c.rx1, c.ry1], -1),
+        tiles_touched=c.tnum)
+
+
 def preprocess_cols(means3d, scales, rotations, camera,
-                    scale_modifier: float = 1.0,
+                    scale_modifier: float = 1.0, cov3d_precomp=None,
                     live_mask=None) -> PreprocessedCols:
     """live_mask: optional (N,) bool; rows marked False are culled (the
-    capacity-padded training state prunes through it).
+    capacity-padded training state prunes through it). cov3d_precomp:
+    optional (N, 3, 3) world covariances, used in place of scales and
+    rotations.
 
     Autograd through the differentiable outputs (mx, my, ca, cb, cc) stays
     finite on culled rows: every division and square root that a culled
@@ -165,10 +228,15 @@ def preprocess_cols(means3d, scales, rotations, camera,
     p_x = hx * p_w
     p_y = hy * p_w
 
-    sig = _cov3d_cols(scales, rotations, scale_modifier)
-    cxx, cxy, cyy = _cov2d_from_cols(means3d, sig, WV, camera.focal_x,
-                                     camera.focal_y, camera.tan_fovx,
-                                     camera.tan_fovy)
+    if cov3d_precomp is None:
+        sig = _cov3d_cols(scales, rotations, scale_modifier)
+        cxx, cxy, cyy = _cov2d_from_cols(means3d, sig, WV, camera.focal_x,
+                                         camera.focal_y, camera.tan_fovx,
+                                         camera.tan_fovy)
+    else:
+        cxx, cxy, cyy = compute_cov2d(means3d, cov3d_precomp, WV,
+                                      camera.focal_x, camera.focal_y,
+                                      camera.tan_fovx, camera.tan_fovy)
     det = cxx * cyy - cxy * cxy
     det_ok = det != 0.0
     safe_det = torch.where(det_ok, det, torch.ones_like(det))
@@ -180,8 +248,8 @@ def preprocess_cols(means3d, scales, rotations, camera,
     lambda2 = mid - disc
     radius_f = torch.ceil(3.0 * torch.sqrt(torch.maximum(lambda1, lambda2)))
 
-    px = ((p_x + 1.0) * W - 1.0) * 0.5          # ndc2pix
-    py = ((p_y + 1.0) * H - 1.0) * 0.5
+    px = ndc2pix(p_x, W)
+    py = ndc2pix(p_y, H)
 
     rx0 = _trunc_clip((px - radius_f) / TILE, grid_x)
     ry0 = _trunc_clip((py - radius_f) / TILE, grid_y)

@@ -13,14 +13,22 @@ as in the reference. With config.fwd_only it takes the inference route
 instead: kernel 4's quantized rows, the fused-key sort and the
 forward-only blend (kernel 5q), not differentiable. rasterize_ps1_soa
 renders a packed model through kernel 1's ps1 mode, optionally kernel 9,
-then the same inference route. The XLA route is not ported.
+then the same inference route.
+
+With config.backend = "xla", rasterize takes the JAX package's XLA route
+(rasterize.py:201-206, 255-262, 319-324) in plain PyTorch and launches no
+kernel: projection.preprocess, binning.bin_gaussians (with tile_mask_fn,
+a per-pair cull), the per-pair gather (GatherPairs) and blend.blend. It
+is the oracle the kernel route is held against; on the card it runs
+there too.
 
 The JAX config's Pallas-only fields are left out: the `pallas_*` and
 `expand_*` tuning knobs, `dummy_slack` and `expand_drop_invalid` size
 TPU grids, windows and the dummy-pair scheme, none of which the CUDA
-kernels have. `pallas_fwd_only` is `fwd_only` here. `backend` is gone
-too: a tensor on the card runs the kernels, a tensor on the CPU their
-plain versions.
+kernels have. `pallas_fwd_only` is `fwd_only` here. `backend` selects
+the kernel route ("kernels", the default, JAX's fused "pallas" route) or
+the XLA route; on the kernel route a tensor on the card runs the kernels,
+a tensor on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -29,11 +37,13 @@ import dataclasses
 
 import torch
 
+from fovsplat_torch.ops import blend as blend_ops
 from fovsplat_torch.ops import projection, sh
 from fovsplat_torch.ops.blend import tiles_to_image
 from fovsplat_torch.ops.kernels.blend_fwd import blend, blend_forward_q
 from fovsplat_torch.ops.kernels.build_table import build_table_ps1
-from fovsplat_torch.ops.kernels.segment_reduce import reduce_by_sorted_gid
+from fovsplat_torch.ops.kernels.segment_reduce import (
+    reduce_by_sorted_gid, reduce_by_sorted_gid_plain)
 from fovsplat_torch.ops.projection import TILE
 
 
@@ -63,6 +73,9 @@ class RasterizeConfig:
     fwd_only: bool = False            # rasterize: the forward-only
                                       # inference route (quantized rows,
                                       # kernel 5q), not differentiable
+    backend: str = "kernels"          # "kernels" (the fused kernel
+                                      # route) or "xla" (the plain
+                                      # PyTorch oracle route; no kernel)
 
     def kept_capacity(self) -> int:
         return (self.pair_capacity if self.compact_capacity is None
@@ -154,16 +167,61 @@ class PairBuilder(torch.autograd.Function):
         return (None,) * 7 + tuple(d_cols)
 
 
+class GatherPairs(torch.autograd.Function):
+    """Per-Gaussian rows x (N, R) gathered at the pairs' Gaussian ids gid
+    (CAP,) i64: the XLA route's prep.mean2d[gid], ... (rasterize.py:
+    319-324). Backward sums each Gaussian's pair cotangents in a fixed
+    order: lanes past num_pairs and all-zero lanes go to the sentinel
+    (gid_sorted_stream), a stable sort by gid, then a segmented sum
+    (reduce_by_sorted_gid_plain; no kernel, no float atomics)."""
+
+    @staticmethod
+    def forward(ctx, gid, num_pairs, x):
+        ctx.save_for_backward(gid, num_pairs)
+        ctx.n = x.shape[0]
+        return x[gid]
+
+    @staticmethod
+    def backward(ctx, d):
+        gid, num_pairs = ctx.saved_tensors
+        key, rows = gid_sorted_stream(d.T, gid, num_pairs, ctx.n)
+        return None, None, reduce_by_sorted_gid_plain(key, rows, ctx.n).T
+
+
+def _xla_pairs(means3d, scales, rotations, opacities, camera, colors, cfg,
+               tile_mask_fn, live_mask, mean2d_offset):
+    """preprocess, bin_gaussians and the per-pair gather of the XLA route.
+    Returns (prep, Binned, rows (CAP, 9): mean2d, conic, opacity,
+    colour)."""
+    from fovsplat_torch.ops import binning   # see PairBuilder
+    gx, gy = _grid(camera)
+    prep = projection.preprocess(means3d, scales, rotations, camera,
+                                 scale_modifier=cfg.scale_modifier,
+                                 live_mask=live_mask)
+    if mean2d_offset is not None:
+        prep = dataclasses.replace(prep, mean2d=prep.mean2d + mean2d_offset)
+    bn = binning.bin_gaussians(prep, gx, gy, cfg.pair_capacity,
+                               tile_mask_fn=tile_mask_fn,
+                               use_obb=cfg.use_obb)
+    gid = torch.clamp(bn.pair_gauss.long(), max=means3d.shape[0] - 1)
+    rows = GatherPairs.apply(gid, bn.num_pairs, torch.cat(
+        [prep.mean2d, prep.conic, opacities[:, None], colors], 1))
+    return prep, bn, rows
+
+
 def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
               shs=None, sh_degree: int = 3, bg_color=None,
-              config: RasterizeConfig = RasterizeConfig(), live_mask=None,
-              mean2d_offset=None):
-    """Render one view through the fused train route.
+              config: RasterizeConfig = RasterizeConfig(),
+              tile_mask_fn=None, live_mask=None, mean2d_offset=None):
+    """Render one view through the fused train route (config.backend
+    "kernels") or the XLA route ("xla").
 
     means3d (N, 3); scales (N, 3) activated; rotations (N, 4) unit
     quaternions; opacities (N,) activated; colors (N, 3) precomputed RGB,
     or None to evaluate shs (N, K, 3); bg_color (3,) or None (black);
-    live_mask (N,) bool or None; mean2d_offset (N, 2) or None, added to
+    tile_mask_fn(gaussian, tile) -> bool: a per-pair cull, XLA route
+    only (binning.bin_gaussians); live_mask (N,) bool or None;
+    mean2d_offset (N, 2) or None, added to
     the projected pixel centres: the reference's screenspace_points
     trick (gaussian_renderer/__init__.py:28-32, rasterize.py:192-196).
     Its gradient is the view-space positional gradient densification
@@ -172,19 +230,51 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
     Returns a dict: render (H, W, 3), final_T (H, W), n_contrib (H, W)
     i32, radii (N,) i32 and binned (ops/binning.Binned: overflow,
     num_pairs, candidates, seg_start, pair_gauss (None with fwd_only);
-    0-d tensors on the device, not synchronised). On CUDA tensors the
-    kernels run; on CPU tensors their plain versions."""
-    from fovsplat_torch.ops import binning   # see PairBuilder
+    0-d tensors on the device, not synchronised). On the kernel route,
+    CUDA tensors run the kernels and CPU tensors their plain versions;
+    the XLA route's Binned also has pair_tile and depth_order, and it
+    ignores fwd_only, as the JAX one does."""
     gx, gy = _grid(camera)
     cfg = config
+    if cfg.backend not in ("kernels", "xla"):
+        raise ValueError(f"backend {cfg.backend!r}: 'kernels' or 'xla'")
+    if tile_mask_fn is not None and cfg.backend != "xla":
+        raise ValueError("tile_mask_fn needs backend='xla'")
+    if colors is None:
+        colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
+    if cfg.backend == "xla":
+        prep, bn, rows = _xla_pairs(means3d, scales, rotations, opacities,
+                                    camera, colors, cfg, tile_mask_fn,
+                                    live_mask, mean2d_offset)
+        tile_color, final_T, n_contrib = blend_ops.blend(
+            bn.pair_tile, rows[:, 0:2], rows[:, 2:5], rows[:, 5],
+            rows[:, 6:9], bn.seg_start, bn.num_pairs, gx, gy, cfg.chunk,
+            cfg.power_cutoff)
+        radii = prep.radius
+    else:
+        tile_color, final_T, n_contrib, bn, radii = _kernel_route(
+            means3d, scales, rotations, opacities, camera, colors, cfg,
+            live_mask, mean2d_offset)
+    image, T_img = _images(tile_color, final_T, gx, gy, camera, bg_color)
+    nc_img = tiles_to_image(n_contrib[..., None], gx, gy, camera.width,
+                            camera.height)[..., 0]
+    return {"render": image, "final_T": T_img, "n_contrib": nc_img,
+            "radii": radii, "binned": bn}
+
+
+def _kernel_route(means3d, scales, rotations, opacities, camera, colors,
+                  cfg, live_mask, mean2d_offset):
+    """rasterize's fused train route, or its inference route with
+    cfg.fwd_only. Returns (tile colour, final T, n_contrib, Binned, radii
+    (N,) i32)."""
+    from fovsplat_torch.ops import binning   # see PairBuilder
+    gx, gy = _grid(camera)
     prep = projection.preprocess_cols(means3d, scales, rotations, camera,
                                       scale_modifier=cfg.scale_modifier,
                                       live_mask=live_mask)
     if mean2d_offset is not None:
         prep = dataclasses.replace(prep, mx=prep.mx + mean2d_offset[:, 0],
                                    my=prep.my + mean2d_offset[:, 1])
-    if colors is None:
-        colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
     if cfg.fwd_only:
         # The inference route (rasterize.py:234-254, 270-274).
         pairs, bn = binning.bin_fused_ps1(
@@ -206,14 +296,9 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
                             pair_gauss=pair_gauss)
         tile_color, final_T, n_contrib = blend(pairs, seg_start, gx,
                                                cfg.power_cutoff, cfg.chunk)
-    image, T_img = _images(tile_color, final_T, gx, gy, camera, bg_color)
-    nc_img = tiles_to_image(n_contrib[..., None], gx, gy, camera.width,
-                            camera.height)[..., 0]
-    return {"render": image, "final_T": T_img, "n_contrib": nc_img,
-            "radii": torch.where(prep.valid, prep.radius,
-                                 torch.zeros_like(prep.radius)).to(
-                                     torch.int32),
-            "binned": bn}
+    radii = torch.where(prep.valid, prep.radius,
+                        torch.zeros_like(prep.radius)).to(torch.int32)
+    return tile_color, final_T, n_contrib, bn, radii
 
 
 @dataclasses.dataclass(frozen=True)

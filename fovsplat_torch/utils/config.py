@@ -7,7 +7,8 @@ and every run persists its full config (`cfg_args`) which later invocations
 merge with CLI overrides (get_combined_args) — except persisted as JSON
 instead of eval()'able python repr. from_dict ignores keys the class
 does not have, so a config the JAX package wrote loads here with its
-Pallas-only fields dropped.
+Pallas-only fields dropped; it ignores `backend` too (IGNORED), whose
+JAX default "xla" would put the port on its slow oracle route.
 """
 
 from __future__ import annotations
@@ -72,11 +73,14 @@ def to_dict(cfg) -> dict:
     return conv(cfg)
 
 
+IGNORED = ("backend",)   # RasterizeConfig.backend keeps the port's default
+
+
 def from_dict(cls, d: dict):
     kw = {}
     inst = cls()
     for f in dataclasses.fields(cls):
-        if f.name not in d:
+        if f.name not in d or f.name in IGNORED:
             continue
         cur = getattr(inst, f.name)
         if dataclasses.is_dataclass(cur):

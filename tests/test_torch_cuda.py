@@ -1092,3 +1092,69 @@ def test_rasterize_fov_matches_cpu_and_counts_launches(cuda):
         outs.append((o["render"].cpu(), int(o["num_pairs"])))
     assert outs[0][1] == outs[1][1] > 1000
     assert float((outs[0][0] - outs[1][0]).abs().max()) <= 1e-4
+
+
+def test_vq_compress_matches_cpu_and_repeats(cuda):
+    """compress at 5,000 rows, codebook 256, with one set of draws: the
+    card's dict equals the CPU's key for key, and a second card run
+    equals the first (TF32 allowed globally: only vq's local flag keeps
+    it off)."""
+    from fovsplat_torch.models import vq
+    from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=5_000, seed=3))
+    imp = np.random.default_rng(4).random(5_000)
+    n_vq = 5_000 - int(5_000 * 0.4)
+    init, starts = vq.draws(n_vq, 256, 10, 80_000,
+                            torch.Generator().manual_seed(2))
+    comps = []
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for d in (cuda, cuda, torch.device("cpu")):
+            p = convert.params_from_numpy(**raw, device=d)
+            comps.append(vq.compress(p, imp, 0.6, 256, 10, init, starts))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for c in comps[1:]:
+        assert sorted(c) == sorted(comps[0])
+        for k in c:
+            np.testing.assert_array_equal(c[k], comps[0][k], err_msg=k)
+    dec = vq.decompress(comps[0], cuda)
+    assert all(getattr(dec, f).device.type == cuda.type for f in FIELDS)
+    assert isinstance(dec, GaussianParams)
+
+
+def test_xla_route_launches_no_kernel_and_matches_the_kernels(cuda):
+    """rasterize(backend="xla") on the card: no kernel launches, kept
+    pairs equal to the kernel route's, images within T_EPS, gradients
+    within 1e-4 of each input's largest and bit-identical twice."""
+    sc = proxy.bicycle_proxy(n=N, seed=4)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    cols = torch.clamp(sh.SH_C0 * torch.as_tensor(
+        sc["shs_dcs"][:, 0], device=cuda) + 0.5, min=0.0)
+    arrs = [torch.as_tensor(sc[k], device=cuda)
+            for k in ("means", "scales", "rotations")] + [
+        torch.as_tensor(sc["opacities4"][:, 0], device=cuda), cols]
+    wrappers = (ep1.expand_ps1, bfw.blend_forward, bfw.blend_backward,
+                sr.reduce_by_sorted_gid, bs.blend_stats, bt.build_table,
+                ef.expand_fov, bf.blend_fov)
+
+    def run(backend):
+        ins = [a.clone().requires_grad_(True) for a in arrs]
+        out = rast.rasterize(*ins[:4], cam, colors=ins[4],
+                             config=RasterizeConfig(pair_capacity=1 << 20,
+                                                    backend=backend))
+        (out["render"].square().sum() + out["final_T"].sum()).backward()
+        return out, [x.grad for x in ins]
+    kern, kg = run("kernels")
+    for w in wrappers:
+        w.launches = 0
+    xa, xg = run("xla")
+    xb, xg2 = run("xla")
+    assert all(w.launches == 0 for w in wrappers)
+    assert int(xa["binned"].num_pairs) == int(kern["binned"].num_pairs)
+    err = (xa["render"] - kern["render"]).detach().abs().max()
+    assert float(err) <= 1e-4
+    for a, b, c in zip(xg, kg, xg2):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        assert torch.equal(a, c)

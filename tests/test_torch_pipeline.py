@@ -184,7 +184,7 @@ def test_cli_parses_like_jax(monkeypatch, tmp_path):
     assert seen["kw"] == {"pretrained_ply": "pc.ply", "resolution": 2,
                           "small": True, "loop_cfg": None}
     with pytest.raises(SystemExit):
-        tcli.main(["vq", "-m", "out"])         # not ported
+        tcli.main(["dryrun", "--devices", "2"])   # not ported
     with pytest.raises(SystemExit):
         tcli.main(["fps", "-m", "out", "--mode", "mm"])
 
