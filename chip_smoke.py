@@ -5,8 +5,10 @@ prunes and masks on the GPU, that it loads a scene, trains a model from
 scratch and runs the whole pipeline there, that it scores models (PSNR,
 SSIM, LPIPS, HVS, per-layer HVS, rendered views and video), that it
 builds the LightGaussian models (VQ compression, SH distillation, MM-FR
-models, the vq subcommand), and that its plain XLA oracle route agrees
-with its kernel route.
+models, the vq subcommand), that its plain XLA oracle route agrees
+with its kernel route, and that its multi-device paths (the
+data-parallel step, the tile- and fov-sharded frames, the dry run), the
+viewer, the native COLMAP parser and the profiler trace work there.
 
     python3 chip_smoke.py
 
@@ -211,8 +213,41 @@ into build/kernels first. Phases, one JSON line each on stdout:
      (within 1e-4), the three score views (within 1e-5 relative), and
      render_dense against the XLA route at 2,000 Gaussians and 160x112;
      times labelled "plain PyTorch route";
- 37. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
-     MM-FR and kernel 7's argmax stream) its launches on its path, time
+ 37. kernel 3 over one owner's tile range (tile0 = ceil(T / 4), the
+     tiles of rank 1 of 4) at the full-width frame against its plain
+     version with the same tile0 (within T_EPS), bit-identical to those
+     tiles of a whole-grid launch and over two launches, timed;
+ 38. parallel_nccl: a world-size-1 NCCL group in this process, every
+     counter 0 before each sharded call and read after it: the DP step
+     over one ring view bit-identical to trainer.make_train_step, the
+     tile-sharded PS1 frame (kernel 5q) bit-identical to
+     rasterize(fwd_only, sort_exact_depth) and the fov-sharded frame
+     (kernels 1-3) bit-identical to rasterize_fov_soa(sort_exact_depth),
+     at full width;
+ 39. parallel_ranks: 4 gloo ranks spawned on the one card, each with its
+     contiguous quarter of the full-width proxy's rows in a seeded order
+     (SHARD_SEED), at the single-device global capacities: the
+     fov-sharded frame at gazes (0.5, 0.5) and (0.2, 0.2) and the
+     tile-sharded PS1 frame equal to the single-device frames of the
+     same rows bit for bit on every rank, num_pairs equal, overflow 0 at
+     the default per-destination blocks (the largest block printed), an
+     undersized block (65,536) reporting overflow; the DP step over 4
+     ring views (one a rank): gradients within 1e-6 of each field's
+     largest against the one-process mean, equal on every rank,
+     bit-identical over two runs; launches and wall ms of every call,
+     labelled "4 ranks sharing one H100 through gloo; not a scaling
+     figure"; then, alone on the card, dryrun: `python -m
+     fovsplat_torch.cli dryrun --devices 1` (NCCL), exit 0 and its line;
+ 40. viewer: a loopback client's request for a 656x528 view, served by
+     NetworkGUI.serve_step with the centre-gaze frame rendered on the
+     card: the decoded camera within 1e-6 of the request's, the answer
+     the frame's bytes; native_colmap: the scene_io scene's images.bin
+     and points3D.bin parsed natively (built with g++ into build/native)
+     and in Python, equal; trace: utils/profiling.trace around one frame
+     writes a non-empty Chrome trace under build/trace;
+ 41. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
+     MM-FR, kernel 7's argmax stream and kernel 3 over a tile range)
+     its launches on its path, time
      (CUDA events over 20 calls), own device time (device_ms, a profiler
      window over 20 more, split by CUDA kernel, and the CUDA kernels a
      call launches), plain time, bound and error, the
@@ -221,7 +256,9 @@ into build/kernels first. Phases, one JSON line each on stdout:
      library rows; the rows of kernels 4-8 also give their launches on
      the scratch and pipeline phases, and every row its launches in the
      quality, layers and fov_unpacked phases and in the vq, distill,
-     mm_models (generation) and mm_frame phases.
+     mm_models (generation) and mm_frame phases, and in the sharded
+     calls of phases 38 and 39 (the tile-range row: kernel 3's launches
+     there); the largest per-destination blocks of phase 39.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 so the script exits non-zero without that line, after printing
 {"phase": "error", "at": <the last phase printed>, "error": <message>};
@@ -233,6 +270,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3479,8 +3517,616 @@ def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
         raise AssertionError("the XLA route failed a check")
 
 
+# ---------------------------------------------------------------------------
+# The twelfth slice: multi-device paths, the viewer, the native COLMAP
+# parser and the profiler trace.
+
+RANKS = 4                         # gloo ranks sharing the card
+# The 4 ranks split the proxy's rows after a seeded permutation, which the
+# single-device twins render too: the proxy's contiguous quarters are far
+# from balanced (rank 0's holds about half of a frame's pairs, PERF.md),
+# and the sharded calls keep the single-device global capacities, each
+# rank a quarter of them.
+# Per-destination blocks: the default, max(2 cap_local // W, 256) rows;
+# SMALL_DEST_CAPACITY is the undersized one.
+SHARD_SEED = 7
+SMALL_DEST_CAPACITY = 65_536
+DP_GRAD_RTOL = 1e-6               # all-reduced vs one-process mean, of
+                                  # each field's largest
+SHARED_LABEL = "4 ranks sharing one H100 through gloo; not a scaling figure"
+PARALLEL_GAZES = [(0.5, 0.5), (0.2, 0.2)]
+BG = [0.1, 0.2, 0.3]
+
+
+def digest(t):
+    """sha1 of a tensor's bytes: ranks compare images without moving them."""
+    import hashlib
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy()
+                        .tobytes()).hexdigest()
+
+
+def parallel_kernels():
+    """The wrappers of the kernels the parallel paths launch, by the name
+    of their rows in the kernels line."""
+    from fovsplat_torch.ops.kernels import blend_fov as bf
+    from fovsplat_torch.ops.kernels import blend_fwd as bfw
+    from fovsplat_torch.ops.kernels import build_table as bt
+    from fovsplat_torch.ops.kernels import expand_fov as ef
+    from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    from fovsplat_torch.ops.kernels import segment_reduce as sr
+    return {"build_table": bt.build_table, "expand_fov": ef.expand_fov,
+            "blend_fov": bf.blend_fov, "expand_ps1": ep1.expand_ps1,
+            "blend_forward": bfw.blend_forward,
+            "blend_backward": bfw.blend_backward,
+            "reduce_by_sorted_gid": sr.reduce_by_sorted_gid,
+            "blend_forward_q": bfw.blend_forward_q}
+
+
+def counted(kernels, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after (kernel 3's launches from tile0 > 0 also as "blend_fov_tile0");
+    returns (fn's result, launches, wall ms synchronised)."""
+    import torch
+    for kf in kernels.values():
+        kf.launches = 0
+    kernels["blend_fov"].launches_tile0 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    launches["blend_fov_tile0"] = kernels["blend_fov"].launches_tile0
+    return out, launches, ms
+
+
+def ps1_columns(device):
+    """The full-width proxy's single-level columns (means, scales,
+    rotations, opacity, level-0 DC colour clipped as bench.py's tile-shard
+    leg and __graft_entry__ build them)."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.data import proxy
+    sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
+    cols = np.clip(0.5 + 0.282095 * sc["shs_dcs"][:, 0, :], 0.0, 1.0)
+    return [torch.as_tensor(np.asarray(a, np.float32), device=device)
+            for a in (sc["means"], sc["scales"], sc["rotations"],
+                      sc["opacity"], cols)]
+
+
+def row_permutation(n, device):
+    """The seeded order of the proxy's rows that the 4 ranks split."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.default_rng(SHARD_SEED).permutation(n),
+                           device=device)
+
+
+def permuted_fov_model(model, perm):
+    """The packed model with its Gaussians in the order `perm`."""
+    from fovsplat_torch.ops import foveated as fov
+    return fov.FovModelSoA(
+        xyz=model.xyz[perm], scales=model.scales[perm],
+        rotations=model.rotations[perm], rest_t=model.rest_t[..., perm],
+        dc_t=model.dc_t[..., perm], opac_t=model.opac_t[..., perm],
+        hl=model.hl[perm])
+
+
+def dp_views(device):
+    """The DP step's inputs: the train phase's state and 4 ring cameras at
+    full width with seeded uniform ground truths, and the train config at
+    the chain's capacities (ring views see the proxy from every side)."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    from fovsplat_torch.train import trainer
+    st, _, _ = train_inputs(N_FULL, W_FULL, H_FULL, 0, device)
+    cams = ring_cameras(RANKS, W_FULL, H_FULL, device)
+    rng = np.random.default_rng(12)
+    gts = torch.tensor(rng.uniform(0, 1, (RANKS, H_FULL, W_FULL, 3)),
+                       dtype=torch.float32, device=device)
+    cfg = trainer.TrainConfig(raster=RasterizeConfig(
+        pair_capacity=CHAIN_PAIR_CAPACITY,
+        compact_capacity=CHAIN_COMPACT_CAPACITY))
+    return st.params, cams, gts, cfg
+
+
+def parallel_rank(rank, dev):
+    """One of the 4 gloo ranks that share the card (phase parallel_ranks):
+    the fov-sharded frame at two gazes and with an undersized block, the
+    tile-sharded PS1 frame (both from the rank's quarter of the permuted
+    proxy, at the single-device global capacities), and the DP step over
+    one ring view a rank, twice; rank 0 also renders the single-device
+    frames of the permuted proxy and the one-process mean of the 4 views'
+    gradients. Images are compared by digest; every call's launches and
+    wall ms are returned."""
+    import torch
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    from fovsplat_torch.parallel import (data_parallel as dp, fov_shard,
+                                         multihost, tile_shard)
+    from fovsplat_torch.train import optim, trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = parallel_kernels()
+    group = dp.make_mesh()
+    out = {"rank": rank, "fov": {}, "launches": {}, "ms": {}}
+    model, cam, *_ = frame_inputs(N_FULL, W_FULL, H_FULL, (0.5, 0.5), dev)
+    perm = row_permutation(N_FULL, dev)
+    model = permuted_fov_model(model, perm)
+    shard = fov_shard.shard_fov_model(model, group)
+    cfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
+                          compact_capacity=COMPACT_CAPACITY,
+                          sort_exact_depth=True)
+    for gz in PARALLEL_GAZES:
+        g = torch.tensor(gz, dtype=torch.float32, device=dev)
+        (img, aux), launches, ms = counted(
+            kernels, lambda: fov_shard.render_fov_tile_sharded(
+                shard, cam, g, ALPHA, bg_color=BG, config=cfg,
+                group=group))
+        _, _, ms_warm = counted(
+            kernels, lambda: fov_shard.render_fov_tile_sharded(
+                shard, cam, g, ALPHA, bg_color=BG, config=cfg,
+                group=group))
+        row = {"digest": digest(img), "num_pairs": int(aux["num_pairs"]),
+               "overflow": int(aux["overflow"]),
+               "overflow_by_rank": aux["overflow_by_rank"].tolist(),
+               "max_dest_block": int(aux["max_dest_block"]),
+               "launches": launches, "ms_first": ms, "ms": ms_warm,
+               "finite": bool(torch.isfinite(img).all())}
+        if rank == 0:
+            ref = fov.rasterize_fov_soa(model, cam, g, ALPHA, bg_color=BG,
+                                        config=cfg)
+            row.update(single_digest=digest(ref["render"]),
+                       single_num_pairs=int(ref["num_pairs"]),
+                       max_abs_err=float((img - ref["render"]).abs().max()))
+        out["fov"][str(gz)] = row
+    _, aux = fov_shard.render_fov_tile_sharded(
+        shard, cam, torch.tensor(PARALLEL_GAZES[0], device=dev), ALPHA,
+        config=cfg, per_dest_capacity=SMALL_DEST_CAPACITY, group=group)
+    out["fov_small"] = {"overflow": int(aux["overflow"]),
+                        "overflow_by_rank": aux["overflow_by_rank"].tolist(),
+                        "per_dest_capacity": SMALL_DEST_CAPACITY}
+    del model, shard
+
+    full = [a[perm] for a in ps1_columns(dev)]
+    mine = [multihost.shard_rows(a, group) for a in full]
+    (img, aux), launches, ms = counted(
+        kernels, lambda: tile_shard.render_tile_sharded(
+            *mine, cam, pair_capacity=TRAIN_PAIR_CAPACITY, bg_color=BG,
+            group=group))
+    _, _, ms_warm = counted(
+        kernels, lambda: tile_shard.render_tile_sharded(
+            *mine, cam, pair_capacity=TRAIN_PAIR_CAPACITY, bg_color=BG,
+            group=group))
+    out["tile"] = {"digest": digest(img), "num_pairs": int(aux["num_pairs"]),
+                   "overflow": int(aux["overflow"]),
+                   "overflow_by_rank": aux["overflow_by_rank"].tolist(),
+                   "max_dest_block": int(aux["max_dest_block"]),
+                   "launches": launches, "ms_first": ms, "ms": ms_warm}
+    if rank == 0:
+        ref = rast.rasterize(*full[:4], cam, colors=full[4], bg_color=BG,
+                             config=RasterizeConfig(
+                                 pair_capacity=TRAIN_PAIR_CAPACITY,
+                                 fwd_only=True, sort_exact_depth=True))
+        out["tile"].update(single_digest=digest(ref["render"]),
+                           single_num_pairs=int(ref["binned"].num_pairs))
+    del full, mine
+
+    params, cams, gts, tcfg = dp_views(dev)
+    step = dp.make_dp_train_step(tcfg, group, device=dev)
+    view = dp.stack_cameras([cams[rank]])
+    runs = []
+    for _ in range(2):
+        (_, _, aux), launches, ms = counted(
+            kernels, lambda: step(params, optim.init_state(params), view,
+                                  gts[rank:rank + 1], 0))
+        runs.append((aux, launches, ms))
+    (a, launches, ms), (b, _, ms2) = runs
+    out["dp"] = {"loss": float(a["loss"]),
+                 "overflow": int(a["overflow"]),
+                 "bit_identical_twice": bool(
+                     a["loss"] == b["loss"] and all(
+                         torch.equal(a["grads"][f], b["grads"][f])
+                         for f in a["grads"])),
+                 "grads_digest": digest(torch.cat(
+                     [g.reshape(-1) for g in a["grads"].values()])),
+                 "launches": launches, "ms_first": ms, "ms": ms2}
+    if rank == 0:
+        loss_fn = trainer.photometric_loss_fn(tcfg)
+        views = [trainer.value_and_grad(params, c, gts[i], tcfg, loss_fn)
+                 for i, c in enumerate(cams)]
+        err = {}
+        for f, g in a["grads"].items():
+            single = torch.stack([v[1][f] for v in views]).mean(0)
+            err[f] = float((g - single).abs().max()
+                           / single.abs().max().clamp(min=1e-30))
+        out["dp"]["grad_rel_err"] = err
+        out["dp"]["single_loss"] = float(
+            torch.stack([v[0] for v in views]).mean())
+    return out
+
+
+def run_parallel_ranks(results):
+    """Phase parallel_ranks: parallel_rank on 4 gloo ranks sharing the
+    card. Every sharded frame must equal its single-device frame bit for
+    bit on every rank, with the single-device num_pairs and overflow 0;
+    the undersized block must report overflow; the DP gradients must be
+    within DP_GRAD_RTOL of the one-process mean, the same on every rank,
+    and bit-identical over two runs. Returns the summed launches of the
+    sharded calls (fov at both gazes, tile, DP), by phase."""
+    import torch
+    from fovsplat_torch.parallel import dryrun
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = dryrun.spawn_ranks(parallel_rank, RANKS, "cuda", "gloo")
+    seconds = time.perf_counter() - t0
+    r0 = outs[0]
+    fails = []
+    for gz, row in r0["fov"].items():
+        if not (row["digest"] == row["single_digest"]
+                and row["num_pairs"] == row["single_num_pairs"]
+                and row["overflow"] == 0 and row["finite"]):
+            fails.append(f"fov {gz}: {row}")
+        if any(o["fov"][gz]["digest"] != row["digest"] for o in outs):
+            fails.append(f"fov {gz}: ranks disagree")
+    if not r0["fov_small"]["overflow"] > 0:
+        fails.append(f"undersized block: {r0['fov_small']}")
+    t = r0["tile"]
+    if not (t["digest"] == t["single_digest"] and t["overflow"] == 0
+            and t["num_pairs"] == t["single_num_pairs"]
+            and all(o["tile"]["digest"] == t["digest"] for o in outs)):
+        fails.append(f"tile: {t}")
+    d = r0["dp"]
+    if not (max(d["grad_rel_err"].values()) <= DP_GRAD_RTOL
+            and all(o["dp"]["bit_identical_twice"] for o in outs)
+            and all(o["dp"]["overflow"] == 0 for o in outs)
+            and len({o["dp"]["grads_digest"] for o in outs}) == 1):
+        fails.append(f"dp: {d}")
+
+    def summed(rows):
+        return {k: sum(r[k] for r in rows) for k in rows[0]}
+    launches = {
+        "fov_shard": summed([o["fov"][gz]["launches"] for o in outs
+                             for gz in r0["fov"]]),
+        "tile_shard": summed([o["tile"]["launches"] for o in outs]),
+        "dp_step": summed([o["dp"]["launches"] for o in outs])}
+    ms = {"fov_shard": {gz: [o["fov"][gz]["ms"] for o in outs]
+                        for gz in r0["fov"]},
+          "tile_shard": [o["tile"]["ms"] for o in outs],
+          "dp_step": [o["dp"]["ms"] for o in outs],
+          "first_calls": {"fov_shard": {gz: [o["fov"][gz]["ms_first"]
+                                             for o in outs]
+                                        for gz in r0["fov"]},
+                          "tile_shard": [o["tile"]["ms_first"]
+                                         for o in outs],
+                          "dp_step": [o["dp"]["ms_first"] for o in outs]}}
+    emit({"phase": "parallel_ranks", "ranks": RANKS, "backend": "gloo",
+          "n": N_FULL, "width": W_FULL, "height": H_FULL,
+          "fov": {gz: {k: v for k, v in row.items()
+                       if k not in ("digest", "single_digest", "launches")}
+                  for gz, row in r0["fov"].items()},
+          "fov_undersized": r0["fov_small"],
+          "tile": {k: v for k, v in t.items()
+                   if k not in ("digest", "single_digest", "launches")},
+          "per_dest_capacity": {
+              "fov": max(2 * -(-PAIR_CAPACITY // RANKS) // RANKS, 256),
+              "tile": max(2 * (TRAIN_PAIR_CAPACITY // RANKS) // RANKS, 256)},
+          "shard_seed": SHARD_SEED,
+          "dp": {"loss": d["loss"], "single_loss": d["single_loss"],
+                 "grad_rel_err": d["grad_rel_err"], "tol": DP_GRAD_RTOL,
+                 "bit_identical_twice": [o["dp"]["bit_identical_twice"]
+                                         for o in outs]},
+          "launches": launches, "wall_ms_per_call": ms,
+          "wall_ms_label": SHARED_LABEL, "seconds": seconds})
+    if fails:
+        raise AssertionError("parallel_ranks: " + "; ".join(fails))
+    for name, ks in (("fov_shard", ("build_table", "expand_fov",
+                                    "blend_fov")),
+                     ("tile_shard", ("blend_forward_q",)),
+                     ("dp_step", ("expand_ps1", "blend_forward",
+                                  "blend_backward",
+                                  "reduce_by_sorted_gid"))):
+        for k in ks:
+            if launches[name][k] <= 0:
+                raise AssertionError(f"{k} never launched on {name}")
+    results["parallel_ranks_max_dest_block"] = {
+        "fov": max(r["max_dest_block"] for r in r0["fov"].values()),
+        "tile": t["max_dest_block"]}
+    return launches
+
+
+def run_parallel_nccl(dev):
+    """Phase parallel_nccl: a world-size-1 NCCL group in this process. The
+    DP step over one view against trainer.make_train_step, the
+    tile-sharded frame ("kernels") against rasterize(fwd_only,
+    sort_exact_depth) and the fov-sharded frame against rasterize_fov_soa
+    (sort_exact_depth), each bit-identical, with the launches of each
+    sharded call (counters set to 0 just before, read just after)."""
+    import torch
+    import torch.distributed as dist
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    from fovsplat_torch.parallel import (data_parallel as dp, dryrun,
+                                         fov_shard, multihost, tile_shard)
+    from fovsplat_torch.train import optim, trainer
+    kernels = parallel_kernels()
+    multihost.init_group(f"127.0.0.1:{dryrun.free_port()}", 1, 0, dev,
+                         "nccl")
+    try:
+        group = dp.make_mesh()
+        model, cam, *_ = frame_inputs(N_FULL, W_FULL, H_FULL, (0.5, 0.5),
+                                      dev)
+        cfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
+                              compact_capacity=COMPACT_CAPACITY,
+                              sort_exact_depth=True)
+        g = torch.tensor((0.5, 0.5), dtype=torch.float32, device=dev)
+        (img, aux), fl, fms = counted(
+            kernels, lambda: fov_shard.render_fov_tile_sharded(
+                fov_shard.shard_fov_model(model, group), cam, g, ALPHA,
+                bg_color=BG, config=cfg, group=group))
+        ref = fov.rasterize_fov_soa(model, cam, g, ALPHA, bg_color=BG,
+                                    config=cfg)
+        fov_same = bool(torch.equal(img, ref["render"])
+                        and int(aux["num_pairs"]) == int(ref["num_pairs"])
+                        and int(aux["overflow"]) == 0)
+        del model, img, ref
+        full = ps1_columns(dev)
+        (img, aux), tl, tms = counted(
+            kernels, lambda: tile_shard.render_tile_sharded(
+                *full, cam, pair_capacity=TRAIN_PAIR_CAPACITY,
+                bg_color=BG, group=group))
+        ref = rast.rasterize(*full[:4], cam, colors=full[4], bg_color=BG,
+                             config=RasterizeConfig(
+                                 pair_capacity=TRAIN_PAIR_CAPACITY,
+                                 fwd_only=True, sort_exact_depth=True))
+        tile_same = bool(torch.equal(img, ref["render"])
+                         and int(aux["num_pairs"]) ==
+                         int(ref["binned"].num_pairs)
+                         and int(aux["overflow"]) == 0)
+        del full, img, ref
+        params, cams, gts, tcfg = dp_views(dev)
+        (dp_p, _, dp_aux), dl, dms = counted(
+            kernels, lambda: dp.make_dp_train_step(tcfg, group, device=dev)(
+                params, optim.init_state(params),
+                dp.stack_cameras(cams[:1]), gts[:1], 0))
+        one_p, _, one_aux = trainer.make_train_step(tcfg, device=dev)(
+            params, optim.init_state(params), cams[0], gts[0], 0)
+        dp_same = bool(dp_aux["loss"] == one_aux["loss"] and all(
+            torch.equal(getattr(dp_p, f), getattr(one_p, f))
+            for f in params.fields()))
+    finally:
+        dist.destroy_process_group()
+    launches = {"fov_shard": fl, "tile_shard": tl, "dp_step": dl}
+    emit({"phase": "parallel_nccl", "world_size": 1, "backend": "nccl",
+          "n": N_FULL, "width": W_FULL, "height": H_FULL,
+          "fov_bit_identical": fov_same, "tile_bit_identical": tile_same,
+          "dp_bit_identical": dp_same, "launches": launches,
+          "ms_first_call": {"fov_shard": fms, "tile_shard": tms,
+                            "dp_step": dms}})
+    if not (fov_same and tile_same and dp_same):
+        raise AssertionError("parallel_nccl: a sharded result differs from "
+                             "the single-device one")
+    return launches
+
+
+def check_blend_range(full, results):
+    """Kernel 3 over one owner's tile range (rank 1 of 4: tile0 = ceil(T /
+    4)) at the full-width frame: against blend_fov_plain with the same
+    tile0 within T_EPS, and bit-identical to those tiles of the whole-grid
+    launch and over two launches; timed beside its plain version, its
+    bound counted from the range's walked pair-pixels."""
+    import torch
+    from fovsplat_torch.ops.kernels import blend_fov as bf
+    pairs, seg, l1, l2 = blend_inputs(*full)
+    gx = full[4]
+    T = l1.shape[0]
+    tpd = -(-T // RANKS)
+    t0, n = tpd, tpd
+    args = (pairs, seg[t0:t0 + n + 1].contiguous(),
+            l1[t0:t0 + n].contiguous(), l2[t0:t0 + n].contiguous(), gx)
+    k = bf.blend_fov(*args, tile0=t0)
+    again = bf.blend_fov(*args, tile0=t0)
+    whole = bf.blend_fov(pairs, seg, l1, l2, gx)
+    plain = bf.blend_fov_plain(*args, return_walked=True, tile0=t0)
+    err = max(float((a - b).abs().max()) for a, b in zip(k, plain[:4]))
+    same_whole = all(torch.equal(a, w[t0:t0 + n]) for a, w in zip(k, whole))
+    twice = same_outputs(k, again)
+    emit({"phase": "check", "kernel": "blend_fov", "shape":
+          f"tile0={t0}, {n} tiles of {T}", "max_abs_err": err,
+          "tol": BLEND_ATOL, "equals_whole_grid_rows": same_whole,
+          "bit_identical_twice": twice})
+    if not (err <= BLEND_ATOL and same_whole and twice):
+        raise AssertionError(f"blend_fov tile0={t0}: err {err}, whole-grid "
+                             f"rows {same_whole}, twice {twice}")
+    times = kernel_times(lambda: bf.blend_fov(*args, tile0=t0))
+    plain_ms = cuda_ms(lambda: bf.blend_fov_plain(*args, tile0=t0), 1)
+    kept = int(seg[t0 + n] - seg[t0])
+    nbytes = kept * 13 * 4 + (n + 1) * 4 + 2 * n * 256 + n * 8 * 256 * 4
+    b_ms, b_by = bound(nbytes, 25.0 * float(plain[4].double().sum()))
+    results["blend_fov_tile0"] = dict(
+        launches=None, max_abs_err=err, **times, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"N={N_FULL}, {W_FULL}x{H_FULL}, tiles [{t0}, {t0 + n}) "
+              f"of {T}")
+
+
+def run_dryrun():
+    """Phase dryrun: `python -m fovsplat_torch.cli dryrun --devices 1`
+    (NCCL, one card) in a process of its own, alone on the card; its JSON
+    line and seconds to exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "fovsplat_torch.cli",
+                             "dryrun", "--devices", "1"], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"cli dryrun rc={proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    emit({"phase": "dryrun", "devices": 1, "backend": "nccl",
+          "result": json.loads(lines[-1]), "seconds": seconds})
+
+
+def viewer_request(cam):
+    """The viewer's JSON request for a port camera: its matrices in the
+    SIBR viewer's transposed, Y/Z-flipped convention
+    (eval/network_gui.receive inverts it)."""
+    import numpy as np
+    view = cam.world_view.cpu().numpy().T.copy()
+    view[:, 1] *= -1
+    view[:, 2] *= -1
+    full = cam.full_proj.cpu().numpy().T.copy()
+    full[:, 1] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height,
+            "view_matrix": view.ravel().tolist(),
+            "view_projection_matrix": full.ravel().tolist(),
+            "fov_x": 2 * math.atan(float(cam.tan_fovx)),
+            "fov_y": 2 * math.atan(float(cam.tan_fovy)),
+            "train": True, "keep_alive": True}
+
+
+def run_viewer(model, dev):
+    """Phase viewer: a loopback client sends one request for the proxy
+    camera at 656x528; NetworkGUI.serve_step decodes the camera on the
+    card and answers with the centre-gaze "ours" frame of the full-width
+    model. The decoded camera must match the request's within 1e-6 and
+    the bytes must be the frame's, clipped to [0, 1] and cut to u8."""
+    import socket
+    import threading
+    import numpy as np
+    import torch
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.eval import network_gui
+    from fovsplat_torch.ops import foveated as fov
+    from fovsplat_torch.ops.rasterize import RasterizeConfig
+    cam = proxy.proxy_camera(width=656, height=528, device=dev)
+    cfg = RasterizeConfig(pair_capacity=PAIR_CAPACITY,
+                          compact_capacity=COMPACT_CAPACITY)
+    g = torch.tensor((0.5, 0.5), device=dev)
+
+    def render(c):
+        return torch.clamp(fov.rasterize_fov_soa(model, c, g, ALPHA,
+                                                 config=cfg)["render"], 0, 1)
+    payload = json.dumps(viewer_request(cam)).encode()
+    expect = cam.width * cam.height * 3 + 4 + len("proxy")
+    gui = network_gui.NetworkGUI(port=0, device=dev)
+    got, seen = [], {}
+    try:
+        sock = socket.create_connection(gui.listener.getsockname())
+
+        def client():
+            sock.sendall(len(payload).to_bytes(4, "little") + payload)
+            buf = b""
+            while len(buf) < expect:
+                chunk = sock.recv(1 << 20)
+                if not chunk:
+                    break
+                buf += chunk
+            got.append(buf)
+        th = threading.Thread(target=client)
+        th.start()
+
+        def fn(c):
+            seen["cam"] = c
+            return render(c)
+        t0 = time.perf_counter()
+        msg = None
+        for _ in range(1000):
+            msg = gui.serve_step(fn, "proxy")
+            if msg is not None:
+                break
+        th.join(timeout=60)
+        seconds = time.perf_counter() - t0
+        sock.close()
+    finally:
+        gui.close()
+    c = seen.get("cam")
+    cam_err = max(float((getattr(c, f) - getattr(cam, f)).abs().max())
+                  for f in ("world_view", "full_proj", "cam_center"))
+    want = (np.clip(render(c).cpu().numpy(), 0, 1) * 255).astype(
+        np.uint8).tobytes()
+    ok = (msg is not None and got and len(got[0]) == expect
+          and got[0][:len(want)] == want and cam_err <= 1e-6
+          and c.world_view.device.type == "cuda")
+    emit({"phase": "viewer", "width": cam.width, "height": cam.height,
+          "bytes": len(got[0]) if got else 0, "camera_max_abs_err": cam_err,
+          "image_bytes_equal": bool(got and got[0][:len(want)] == want),
+          "seconds": seconds})
+    if not ok:
+        raise AssertionError("viewer round trip failed")
+
+
+def run_native_colmap(scene_root):
+    """Phase native_colmap: the native parser (fovsplat_torch/native, built
+    with g++ into build/native) and the Python parser on the scene_io
+    scene's images.bin and points3D.bin: equal results, seconds each."""
+    import numpy as np
+    from fovsplat_torch import native
+    from fovsplat_torch.data import colmap
+    sparse = os.path.join(scene_root, "sparse", "0")
+    pts, ims = (os.path.join(sparse, f) for f in ("points3D.bin",
+                                                  "images.bin"))
+    t0 = time.perf_counter()
+    lib = native.build()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast_p, fast_i = native.parse_points3d(pts), colmap.read_images_binary(
+        ims)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_p = colmap.read_points3d_binary_python(pts)
+    py_i = colmap.read_images_binary_python(ims)
+    t_python = time.perf_counter() - t0
+    same = (fast_p is not None
+            and all(np.array_equal(a, b) for a, b in zip(fast_p, py_p))
+            and sorted(fast_i) == sorted(py_i)
+            and all(fast_i[k].name == py_i[k].name
+                    and np.array_equal(fast_i[k].qvec, py_i[k].qvec)
+                    and np.array_equal(fast_i[k].tvec, py_i[k].tvec)
+                    for k in py_i))
+    emit({"phase": "native_colmap", "points": len(py_p[0]),
+          "images": len(py_i), "equal": same, "library": os.path.relpath(
+              lib, os.path.dirname(os.path.abspath(__file__))),
+          "seconds": {"build": t_build, "native": t_native,
+                      "python": t_python}})
+    if not same:
+        raise AssertionError("native and Python COLMAP parses differ")
+
+
+def run_trace(render, cam):
+    """Phase trace: utils/profiling.trace around one centre-gaze "ours"
+    frame; the Chrome trace must exist, be non-empty and hold the port's
+    kernels."""
+    import torch
+    from fovsplat_torch.utils import profiling
+    root = os.path.dirname(os.path.abspath(__file__))
+    g = torch.tensor((0.5, 0.5), device=cam.device)
+    with profiling.trace(os.path.join(root, "build", "trace")) as path:
+        render(cam, g)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    pat = re.compile(r"\b(%s)\s*[(<]" % "|".join(sorted(own_kernel_names())))
+    ours = sorted({m.group(1) for e in events if e.get("cat") == "kernel"
+                   for m in [pat.search(e.get("name", ""))] if m})
+    emit({"phase": "trace", "path": os.path.relpath(path, root),
+          "bytes": os.path.getsize(path), "events": len(events),
+          "own_kernels": ours})
+    if not (os.path.getsize(path) > 0 and events):
+        raise AssertionError("profiling.trace wrote an empty trace")
+
+
 def main():
-    import os
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3696,6 +4342,23 @@ def main():
     lg_l = {"vq": vq_l, "distill": distill_l, "mm_models": mm_l,
             "mm_frame": mm_frame_l}
 
+    # --- multi-device: kernel 3 over an owner's tile range, the sharded
+    # paths (one NCCL rank; 4 gloo ranks sharing the card), the dry run;
+    # the viewer, the native COLMAP parser, the profiler trace ---
+    check_blend_range(full, results)
+    torch.cuda.empty_cache()
+    nccl_l = run_parallel_nccl(dev)
+    ranks_l = run_parallel_ranks(results)
+    run_dryrun()
+    run_viewer(model, dev)
+    run_native_colmap(scene_root)
+    run_trace(render, cam)
+    parallel_l = {f"{ph}_{path}": l for ph, ls in (("nccl", nccl_l),
+                                                    ("ranks", ranks_l))
+                  for path, l in ls.items()}
+    launches["blend_fov_tile0"] = (nccl_l["fov_shard"]["blend_fov_tile0"]
+                                   + ranks_l["fov_shard"]["blend_fov_tile0"])
+
     # --- kernels line ---
     src = {"build_table": ("fovsplat_torch/csrc/build_table.cu",
                            "fovsplat/ops/pallas/build_table.py:418"),
@@ -3726,7 +4389,9 @@ def main():
            "blend_forward_q_mmfr": ("fovsplat_torch/csrc/blend_fwd.cu",
                                     "fovsplat/ops/pallas/blend_fwd.py:508"),
            "compact_table": ("fovsplat_torch/csrc/compact_table.cu",
-                             "fovsplat/ops/pallas/compact_table.py:218")}
+                             "fovsplat/ops/pallas/compact_table.py:218"),
+           "blend_fov_tile0": ("fovsplat_torch/csrc/blend_fov.cu",
+                               "fovsplat/ops/pallas/blend_fov.py:463")}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]
@@ -3752,8 +4417,13 @@ def main():
         # And in the LightGaussian phases (mm_frame keyed by row).
         rows[-1]["launches_lightgaussian"] = {ph: l.get(k, 0)
                                               for ph, l in lg_l.items()}
+        # And in the sharded calls of the parallel phases (the tile-range
+        # row counts kernel 3's launches from tile0 > 0 there).
+        rows[-1]["launches_parallel"] = {ph: l.get(k, 0)
+                                         for ph, l in parallel_l.items()}
     emit({"kernels": rows,
           "blend_fov_150k": results["blend_fov_150k"],
+          "largest_dest_block": results["parallel_ranks_max_dest_block"],
           "library": [{"name": "torch.sort (i32 fused key, stable), frame",
                        "ms": results["torch.sort"]["ms"],
                        "lanes": results["torch.sort"]["lanes"]},

@@ -13,9 +13,13 @@ with the same flags):
   python -m fovsplat_torch.cli fps         -m <out> -s <scene>  foveated FPS
   python -m fovsplat_torch.cli vq          -m <out> -s <scene>  VQ-compress
                                                                 ps1.npz
+  python -m fovsplat_torch.cli dryrun      [--devices N]        multi-device
+                                                                dry run
 
-All run on the GPU and raise where CUDA is not available. The JAX
-command line's `dryrun` is not ported yet.
+All run on the GPU and raise where CUDA is not available. dryrun spawns N
+ranks, one card a rank under NCCL (more ranks than cards raise);
+`--device cpu` runs them on the CPU under gloo, and ranks that share a
+card need `--backend gloo`.
 """
 
 from __future__ import annotations
@@ -68,7 +72,19 @@ def main(argv=None):
     p = sub.add_parser("eval-layers", help="per-PS-layer quality eval")
     _add_common(p)
 
+    p = sub.add_parser("dryrun", help="multi-device dry run")
+    p.add_argument("--devices", type=int, default=8)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="default: nccl on cuda, gloo on cpu")
+
     args = ap.parse_args(argv)
+    if args.cmd == "dryrun":
+        from fovsplat_torch.parallel import dryrun
+        print(json.dumps(dryrun.dryrun_multichip(
+            args.devices, device=args.device, backend=args.backend)))
+        return 0
     if args.cmd == "pipeline":
         from fovsplat_torch import pipeline
         pipeline.run_pipeline(args.source, args.model,

@@ -135,11 +135,14 @@ __device__ inline void blend_tile(const float* __restrict__ attrs, int cap,
                                   const int* __restrict__ seg_start,
                                   const bool* __restrict__ l1_active,
                                   const bool* __restrict__ l2_active,
-                                  int grid_x, float power_cutoff,
+                                  int grid_x, int tile0, float power_cutoff,
                                   float* __restrict__ out, int t,
                                   Rec (*ring)[BATCH]) {
   const int start = seg_start[t], end = seg_start[t + 1];
-  const int x0 = (t % grid_x) * TILE, y0 = (t / grid_x) * TILE;
+  // t is the local tile (segments, masks, output); its pixels are those
+  // of the global tile tile0 + t.
+  const int tg = tile0 + t;
+  const int x0 = (tg % grid_x) * TILE, y0 = (tg / grid_x) * TILE;
   int pix[PPT];
   float px[PPT], py[PPT];
   Chain c1[PPT], c2[PPT];
@@ -217,26 +220,30 @@ blend_fov_kernel(const float* __restrict__ attrs, int cap,
                  const int* __restrict__ seg_start,
                  const int* __restrict__ order, int* __restrict__ next_tile,
                  int num_tiles, const bool* __restrict__ l1_active,
-                 const bool* __restrict__ l2_active, int grid_x,
+                 const bool* __restrict__ l2_active, int grid_x, int tile0,
                  float power_cutoff, float* __restrict__ out) {
   __shared__ Rec ring[STAGES][BATCH];
   __shared__ int tile_slot[2];
   for (int it = 0;; ++it) {
     const int t = fs::next_tile(order, next_tile, num_tiles, tile_slot, it);
     if (t < 0) return;
-    blend_tile(attrs, cap, seg_start, l1_active, l2_active, grid_x,
+    blend_tile(attrs, cap, seg_start, l1_active, l2_active, grid_x, tile0,
                power_cutoff, out, t, ring);
   }
 }
 
 }  // namespace
 
+// num_tiles tiles from the global tile tile0 (a tile-sharded owner's
+// range; 0 and the whole grid for one device): seg_start (num_tiles + 1),
+// the masks (num_tiles, PIX) and out (num_tiles, 8, PIX) are local.
 // scratch: num_tiles + 1 ints (the tile order and the tile counter).
 FS_EXPORT int fs_blend_fov(const float* attrs, int cap, const int* seg_start,
                            const bool* l1_active, const bool* l2_active,
-                           int num_tiles, int grid_x, float power_cutoff,
-                           int* scratch, float* out, void* stream) {
-  if (num_tiles < 1) return cudaErrorInvalidValue;
+                           int num_tiles, int grid_x, int tile0,
+                           float power_cutoff, int* scratch, float* out,
+                           void* stream) {
+  if (num_tiles < 1 || tile0 < 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static int resident[fs::MAX_DEVICES];
   int blocks = 0;
@@ -247,6 +254,6 @@ FS_EXPORT int fs_blend_fov(const float* attrs, int cap, const int* seg_start,
   if (err != cudaSuccess) return err;
   blend_fov_kernel<<<min(num_tiles, blocks), THREADS, 0, s>>>(
       attrs, cap, seg_start, scratch, scratch + num_tiles, num_tiles,
-      l1_active, l2_active, grid_x, power_cutoff, out);
+      l1_active, l2_active, grid_x, tile0, power_cutoff, out);
   return cudaGetLastError();
 }

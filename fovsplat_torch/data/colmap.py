@@ -3,8 +3,10 @@
 The port's own copy of fovsplat/data/colmap.py, the counterpart of the
 reference's scene/colmap_loader.py (itself from the public COLMAP
 scripts): reads cameras.bin/images.bin/points3D.bin (or .txt) into plain
-numpy structures. The pure-Python readers only: the JAX package's native
-fast path (fovsplat/native) is not ported.
+numpy structures. images.bin and points3D.bin go through the native
+parser (fovsplat_torch/native, built with g++ at first use; a failed
+build raises) as in fovsplat/data/colmap.py:68-101; a file it rejects
+falls to the pure-Python reader.
 """
 
 from __future__ import annotations
@@ -68,6 +70,17 @@ def read_cameras_binary(path) -> dict[int, ColmapCamera]:
 
 
 def read_images_binary(path) -> dict[int, ColmapImage]:
+    from fovsplat_torch import native
+    fast = native.parse_images(path)
+    if fast is not None:
+        ids, qvecs, tvecs, cam_ids, names = fast
+        return {int(i): ColmapImage(int(i), qvecs[k], tvecs[k],
+                                    int(cam_ids[k]), names[k])
+                for k, i in enumerate(ids)}
+    return read_images_binary_python(path)
+
+
+def read_images_binary_python(path) -> dict[int, ColmapImage]:
     out = {}
     with open(path, "rb") as f:
         (num,) = _read(f, "<Q")
@@ -90,6 +103,15 @@ def read_images_binary(path) -> dict[int, ColmapImage]:
 
 def read_points3d_binary(path):
     """Returns (xyz (P,3) f64, rgb (P,3) u8, error (P,))."""
+    from fovsplat_torch import native
+    fast = native.parse_points3d(path)
+    if fast is not None:
+        return fast
+    return read_points3d_binary_python(path)
+
+
+def read_points3d_binary_python(path):
+    """read_points3d_binary's pure-Python reader."""
     with open(path, "rb") as f:
         (num,) = _read(f, "<Q")
         xyz = np.empty((num, 3))

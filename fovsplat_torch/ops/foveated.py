@@ -269,8 +269,18 @@ def _merge(c1, t1, c2, t2, levels, est, tile_blend, camera, bg_color,
            fov_cfg: FoveationConfig):
     """The background on both chains, then the smoothstep merge of the
     blending tiles (reference forward.cu:459-476); the image (H, W, 3)."""
-    dev = c1.device
     gx, gy = _grid(camera)
+    return tiles_to_image(merge_tiles(c1, t1, c2, t2, levels, est,
+                                      tile_blend, bg_color, fov_cfg),
+                          gx, gy, camera.width, camera.height)
+
+
+def merge_tiles(c1, t1, c2, t2, levels, est, tile_blend, bg_color,
+                fov_cfg: FoveationConfig):
+    """_merge's tile colours (T, PIX, 3) of any run of tiles, given their
+    rows of levels, est and tile_blend: elementwise per tile, so a
+    tile-sharded owner's tiles come out as in the whole frame."""
+    dev = c1.device
     bg = (torch.zeros(3, device=dev) if bg_color is None
           else torch.as_tensor(bg_color, dtype=torch.float32, device=dev))
     c1 = c1 + t1[..., None] * bg
@@ -281,8 +291,7 @@ def _merge(c1, t1, c2, t2, levels, est, tile_blend, camera, bg_color,
     blend_T = 3 * x * x - 2 * x * x * x
     l1_w = 1.0 - blend_T
     merged = c1 * l1_w[..., None] + c2 * (1.0 - l1_w[..., None])
-    tile_color = torch.where(tile_blend[:, None, None], merged, c1)
-    return tiles_to_image(tile_color, gx, gy, camera.width, camera.height)
+    return torch.where(tile_blend[:, None, None], merged, c1)
 
 
 def _dual_blend(pair_tile, pair_mean2d, pair_conic, pair_op1, pair_op2,

@@ -42,11 +42,11 @@ def _split(out):
 
 def blend_fov_plain(pairs, seg_start, l1_active, l2_active, grid_x: int,
                     power_cutoff: float = -4.5, chunk: int = 1 << 16,
-                    return_walked: bool = False):
+                    return_walked: bool = False, tile0: int = 0):
     """The kernel's function in plain PyTorch: _dual_blend's log-space
     chains, evaluated on groups of tiles whose segments are padded to the
     group's longest (at most `chunk` padded pairs per group, or one
-    tile).
+    tile). Local tile t has the pixels of global tile tile0 + t.
 
     return_walked also returns the (T, PIX) i32 count of pairs each pixel
     walks in the sequential kernel before both of its chains are frozen
@@ -76,8 +76,9 @@ def blend_fov_plain(pairs, seg_start, l1_active, l2_active, grid_x: int,
             idx = torch.tensor(starts[t0:t1], device=dev)[:, None] + s
             idx = torch.where(in_seg, idx, torch.zeros_like(idx))
             a = pairs[:, idx]                                    # (13, G, S)
-            px = ((tiles % grid_x).float() * TILE)[:, None, None] + lx
-            py = ((tiles // grid_x).float() * TILE)[:, None, None] + ly
+            tg = tiles + tile0
+            px = ((tg % grid_x).float() * TILE)[:, None, None] + lx
+            py = ((tg // grid_x).float() * TILE)[:, None, None] + ly
             dx = a[_A["mx"]][..., None] - px                     # (G, S, PIX)
             dy = a[_A["my"]][..., None] - py
             ca = a[_A["ca"]][..., None]
@@ -119,16 +120,21 @@ def blend_fov_plain(pairs, seg_start, l1_active, l2_active, grid_x: int,
 
 
 def blend_fov(pairs, seg_start, l1_active, l2_active, grid_x: int,
-              power_cutoff: float = -4.5, chunk: int = 1 << 16):
+              power_cutoff: float = -4.5, chunk: int = 1 << 16,
+              tile0: int = 0):
     """Kernel 3 on CUDA tensors, its plain version on CPU tensors.
 
     pairs (13, CAP) f32 sorted pair rows (expand_fov.ATTR_ROWS);
     seg_start (T+1,) i32 tile segment bounds; l1_active / l2_active
-    (T, PIX) bool. Returns (C1 [T,PIX,3], T1 [T,PIX], C2 [T,PIX,3],
-    T2 [T,PIX]). `chunk` only bounds the plain version's memory."""
+    (T, PIX) bool. The T tiles are the global tiles tile0 .. tile0 + T - 1
+    (a tile-sharded owner's range, blend_fov_pallas's tile0 / n_tiles;
+    0 and the whole grid on one device): segments, masks and outputs are
+    local, pixel positions global. Returns (C1 [T,PIX,3], T1 [T,PIX],
+    C2 [T,PIX,3], T2 [T,PIX]). `chunk` only bounds the plain version's
+    memory."""
     if pairs.device.type == "cpu":
         return blend_fov_plain(pairs, seg_start, l1_active, l2_active,
-                               grid_x, power_cutoff, chunk)
+                               grid_x, power_cutoff, chunk, tile0=tile0)
     dev = pairs.device
     if dev.type != "cuda":
         raise ValueError(f"blend_fov: pairs on {dev}; the kernel needs CUDA")
@@ -144,15 +150,18 @@ def blend_fov(pairs, seg_start, l1_active, l2_active, grid_x: int,
     lib = _build.load("blend_fov")
     fn = lib.fs_blend_fov
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, P, P, I, I, ctypes.c_float, P, P, P]
+    fn.argtypes = [P, I, P, P, P, I, I, I, ctypes.c_float, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), pairs.shape[1], seg_start.data_ptr(),
              l1_active.data_ptr(), l2_active.data_ptr(), T, grid_x,
-             float(power_cutoff), scratch.data_ptr(), out.data_ptr(),
-             _build.stream_ptr(dev))
+             int(tile0), float(power_cutoff), scratch.data_ptr(),
+             out.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "blend_fov")
     blend_fov.launches += 1
+    if tile0 > 0:
+        blend_fov.launches_tile0 += 1
     return _split(out)
 
 
 blend_fov.launches = 0
+blend_fov.launches_tile0 = 0   # the launches over a range from tile0 > 0

@@ -83,23 +83,28 @@ def _q8(v, scale):
 def quantized_rows(table):
     """(5, N) f32 bit containers [mx, my, P_caca, P_cbcc, OPRGB] of each
     Gaussian of a ps1 table, the JAX inference encoding bit for bit
-    (expand_fov.py:697-730): the TPU kernel stages cb, cc, op, r, g and b
-    through one bf16 matmul, so each is rounded to bf16 (nearest even)
-    first; ca rides as exact split parts. P_caca = pack2(ca_hi, ca -
-    ca_hi), ca_hi = ca with its low 16 bits cleared; P_cbcc = pack2(cb,
-    cc); OPRGB = op_u8 << 24 | r_u8 << 16 | g_u8 << 8 | b_u8 with
-    op_u8 = q8(op, 255), colours q8(c, 127.5), q8(v, s) = clip(floor(v s
-    + 0.5), 0, 255)."""
-    def bf16(r):
-        return table[r].to(torch.bfloat16).float()
-    ca = table[ROW_CA]
+    (expand_fov.py:697-730): pack_q_rows of the table's rows."""
+    return pack_q_rows(*(table[r] for r in (ROW_MX, ROW_MY, ROW_CA, ROW_CB,
+                                            ROW_CC, ROW_OP, ROW_R, ROW_G,
+                                            ROW_B)))
+
+
+def pack_q_rows(mx, my, ca, cb, cc, op, r, g, b):
+    """(5, M) f32 bit containers [mx, my, P_caca, P_cbcc, OPRGB] of M f32
+    rows each. The TPU kernel stages cb, cc, op, r, g and b through one
+    bf16 matmul, so each is rounded to bf16 (nearest even) first; ca
+    rides as exact split parts. P_caca = pack2(ca_hi, ca - ca_hi), ca_hi
+    = ca with its low 16 bits cleared; P_cbcc = pack2(cb, cc); OPRGB =
+    op_u8 << 24 | r_u8 << 16 | g_u8 << 8 | b_u8 with op_u8 = q8(op, 255),
+    colours q8(c, 127.5), q8(v, s) = clip(floor(v s + 0.5), 0, 255)."""
+    def bf16(x):
+        return x.to(torch.bfloat16).float()
     ca_hi = (_bits(ca) & -65536).view(torch.float32)
-    oprgb = ((_q8(bf16(ROW_OP), 255.0) << 24) | (_q8(bf16(ROW_R), 127.5) << 16)
-             | (_q8(bf16(ROW_G), 127.5) << 8) | _q8(bf16(ROW_B), 127.5))
+    oprgb = ((_q8(bf16(op), 255.0) << 24) | (_q8(bf16(r), 127.5) << 16)
+             | (_q8(bf16(g), 127.5) << 8) | _q8(bf16(b), 127.5))
     oprgb = torch.where(oprgb >= 1 << 31, oprgb - (1 << 32), oprgb)
-    return torch.stack([table[ROW_MX], table[ROW_MY],
-                        _pack2(ca_hi, ca - ca_hi),
-                        _pack2(bf16(ROW_CB), bf16(ROW_CC)),
+    return torch.stack([mx, my, _pack2(ca_hi, ca - ca_hi),
+                        _pack2(bf16(cb), bf16(cc)),
                         oprgb.to(torch.int32).view(torch.float32)])
 
 

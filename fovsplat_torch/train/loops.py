@@ -21,7 +21,7 @@ a rollback snapshot is the state itself, where the JAX loops copy it to
 host memory (loops.py:342-346). The control flow (the seeded view stack,
 the gates, the scale-weight schedule, the per-cut re-gating) is the JAX
 package's step for step. A loop runs on the device of the state it is
-given. finetune's viewer hook (`gui`) is not ported yet.
+given. finetune serves a live viewer (eval/network_gui) when given one.
 """
 
 from __future__ import annotations
@@ -319,11 +319,23 @@ class _ViewStack:
         return self._stack.pop()
 
 
+def _viewer_render(state, cam, cfg):
+    with torch.no_grad():
+        return torch.clamp(render_state(state, cam, cfg)["render"], 0.0,
+                           1.0)
+
+
 def finetune(state: S.TrainerState, views: Sequence, iters: int,
              cfg: LoopConfig, start_iter: int = 0, hvs_pooling=None,
              hvs_loss_type: str = "L1", log: Callable = print,
-             log_every: int = 200, seed: int = 0):
-    """eff_finetune.py: photometric, or uniform-HVS with hvs_pooling."""
+             log_every: int = 200, seed: int = 0, gui=None,
+             source_path: str = ""):
+    """eff_finetune.py: photometric, or uniform-HVS with hvs_pooling.
+
+    gui: an eval/network_gui.NetworkGUI, polled once an iteration before
+    the step with a render of the current state clipped to [0, 1], where
+    the reference serves its viewer in the fine-tune loop
+    (eff_finetune.py:77-90); source_path is its verify string."""
     dev = state.live.device
     if hvs_pooling is None:
         step_fn = make_photometric_step(cfg, device=dev)
@@ -340,6 +352,9 @@ def finetune(state: S.TrainerState, views: Sequence, iters: int,
     ema = None
     watch = NanWatch(log)
     for it in range(start_iter + 1, start_iter + iters + 1):
+        if gui is not None:
+            gui.serve_step(lambda cam: _viewer_render(state, cam, cfg),
+                           source_path)
         state, aux = call(state, stack.pop(), it)
         watch.push(aux)
         loss = float(aux["loss"])

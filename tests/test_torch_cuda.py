@@ -1158,3 +1158,72 @@ def test_xla_route_launches_no_kernel_and_matches_the_kernels(cuda):
     for a, b, c in zip(xg, kg, xg2):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("tile0", [1, 13])
+def test_blend_fov_tile_range_matches_plain_and_whole_grid(cuda, tile0):
+    """Kernel 3 over a tile range (tile0 > 0, as a tile-sharded owner
+    launches it) against blend_fov_plain with the same tile0 within
+    T_EPS, and bit-identical to the same tiles of the whole-grid launch."""
+    gaze = (0.5, 0.5)
+    model, cam, levels, bbox = _scene(cuda, gaze)
+    gx, T = (W + 15) // 16, ((W + 15) // 16) * ((H + 15) // 16)
+    tk, ck, _ = bt.build_table(model, cam, bbox)
+    ek = ef.expand_fov(tk, ck, levels, 4, gx, 1 << 20, 1 << 20)
+    key, dbits = fov.fused_key32(ek.tile, ek.depth, ek.kept[0], T)
+    pairs, seg = fov.sort_pairs(key, dbits, ek.attrs, T, True)
+    gxl, gyl, _, tb = foveation.compute_tile_level_infos(levels, W, H)
+    _, l1, l2 = fov.chain_masks(levels, gxl, gyl, tb)
+    n = T // 3
+    args = (pairs, seg[tile0:tile0 + n + 1].contiguous(),
+            l1[tile0:tile0 + n].contiguous(),
+            l2[tile0:tile0 + n].contiguous(), gx)
+    part = bf.blend_fov(*args, tile0=tile0)
+    plain = bf.blend_fov_plain(*args, tile0=tile0)
+    whole = bf.blend_fov(pairs, seg, l1, l2, gx)
+    for a, b, c in zip(part, plain, whole):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        assert torch.equal(a, c[tile0:tile0 + n])
+
+
+def test_world_size_one_nccl_shards_match_single_device(cuda):
+    """A world-size-1 NCCL group on the card: the tile-sharded frame
+    ("kernels") and the foveated tile-sharded frame bit-identical to the
+    single-device frames with the same rows and order."""
+    import torch.distributed as dist
+    from fovsplat_torch.parallel import dryrun, fov_shard, multihost
+    from fovsplat_torch.parallel import tile_shard
+    multihost.init_group(f"127.0.0.1:{dryrun.free_port()}", 1, 0, cuda,
+                         "nccl")
+    try:
+        model, cam, _, _ = _scene(cuda, (0.5, 0.5))
+        cfg = RasterizeConfig(pair_capacity=1 << 20, sort_exact_depth=True)
+        g = torch.tensor((0.2, 0.8), device=cuda)
+        img, aux = fov_shard.render_fov_tile_sharded(
+            fov_shard.shard_fov_model(model), cam, g, 0.05, bg_color=[0.1,
+                                                                      0.2,
+                                                                      0.3],
+            config=cfg)
+        ref = fov.rasterize_fov_soa(model, cam, g, 0.05,
+                                    bg_color=[0.1, 0.2, 0.3], config=cfg)
+        assert torch.equal(img, ref["render"])
+        assert int(aux["num_pairs"]) == int(ref["num_pairs"])
+        assert int(aux["overflow"]) == 0
+        sc = proxy.bicycle_proxy(n=N, seed=2)
+        cols = torch.clamp(sh.SH_C0 * torch.as_tensor(
+            sc["shs_dcs"][:, 0], device=cuda) + 0.5, min=0.0)
+        arrs = [torch.as_tensor(sc[k], device=cuda)
+                for k in ("means", "scales", "rotations", "opacity")]
+        img, aux = tile_shard.render_tile_sharded(
+            *arrs, cols, cam, pair_capacity=1 << 20, bg_color=[0.1, 0.2,
+                                                               0.3])
+        ref = rast.rasterize(*arrs, cam, colors=cols,
+                             bg_color=[0.1, 0.2, 0.3],
+                             config=RasterizeConfig(pair_capacity=1 << 20,
+                                                    fwd_only=True,
+                                                    sort_exact_depth=True))
+        assert torch.equal(img, ref["render"])
+        assert int(aux["num_pairs"]) == int(ref["binned"].num_pairs)
+        assert int(aux["overflow"]) == 0
+    finally:
+        dist.destroy_process_group()

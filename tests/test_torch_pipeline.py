@@ -183,8 +183,13 @@ def test_cli_parses_like_jax(monkeypatch, tmp_path):
     assert seen["args"] == ("scene", "out")
     assert seen["kw"] == {"pretrained_ply": "pc.ply", "resolution": 2,
                           "small": True, "loop_cfg": None}
+    from fovsplat_torch.parallel import dryrun
+    monkeypatch.setattr(dryrun, "dryrun_multichip",
+                        lambda n, **k: seen.update(dryrun=(n, k)) or {})
+    assert tcli.main(["dryrun", "--devices", "2"]) == 0   # the JAX flag
+    assert seen["dryrun"] == (2, {"device": None, "backend": None})
     with pytest.raises(SystemExit):
-        tcli.main(["dryrun", "--devices", "2"])   # not ported
+        tcli.main(["dryrun", "--backend", "mpi"])
     with pytest.raises(SystemExit):
         tcli.main(["fps", "-m", "out", "--mode", "mm"])
 

@@ -115,10 +115,10 @@ def call(lib, pairs, seg, l1, l2, gx):
     scratch = torch.empty(T + 1, dtype=torch.int32, device=pairs.device)
     fn = lib.fs_blend_fov
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, P, P, I, I, ctypes.c_float, P, P, P]
+    fn.argtypes = [P, I, P, P, P, I, I, I, ctypes.c_float, P, P, P]
     fn.restype = I
     err = fn(pairs.data_ptr(), pairs.shape[1], seg.data_ptr(),
-             l1.data_ptr(), l2.data_ptr(), T, gx, -4.5, scratch.data_ptr(),
+             l1.data_ptr(), l2.data_ptr(), T, gx, 0, -4.5, scratch.data_ptr(),
              out.data_ptr(), _build.stream_ptr(pairs.device))
     if err:
         raise RuntimeError(f"fs_blend_fov: CUDA error {err}")
