@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch / CUDA port renders (the foveated
-"ours" frame and the PS1, SM-FR and MM-FR inference frames), trains,
+"ours" frame and the PS1, SM-FR and MM-FR inference frames), trains
+(those frames and the photometric step as CUDA graphs, bit-identical to
+their eager functions),
 prunes and masks on the GPU, that it loads a scene, trains a model from
 scratch and runs the whole pipeline there, that it scores models (PSNR,
 SSIM, LPIPS, HVS, per-layer HVS, rendered views and video), that it
@@ -39,9 +41,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
      launches (its work counts beside its bound), the gid reduce within
      1e-5 of the largest sum and bit-identical over two launches;
   5. the frame path: the foveated "ours" frame at full width over the 9
-     gazes (3 warm-ups, 20 timed reps each) through eval/fps.py, with every
-     launch counter set to 0 just before and read just after; kernels 1-3
-     must have launched, overflow must be 0 and the image finite; then
+     gazes (3 warm-ups, 20 timed reps each) through eval/fps.py (a CUDA
+     graph, utils/graphs), with every launch counter set to 0 just before
+     and read just after; kernels 1-3 must have launched in the graph's
+     replays (launches_graphed: the counts that replays added), overflow
+     must be 0 and the image finite; then
      the frame's times through the harness in both forms, batched and
      synchronised after every rep (the JAX harness's form, its keys
      "per_gaze" and "avg" checked);
@@ -59,10 +63,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
      emptied segments, kernel 9 bit-identical to its plain version and
      over two launches on the ps1 table, on the frame's fov table and on
      that table with no column and with every column valid;
-  9. the PS1 frame at full width, compaction off and on, 3 warm-ups and
-     20 timed frames each, counters set to 0 before and read after: both
-     images bit-identical with equal num_pairs, overflow 0, kernels 1p,
-     4q, 5q (and 9 with compaction) launched; then its times in both
+  9. the PS1 frame at full width as a CUDA graph, compaction off and on,
+     3 warm-ups and 20 timed frames each, counters set to 0 before and
+     read after: both images bit-identical with equal num_pairs, overflow
+     0, kernels 1p, 4q, 5q (and 9 with compaction) launched in the
+     graphs' replays; then its times in both
      harness forms, as in phase 5, and a profiler window over 10 frames;
  10. the PS1 frame on the card against the CPU at 20k / 320x224 (within
      1e-4) and against the port's f32 train-route rasterize of the same
@@ -74,20 +79,33 @@ into build/kernels first. Phases, one JSON line each on stdout:
      shared and broadcast packings render bit-identical images;
  12. the MM-FR frame over the 9 gazes at full width: the four level
      models of bench.py:255-268, per-level capacities sized from probe
-     runs as bench.py:299-331 does, overflow 0 on every pass; then kernel
+     runs as bench.py:299-331 does, overflow 0 on every pass, kernels 4q
+     and 5q launched in the frame graph's replays; then kernel
      5q on the four level passes at the centre gaze against its plain
      version (within T_EPS) and bit-identical over two launches, timed
      per launch, and a profiler window over 3 centre-gaze frames;
- 13. the train path: the photometric train step at full width, 3 warm-up
-     and 10 timed steps (CUDA events), with every launch counter set to 0
-     just before and read just after; kernels 4-7 must have launched, and
+ 13. the train path: the photometric train step at full width (a CUDA
+     graph), 3 warm-up and 10 timed steps (CUDA events), with every
+     launch counter set to 0 just before and read just after; kernels 4-7
+     must have launched in the graph's replays, and
      every step must report overflow 0, nonfinite 0 and a finite loss;
  14. determinism: two gradient evaluations of the same state on the card
      are bit-identical;
  15. the train step on the card against the CPU plain path on the 20k
      proxy at 320x224: loss within 1e-5 relative, gradients scaled by
      their largest value within rtol 2e-3, atol 2e-4;
- 16. a torch.profiler window over 3 train steps;
+ 16. a torch.profiler window over 3 train steps; then graphs: each path
+     as a fresh CUDA graph against its eager function (the "ours" frame
+     over the 9 gazes; SM-FR, MM-FR and PS1 with compaction off and on at
+     the centre gaze: image, num_pairs and overflow bit for bit, the
+     first frame unchanged by a later one; 13 train steps with the
+     scale-decay term, `it` 1-13, scale_weight 2e-6 then 1e-4 from step
+     7: loss, aux, every parameter and moment bit for bit, each state
+     unchanged by the next step), one capture a path, each counter
+     moving by N times the graph's launches over N replays; per path
+     the wall ms of both in both harness forms, device ms and idle share
+     from profiler windows, the kernels the profiler names, capture
+     seconds, peak memory, and the copy-in and copy-out device ms;
  17. kernel 8 (the stats blend) against its plain version on the score
      pass's own pairs at the train phase's shapes: best_lane, first_trig
      and the touched and geo_win rows exact, the float rows and best_w
@@ -196,7 +214,8 @@ into build/kernels first. Phases, one JSON line each on stdout:
      bound, and no near-tie pick further than that);
  33. distill: the teacher distilled from SH degree 3 to 1 for 20
      iterations on the 14 views, twice from one seed (bit-identical),
-     launches of kernels 4-7, the loss against the teacher's render
+     launches of kernels 4-7 (the graphed step's warm-up run included),
+     the loss against the teacher's render
      before and after, ms an iteration;
  34. mm_models: generate_mm_models from the chain phase's PS1 state with
      its live ladder as layer_counts (3 finetune iterations a level),
@@ -247,7 +266,8 @@ into build/kernels first. Phases, one JSON line each on stdout:
      writes a non-empty Chrome trace under build/trace;
  41. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
      MM-FR, kernel 7's argmax stream and kernel 3 over a tile range)
-     its launches on its path, time
+     its launches on its path and how many of them graph replays made
+     (launches_graphed), time
      (CUDA events over 20 calls), own device time (device_ms, a profiler
      window over 20 more, split by CUDA kernel, and the CUDA kernels a
      call launches), plain time, bound and error, the
@@ -724,6 +744,7 @@ def profile_window(fn, iters):
             fn()
     prof, wall_us, windows = profiled(
         run, lambda ev: any(e.device_type == DeviceType.CUDA for e in ev))
+    own = own_kernel_names()
     by_name = {}
     for e in prof.events() if prof is not None else ():
         if e.device_type == DeviceType.CUDA:
@@ -744,6 +765,8 @@ def profile_window(fn, iters):
             else None,
             "profiler_windows": windows,
             "kernel_events": sum(c for _, c in by_name.values()),
+            "own_kernels": sorted(k for k in own if any(
+                re.search(r"\b%s\s*[(<]" % k, n) for n in by_name)),
             "top": [{"name": k[:80], "ms_per_iter": us / iters / 1e3,
                      "launches_per_iter": c / iters}
                     for k, (us, c) in top],
@@ -1035,6 +1058,7 @@ def run_train_path(st, cam, gt, cfg, kernels):
     end.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 10
     launches = {name: kf.launches for name, kf in kernels.items()}
+    launches_graphed = replayed(step.graph)
     rows = [{k: (float(v) if k == "loss" else int(v)) for k, v in a.items()}
             for a in auxs]
     for i, r in enumerate(rows):
@@ -1042,7 +1066,7 @@ def run_train_path(st, cam, gt, cfg, kernels):
                 and r["loss"] == r["loss"] and abs(r["loss"]) < float("inf")):
             raise AssertionError(f"train step {i}: {r}")
     return rows, start.elapsed_time(end) / 10, wall_ms, launches, \
-        torch.cuda.max_memory_allocated()
+        launches_graphed, torch.cuda.max_memory_allocated()
 
 
 def check_determinism(st, cam, gt, cfg):
@@ -2256,33 +2280,52 @@ def check_inference_kernels(dev, fov_table, results):
     return model, cam
 
 
-def run_ps1_frame(model, cam, kernels):
-    """The PS1 frame at full width, compaction off and on: per setting
-    every counter set to 0 just before 3 warm-up and 20 timed frames
-    (CUDA events) and read just after. The two images must be
-    bit-identical with equal num_pairs and overflow 0. Returns the
-    launches per setting."""
-    import torch
+def ps1_frame(model, compact):
+    """The PS1 frame of a packed model at the train capacities, as a CUDA
+    graph (graphs.graphed_frame; the gaze is unused): the port's
+    counterpart of __graft_entry__.py:50-58's jax.jit of the frame."""
     from fovsplat_torch.ops import rasterize as rast
     from fovsplat_torch.ops.rasterize import RasterizeConfig
-    outs, launches, rows = [], {}, {}
+    from fovsplat_torch.utils import graphs
+    cfg = RasterizeConfig(pair_capacity=TRAIN_PAIR_CAPACITY,
+                          compact_capacity=TRAIN_COMPACT_CAPACITY,
+                          compact_table=compact)
+    return graphs.graphed_frame(
+        lambda c, _gaze: rast.rasterize_ps1_soa(model, c, config=cfg))
+
+
+def replayed(graph):
+    """The launches that a graph's replays added to the counters, by
+    counter name."""
+    return {k: graph.replays * v
+            for k, v in graph.launches_per_replay.items()}
+
+
+def run_ps1_frame(model, cam, kernels):
+    """The PS1 frame at full width as a CUDA graph, compaction off and
+    on: per setting every counter set to 0 just before 3 warm-up and 20
+    timed frames (CUDA events) and read just after. The two images must
+    be bit-identical with equal num_pairs and overflow 0. Returns the
+    launches per setting, and the launches of graph replays."""
+    import torch
+    outs, launches, graphed, rows = [], {}, {}, {}
+    gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device)
     for flag in (False, True):
-        cfg = RasterizeConfig(pair_capacity=TRAIN_PAIR_CAPACITY,
-                              compact_capacity=TRAIN_COMPACT_CAPACITY,
-                              compact_table=flag)
+        frame = ps1_frame(model, flag)
         for kf in kernels.values():
             kf.launches = 0
         for _ in range(3):
-            rast.rasterize_ps1_soa(model, cam, config=cfg)
+            frame(cam, gaze)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(20):
-            out = rast.rasterize_ps1_soa(model, cam, config=cfg)
+            out = frame(cam, gaze)
         end.record()
         end.synchronize()
         tag = "compact_table" if flag else "plain_table"
         launches[tag] = {k: kf.launches for k, kf in kernels.items()}
+        graphed[tag] = replayed(frame.graph)
         img = out["render"]
         rows[tag] = {"ms": start.elapsed_time(end) / 20,
                      "num_pairs": int(out["num_pairs"]),
@@ -2295,7 +2338,8 @@ def run_ps1_frame(model, cam, kernels):
     emit({"phase": "ps1_frame", "n": N_FULL, "width": W_FULL,
           "height": H_FULL, "pair_capacity": TRAIN_PAIR_CAPACITY,
           "compact_capacity": TRAIN_COMPACT_CAPACITY, "warmups": 3,
-          "timed": 20, **rows, "bit_identical": same, "launches": launches})
+          "timed": 20, **rows, "bit_identical": same, "launches": launches,
+          "launches_graphed": graphed})
     r0, r1 = rows["plain_table"], rows["compact_table"]
     if not (same and r0["num_pairs"] == r1["num_pairs"]
             and r0["overflow"] == r1["overflow"] == 0 and r0["finite"]):
@@ -2306,10 +2350,10 @@ def run_ps1_frame(model, cam, kernels):
                                          "blend_forward_q",
                                          "compact_table"))):
         for k in need:
-            if launches[tag][k] <= 0:
-                raise AssertionError(f"{k} never launched on the PS1 frame "
-                                     f"({tag})")
-    return launches
+            if launches[tag][k] <= 0 or graphed[tag].get(k, 0) <= 0:
+                raise AssertionError(f"{k} never launched in the PS1 frame's "
+                                     f"graph ({tag})")
+    return launches, graphed
 
 
 def ps1_vs_cpu_and_f32():
@@ -2431,6 +2475,7 @@ def run_smfr(cam, kernels):
     for k in ("build_table", "expand_fov", "blend_fov"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched on the SM-FR frame")
+    return render
 
 
 def run_mmfr(cam, kernels, results):
@@ -2468,6 +2513,7 @@ def run_mmfr(cam, kernels, results):
     res = fps.fps_benchmark(render, [cam], warmups=3, reps=20,
                             log=lambda *_: None)
     launches = {k: kf.launches for k, kf in kernels.items()}
+    graphed = replayed(render.graph)
     rows = gaze_rows(render, cam, lambda o: {
         "pass_num_pairs": [int(d["num_pairs"]) for d in o["passes"]],
         "pass_overflow": [int(d["overflow"]) for d in o["passes"]]})
@@ -2480,15 +2526,17 @@ def run_mmfr(cam, kernels, results):
           "level_points": [int((m["opacity"] > 0).sum()) for m in models],
           "probe_need_candidates_kept": need, "level_caps": caps,
           "per_gaze": rows, "avg_ms": res["avg_ms"],
-          "avg_fps": res["avg_fps"], "launches": launches})
+          "avg_fps": res["avg_fps"], "launches": launches,
+          "launches_graphed": graphed})
     for k in ("expand_ps1", "blend_forward_q"):
-        if launches[k] <= 0:
-            raise AssertionError(f"{k} never launched on the MM-FR frame")
+        if launches[k] <= 0 or graphed.get(k, 0) <= 0:
+            raise AssertionError(f"{k} never launched in the MM-FR frame's "
+                                 f"graph")
     results["blend_forward_q_mmfr"] = check_mmfr_blend(models, cfgs, cam)
     gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device)
     emit({"phase": "profile", "path": "MM-FR frame, centre gaze",
           **profile_window(lambda: render(cam, gaze), 3)})
-    return launches
+    return launches, graphed, render
 
 
 def check_mmfr_blend(models, cfgs, cam):
@@ -2565,6 +2613,237 @@ def frame_times(path, render, cam, gazes):
         row[form] = {"avg_ms": res["avg_ms"], "avg_fps": res["avg"],
                      "per_gaze_ms": res["per_gaze_ms"]}
     emit(row)
+
+
+# --- the graphs phase: CUDA graphs against the eager functions -----------
+
+GRAPH_TRAIN_STEPS = 13
+GRAPH_SWITCH_STEP = 7          # scale_weight 2e-6 before this step, 1e-4
+                               # from it on (prune_training's schedule)
+
+
+def check_replay_counts(path, graph, call, reps=3):
+    """Every counter set to 0, then `reps` calls of an already captured
+    graph: each counter must read reps times the graph's launches (the
+    replay accounting of utils/graphs), with no new capture."""
+    from fovsplat_torch.ops.kernels import launch_counters
+    counters = launch_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    captures = graph.captures
+    for _ in range(reps):
+        call()
+    got = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    want = {k: reps * graph.launches_per_replay.get(k, 0) for k in counters}
+    if got != want or graph.captures != captures:
+        raise AssertionError(f"{path}: counters after {reps} replays {got}, "
+                             f"expected {want}")
+
+
+def memory_of(call, calls):
+    """Allocated bytes before, and the peak over `calls` calls of call()."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return {"allocated_before": before,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def profile_summary(call, iters):
+    """profile_window's wall, device and idle numbers, the kernels it saw
+    and the port's kernels among them (by name: whether the profiler
+    names the kernels of a replayed graph)."""
+    p = profile_window(call, iters)
+    return {**{k: p[k] for k in ("wall_ms_per_iter",
+                                 "device_busy_ms_per_iter",
+                                 "device_idle_share", "kernel_events",
+                                 "profiler_windows", "own_kernels")},
+            "top": [t["name"] for t in p["top"][:6]]}
+
+
+def frame_forms(render, cam, gazes):
+    """fps_benchmark's avg ms in both forms (batched; per-rep synchronised)."""
+    from fovsplat_torch.eval import fps
+    return {form: fps.fps_benchmark(render, [cam], gazes=gazes,
+                                    sync_every_rep=sync,
+                                    log=lambda *_: None)["avg_ms"]
+            for form, sync in (("batched", False), ("per_rep_sync", True))}
+
+
+def graph_frame_path(path, frame, cam, gazes, iters):
+    """One frame path of the graphs phase: `frame` a fresh graphed frame
+    (graphs.graphed_frame), frame.eager its eager function. The eager
+    function's times, profile and peak memory first; then the graph's
+    capture, the graphed frame against the eager one at every gaze (image,
+    num_pairs and overflow bit for bit), the first frame unchanged by
+    the later ones, the graph's times, profile and peak memory, the
+    copy-in and copy-out device ms and the replay accounting."""
+    import torch
+    from fovsplat_torch.data.cameras import camera_tensors
+    dev = cam.device
+    gz = [torch.tensor(g, dtype=torch.float32, device=dev) for g in gazes]
+    eager, graph = frame.eager, frame.graph
+    row = {"phase": "graphs", "path": path, "gazes": gazes}
+    t0 = time.perf_counter()
+    row["eager"] = {"memory": memory_of(lambda: eager(cam, gz[0]), 2),
+                    "wall_ms": frame_forms(eager, cam, gazes),
+                    "profile": profile_summary(lambda: eager(cam, gz[0]),
+                                               iters)}
+    mem = memory_of(lambda: frame(cam, gz[0]), 2)
+    keys = ("render", "num_pairs", "overflow")
+    first = frame(cam, gz[0])
+    kept = {k: first[k].clone() for k in keys}
+    same = []
+    for g in gz:
+        a, b = frame(cam, g), eager(cam, g)
+        same.append({k: bool(torch.equal(a[k], b[k])) for k in keys})
+    # A frame at another gaze: the first frame keeps its values and shares
+    # no storage with it.
+    later = frame(cam, torch.tensor((0.2, 0.2), dtype=torch.float32,
+                                    device=dev))
+    unchanged = all(torch.equal(first[k], kept[k])
+                    and first[k].untyped_storage().data_ptr()
+                    != later[k].untyped_storage().data_ptr() for k in keys)
+    load = (*camera_tensors(cam), gz[0])
+    row["graphed"] = {
+        "memory": mem, "wall_ms": frame_forms(frame, cam, gazes),
+        "profile": profile_summary(lambda: frame(cam, gz[0]), iters),
+        "copy_in_device_ms": cuda_ms(lambda: graph.load(load), 20),
+        "copy_out_device_ms": cuda_ms(graph.fresh_outputs, 20),
+        "captures": graph.captures, "capture_seconds": graph.capture_seconds,
+        "launches_per_replay": graph.launches_per_replay}
+    check_replay_counts(path, graph, lambda: frame(cam, gz[0]))
+    row.update(bit_identical=same, first_frame_unchanged=unchanged,
+               overflow=int(first["overflow"]),
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    if not (all(all(s.values()) for s in same) and unchanged
+            and graph.captures == 1 and row["overflow"] == 0):
+        raise AssertionError(f"graphs, {path}: the graphed frame differs "
+                             f"from the eager one or failed a check")
+
+
+def state_flat(state, aux=None):
+    """A TrainerState's parameters, moments and Adam count (and aux's
+    values), by name."""
+    out = {f"param.{f}": getattr(state.params, f).detach()
+           for f in state.params.fields()}
+    out.update({f"mu.{f}": v for f, v in state.opt.mu.items()})
+    out.update({f"nu.{f}": v for f, v in state.opt.nu.items()})
+    out["count"] = state.opt.count
+    out.update({f"aux.{k}": v for k, v in (aux or {}).items()})
+    return out
+
+
+def graph_train_path(st, cam, gt, cfg):
+    """The train step of the graphs phase: GRAPH_TRAIN_STEPS graphed
+    photometric steps with the scale-decay term against as many eager
+    steps (loops.photometric_step) from one state, `it` 1 to 13,
+    scale_weight 2e-6 then 1e-4 from step GRAPH_SWITCH_STEP: loss, aux,
+    every parameter and moment bit for bit, each graphed state unchanged
+    by the next step and the first state by all. Then both steps' times
+    (CUDA events over 5 chained steps; the host clock with a host read of
+    the loss after each step), profiles, peak memory, the copy-in and
+    copy-out device ms and the replay accounting."""
+    import torch
+    from fovsplat_torch.data.cameras import camera_tensors
+    from fovsplat_torch.train import loops
+    step = loops.make_photometric_step(cfg, use_scale_decay=True)
+
+    def eager(state, it, sw):
+        return loops.photometric_step(state, cam, gt, it, sw, cfg, True)
+
+    def weight(k):
+        return 2e-6 if k < GRAPH_SWITCH_STEP else 1e-4
+    t0 = time.perf_counter()
+    row = {"phase": "graphs", "path": "train step", "steps":
+           GRAPH_TRAIN_STEPS, "switch_step": GRAPH_SWITCH_STEP}
+    row["eager_memory"] = memory_of(lambda: eager(st, 1, 2e-6), 2)
+    row["graphed_memory"] = memory_of(lambda: step(st, cam, gt, 1, 2e-6), 2)
+    st_kept = {k: v.clone() for k, v in state_flat(st).items()}
+    diffs, stale, losses = [], [], []
+    se, sg, prev = st, st, None
+    for k in range(1, GRAPH_TRAIN_STEPS + 1):
+        se, ae = eager(se, k, weight(k))
+        sg, ag = step(sg, cam, gt, k, weight(k))
+        fe, fg = state_flat(se, ae), state_flat(sg, ag)
+        diffs.append(sorted(n for n in fe if not torch.equal(fe[n], fg[n])))
+        if prev is not None:
+            # The graphed state of step k - 1 against the eager one, after
+            # step k.
+            stale.append(sorted(n for n in prev[0]
+                                if not torch.equal(prev[0][n], prev[1][n])))
+        prev = (fe, fg)
+        losses.append(float(ag["loss"]))
+    fresh = state_flat(st)
+    first_kept = all(torch.equal(fresh[n], st_kept[n]) for n in st_kept)
+    del st_kept, prev
+
+    def chained(call, sync):
+        def run():
+            cur = st
+            for k in range(1, 6):
+                cur, aux = call(cur, k, 2e-6)
+                if sync:
+                    float(aux["loss"])
+        return run
+
+    def forms(call):
+        out = {"batched": cuda_ms(chained(call, False), 1) / 5}
+        run = chained(call, True)
+        run()
+        t1 = time.perf_counter()
+        run()
+        out["per_step_sync"] = (time.perf_counter() - t1) * 1e3 / 5
+        return out
+
+    def graphed(state, it, sw):
+        return step(state, cam, gt, it, sw)
+    graph = step.graph
+    load = (*loops._state_tensors(st), *camera_tensors(cam), gt, 1, 2e-6)
+    row.update(
+        eager={"wall_ms": forms(eager), "profile": profile_summary(
+            lambda: eager(st, 1, 2e-6), 3)},
+        graphed={"wall_ms": forms(graphed), "profile": profile_summary(
+            lambda: graphed(st, 1, 2e-6), 3),
+            "copy_in_device_ms": cuda_ms(lambda: graph.load(load), 5),
+            "copy_out_device_ms": cuda_ms(graph.fresh_outputs, 5),
+            "captures": graph.captures,
+            "capture_seconds": graph.capture_seconds,
+            "launches_per_replay": graph.launches_per_replay},
+        differing=diffs, changed_by_next_step=stale,
+        first_state_unchanged=first_kept,
+        losses=losses, seconds=time.perf_counter() - t0)
+    check_replay_counts("train step", graph, lambda: graphed(st, 1, 2e-6))
+    emit(row)
+    if (any(diffs) or any(stale) or not first_kept or graph.captures != 1):
+        raise AssertionError("graphs, train step: the graphed step differs "
+                             "from the eager one or failed a check")
+
+
+def run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model,
+               ps1_cam, st, tcam, gt, tcfg):
+    """The graphs phase: each main-path frame ("ours" over the 9 gazes,
+    SM-FR, MM-FR and PS1 with compaction off and on at the centre gaze)
+    and the train step as fresh CUDA graphs against their eager
+    functions (graph_frame_path, graph_train_path)."""
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.utils import graphs
+    centre = [(0.5, 0.5)]
+    graph_frame_path("ours", fps.make_fov_render(model, cfg, alpha=ALPHA),
+                     cam, fps.GAZES, 10)
+    graph_frame_path("SM-FR", graphs.graphed_frame(smfr_render.eager), cam,
+                     centre, 10)
+    graph_frame_path("MM-FR", graphs.graphed_frame(mmfr_render.eager), cam,
+                     centre, 3)
+    for flag in (False, True):
+        graph_frame_path("PS1, compact_table" if flag else "PS1",
+                         ps1_frame(ps1_model, flag), ps1_cam, centre, 10)
+    graph_train_path(st, tcam, gt, tcfg)
 
 
 # --- the eval phases -------------------------------------------------------
@@ -3256,12 +3535,14 @@ def run_distill(st, scene, cfg, kernels, device):
     """Phase distill: the quality phase's teacher (the 1.16M proxy, SH
     degree 3) distilled to degree 1 for DISTILL_ITERS iterations on the
     scene's 14 train views, counters set to 0 before and read after
-    (kernels 4 and 5 twice an iteration, 6 and 7 once), twice from the
+    (kernels 4 and 5 twice an iteration, 6 and 7 once, and each once more
+    in the graphed step's warm-up run), twice from the
     same seed: the students bit-identical; the loss against the teacher's
     render of view 0 before and after, ms an iteration."""
     import torch
     from fovsplat_torch.models.gaussians import FIELDS
     from fovsplat_torch.train import distill, loops, losses
+    from fovsplat_torch.utils import graphs
     sync = synced(device)
     views = scene.train_views
     for kf in kernels.values():
@@ -3296,14 +3577,16 @@ def run_distill(st, scene, cfg, kernels, device):
            "bit_identical_twice": bit, "launches": launches}
     emit(row)
     it = DISTILL_ITERS
+    w = graphs.WARMUPS     # the student's step: one capture a run
     if not (bit and math.isfinite(after)
             and row["features_rest"] == [st.capacity, 3, 3]):
         raise AssertionError("the distill phase failed a check")
-    if not (launches["expand_ps1"] == launches["blend_forward"] == 2 * it
-            and launches["blend_backward"]
-            == launches["reduce_by_sorted_gid"] == it):
+    if not (launches["expand_ps1"] == launches["blend_forward"]
+            == 2 * it + w and launches["blend_backward"]
+            == launches["reduce_by_sorted_gid"] == it + w):
         raise AssertionError(f"distill: kernels 4, 5 twice and 6, 7 once "
-                             f"an iteration: {launches}")
+                             f"an iteration, and once more each in the "
+                             f"warm-up: {launches}")
     return launches
 
 
@@ -4138,7 +4421,6 @@ def main():
     from fovsplat_torch.ops.kernels import blend_fov as bf
     from fovsplat_torch.ops.kernels import blend_fwd as bfw
     from fovsplat_torch.ops.kernels import blend_stats as bs
-    from fovsplat_torch.ops import rasterize as rast
     from fovsplat_torch.ops.kernels import build_table as bt
     from fovsplat_torch.ops.kernels import compact_table as ct
     from fovsplat_torch.ops.kernels import expand_fov as ef
@@ -4196,6 +4478,8 @@ def main():
     res = fps.fps_benchmark(render, [cam], warmups=3, reps=20,
                             log=lambda *_: None)
     launches = {k: kf.launches for k, kf in all_kernels.items()}
+    # The launches of the frame's graph replays, by kernels line row.
+    graphed_l = replayed(render.graph)
     per_gaze = []
     for gz, ms in zip(fps.GAZES, res["per_gaze_ms"]):
         out = render(cam, torch.tensor(gz, dtype=torch.float32, device=dev))
@@ -4213,10 +4497,12 @@ def main():
     emit({"phase": "frame", "n": N_FULL, "width": W_FULL,
           "height": H_FULL, "alpha": ALPHA, "warmups": 3, "reps": 20,
           "per_gaze": per_gaze, "avg_ms": res["avg_ms"],
-          "avg_fps": res["avg_fps"], "launches": launches})
+          "avg_fps": res["avg_fps"], "launches": launches,
+          "launches_graphed": graphed_l, "captures": render.graph.captures,
+          "capture_seconds": render.graph.capture_seconds})
     for k in frame_kernels:
-        if launches[k] <= 0:
-            raise AssertionError(f"{k} never launched on the frame path")
+        if launches[k] <= 0 or graphed_l.get(k, 0) <= 0:
+            raise AssertionError(f"{k} never launched in the frame's graph")
 
     frame_times("ours", render, cam, fps.GAZES)
     gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=dev)
@@ -4252,44 +4538,52 @@ def main():
                         "compact_table": ct.compact_table})
     ps1_model, ps1_cam = check_inference_kernels(
         dev, bt.build_table(model, cam, full[3])[0], results)
-    pl = run_ps1_frame(ps1_model, ps1_cam, all_kernels)
+    pl, pg = run_ps1_frame(ps1_model, ps1_cam, all_kernels)
     for row, k in (("build_table_ps1", "build_table_ps1"),
                    ("expand_ps1_q", "expand_ps1"),
                    ("blend_forward_q", "blend_forward_q")):
         launches[row] = pl["plain_table"][k] + pl["compact_table"][k]
+        graphed_l[row] = (pg["plain_table"].get(k, 0)
+                          + pg["compact_table"].get(k, 0))
     launches["compact_table"] = pl["compact_table"]["compact_table"]
-    ps1_cfg = RasterizeConfig(pair_capacity=TRAIN_PAIR_CAPACITY,
-                              compact_capacity=TRAIN_COMPACT_CAPACITY)
-    frame_times("PS1", lambda c, _gaze: rast.rasterize_ps1_soa(
-        ps1_model, c, config=ps1_cfg), ps1_cam, [(0.5, 0.5)])
+    graphed_l["compact_table"] = pg["compact_table"]["compact_table"]
+    ps1_graph = ps1_frame(ps1_model, False)
+    frame_times("PS1", ps1_graph, ps1_cam, [(0.5, 0.5)])
     emit({"phase": "profile", "path": "PS1 frame",
-          **profile_window(lambda: rast.rasterize_ps1_soa(
-              ps1_model, ps1_cam, config=ps1_cfg), 10)})
+          **profile_window(lambda: ps1_graph(ps1_cam, gaze), 10)})
     ps1_vs_cpu_and_f32()
-    run_smfr(cam, all_kernels)
-    ml = run_mmfr(cam, all_kernels, results)
+    smfr_render = run_smfr(cam, all_kernels)
+    ml, mg, mmfr_render = run_mmfr(cam, all_kernels, results)
     launches["blend_forward_q_mmfr"] = ml["blend_forward_q"]
-    del ps1_model
+    graphed_l["blend_forward_q_mmfr"] = mg["blend_forward_q"]
 
     # --- the train path: the photometric step at full width ---
     tcfg = train_config()
-    steps, step_ms, wall_ms, tl, peak = run_train_path(st, tcam, gt, tcfg,
-                                                       all_kernels)
+    steps, step_ms, wall_ms, tl, tg, peak = run_train_path(
+        st, tcam, gt, tcfg, all_kernels)
     emit({"phase": "train", "n": N_FULL, "width": W_FULL, "height": H_FULL,
           "pair_capacity": TRAIN_PAIR_CAPACITY,
           "compact_capacity": TRAIN_COMPACT_CAPACITY, "warmups": 3,
           "timed": 10, "step_ms": step_ms, "host_wall_ms_per_step": wall_ms,
-          "peak_mem_bytes": peak, "steps": steps, "launches": tl})
+          "peak_mem_bytes": peak, "steps": steps, "launches": tl,
+          "launches_graphed": tg})
     for k in train_kernels:
-        if tl[k] <= 0:
-            raise AssertionError(f"{k} never launched on the train path")
+        if tl[k] <= 0 or tg.get(k, 0) <= 0:
+            raise AssertionError(f"{k} never launched in the train step's "
+                                 f"graph")
         launches[k] = tl[k]
+        graphed_l[k] = tg[k]
     check_determinism(st, tcam, gt, tcfg)
     train_vs_cpu(train_config(1 << 20, None))
     from fovsplat_torch.train import loops
     step = loops.make_photometric_step(tcfg)
     emit({"phase": "profile", "path": "train step",
           **profile_window(lambda: step(st, tcam, gt, 0), 3)})
+
+    # --- the graphs phase: each path's graph against its eager function ---
+    run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model, ps1_cam,
+               st, tcam, gt, tcfg)
+    del ps1_model, smfr_render, mmfr_render
 
     # --- the score pass, the model-building chain, the HVS step ---
     check_stats_kernel(st, tcam, results)
@@ -4397,6 +4691,7 @@ def main():
         r = results[k]
         rows.append({"name": k, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[k],
+                     "launches_graphed": graphed_l.get(k, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "device_split": r["device_split"],

@@ -43,6 +43,22 @@ class Camera:
                 / (2.0 * self.tan_fovy))
 
 
+# The tensor fields of a Camera, in the order camera_tensors gives them.
+TENSOR_FIELDS = ("world_view", "full_proj", "cam_center", "tan_fovx",
+                 "tan_fovy")
+
+
+def camera_tensors(camera: Camera) -> tuple:
+    """The camera's tensors, in TENSOR_FIELDS order."""
+    return tuple(getattr(camera, f) for f in TENSOR_FIELDS)
+
+
+def camera_with_tensors(camera: Camera, tensors) -> Camera:
+    """`camera` with its tensors replaced by `tensors` (TENSOR_FIELDS
+    order); width and height stay."""
+    return dataclasses.replace(camera, **dict(zip(TENSOR_FIELDS, tensors)))
+
+
 def camera_from_numpy(world_view, full_proj, cam_center, tan_fovx,
                       tan_fovy, width: int, height: int,
                       device=None) -> Camera:

@@ -7,6 +7,12 @@ render call. Time comes from a pair of torch.cuda.Event around each batch
 of repetitions, with one synchronize per batch, or, as the JAX harness
 times it, from the host clock with a host read after every repetition;
 the harness refuses to time anything but a CUDA render.
+
+On the card the makers return their render as a CUDA graph per camera
+shape (utils/graphs.graphed_frame), the counterpart of the JAX makers'
+jax.jit: fresh output tensors each call, the camera's tensors and the
+gaze copied in. The eager function is the graphed callable's `eager`
+attribute; for a model on the CPU the makers return it as it is.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from fovsplat_torch.eval import mmfr as emm
 from fovsplat_torch.ops import foveated as fov
 from fovsplat_torch.ops import sh as sh_mod
 from fovsplat_torch.ops.foveation import FoveationConfig
+from fovsplat_torch.utils.graphs import graphed_frame
 
 GAZES = [(x, y) for y in (0.2, 0.5, 0.8) for x in (0.2, 0.5, 0.8)]
 MODES = ("ours", "naive")
@@ -27,7 +34,8 @@ MODES = ("ours", "naive")
 
 def make_fov_render(model, config, fov_cfg=None, alpha: float = 0.05,
                     blending: bool = True, mode: str = "ours"):
-    """render(camera, gaze (2,) f32 tensor) -> the rasterize_fov_soa dict.
+    """render(camera, gaze (2,) f32 tensor) -> the rasterize_fov_soa dict,
+    a CUDA graph for a model on the card (graphed_frame).
 
     model: a train/compose.ComposedModel, packed here for `mode` ("ours":
     per-level DC and opacity; "naive", SM-FR: one shared colour and
@@ -48,7 +56,7 @@ def make_fov_render(model, config, fov_cfg=None, alpha: float = 0.05,
         return fov.rasterize_fov_soa(model, camera, gaze=gaze, alpha=alpha,
                                      blending=blending, config=config,
                                      fov_cfg=fov_cfg)
-    return render
+    return render if model.xyz.device.type == "cpu" else graphed_frame(render)
 
 
 def make_mmfr_render(models, config, fov_cfg=None, alpha: float = 0.05):
@@ -57,7 +65,7 @@ def make_mmfr_render(models, config, fov_cfg=None, alpha: float = 0.05):
     models, one pass per level restricted to that level's tiles
     (eval/mmfr.render_mmfr). config: one RasterizeConfig or one per level.
     overflow and num_pairs sum the passes; "passes" lists each pass's
-    diagnostics."""
+    diagnostics. A CUDA graph for models on the card (graphed_frame)."""
     fov_cfg = fov_cfg or FoveationConfig()
 
     def render(camera, gaze):
@@ -67,7 +75,8 @@ def make_mmfr_render(models, config, fov_cfg=None, alpha: float = 0.05):
                 "overflow": sum(d["overflow"] for d in diags),
                 "num_pairs": sum(d["num_pairs"] for d in diags),
                 "passes": diags}
-    return render
+    return (render if models[0]["xyz"].device.type == "cpu"
+            else graphed_frame(render))
 
 
 def mmfr_models_from_composed(composed):

@@ -15,8 +15,11 @@ pruning and PS-mask learning (counterpart of fovsplat/train/loops.py).
                       pooling size, DC-SH and opacity trainable,
                       HVS-gated "surface" pruning.
 
-The steps are functional: each returns a new TrainerState and leaves the
-old one as it was, and so do the prune functions of models/state.py. So
+On the card, make_photometric_step returns its step as a CUDA graph per
+state capacity and camera shape (utils/graphs), the counterpart of the
+JAX maker's jax.jit; photometric_step is its eager body. The steps are
+functional: each returns a new TrainerState and leaves the old one as it
+was, and so do the prune functions of models/state.py. So
 a rollback snapshot is the state itself, where the JAX loops copy it to
 host memory (loops.py:342-346). The control flow (the seeded view stack,
 the gates, the scale-weight schedule, the per-cut re-gating) is the JAX
@@ -33,12 +36,15 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from fovsplat_torch.data.cameras import (TENSOR_FIELDS, camera_tensors,
+                                         camera_with_tensors)
 from fovsplat_torch.models import state as S
-from fovsplat_torch.models.gaussians import FIELDS
+from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops import stats as stats_ops
 from fovsplat_torch.perception import metameric
 from fovsplat_torch.train import losses, optim
+from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
 
 
@@ -67,12 +73,16 @@ def render_state(state: S.TrainerState, camera, cfg: LoopConfig,
 def _gs_counts(binned, capacity: int):
     """Kept pairs per Gaussian ~ the reference's gs_count (one atomicAdd
     per fetched (tile, Gaussian) pair, forward.cu:361), from the sorted
-    pair list's Gaussian ids up to num_pairs."""
+    pair list's Gaussian ids up to num_pairs: ones added into a fixed
+    capacity + 1 buffer, the last slot taking the lanes past num_pairs
+    (bincount would read its length back to the host). Integer sums:
+    exact, whatever the order."""
     lane = torch.arange(binned.pair_gauss.shape[0],
                         device=binned.pair_gauss.device)
     ids = torch.where(lane < binned.num_pairs, binned.pair_gauss.long(),
                       capacity)
-    return torch.bincount(ids, minlength=capacity + 1)[:capacity]
+    counts = torch.zeros(capacity + 1, dtype=torch.int64, device=ids.device)
+    return counts.index_add_(0, ids, torch.ones_like(ids))[:capacity]
 
 
 def _mask_dead_grads(grads: dict, live):
@@ -150,29 +160,91 @@ def photometric_grads(state: S.TrainerState, camera, gt, cfg: LoopConfig,
     return _loss_grads(state, camera, cfg, loss_of)
 
 
+def photometric_step(state: S.TrainerState, camera, gt, it, scale_weight,
+                     cfg: LoopConfig, use_scale_decay: bool = False):
+    """One photometric step, the eager body of make_photometric_step's
+    step: (new state, {loss, overflow, nonfinite, num_pairs}), the values
+    0-d tensors on the state's device (not synchronised). `it` and
+    `scale_weight` are python numbers or 0-d tensors there."""
+    loss, grads, n_bad, out = photometric_grads(
+        state, camera, gt, cfg, use_scale_decay, scale_weight)
+    lrs = optim.learning_rates(state.params, it, cfg.optim,
+                               cfg.spatial_lr_scale)
+    params, opt = optim.apply_updates(state.params, grads, state.opt, lrs,
+                                      cfg.optim)
+    bn = out["binned"]
+    return (dataclasses.replace(state, params=params, opt=opt),
+            {"loss": loss, "overflow": bn.overflow, "nonfinite": n_bad,
+             "num_pairs": bn.num_pairs})
+
+
+def _state_tensors(state: S.TrainerState) -> tuple:
+    """The parameters, first and second moments (FIELDS order each), the
+    Adam count and the live mask."""
+    p, o = state.params, state.opt
+    return (*(getattr(p, f) for f in FIELDS), *(o.mu[f] for f in FIELDS),
+            *(o.nu[f] for f in FIELDS), o.count, state.live)
+
+
+def _state_of(ts) -> S.TrainerState:
+    """_state_tensors' inverse."""
+    k = len(FIELDS)
+    return S.TrainerState(
+        params=GaussianParams(**dict(zip(FIELDS, ts[:k]))),
+        opt=optim.AdamState(mu=dict(zip(FIELDS, ts[k:2 * k])),
+                            nu=dict(zip(FIELDS, ts[2 * k:3 * k])),
+                            count=ts[3 * k]),
+        live=ts[3 * k + 1])
+
+
 def make_photometric_step(cfg: LoopConfig, use_scale_decay: bool = False,
                           device=None):
     """The step function step(state, camera, gt, it, scale_weight) ->
     (new state, {loss, overflow, nonfinite, num_pairs}), the values 0-d
     tensors on the device (not synchronised). `device` None means CUDA
-    and raises without it; pass "cpu" for the plain path."""
+    and raises without it; pass "cpu" for the plain path.
+
+    On the card the step is a CUDA graph per state capacity and camera
+    (width, height) (utils/graphs.Graph): the parameters, moments, live
+    mask, Adam count, camera tensors, ground truth, `it` and
+    `scale_weight` are its static inputs, copied in each call, and the
+    new state's tensors are fresh (the live mask is the caller's). The
+    graphed step has attributes `graph` and `eager` (the eager step); on
+    the CPU the eager step is returned."""
     dev = resolve_device(device)
 
-    def step(state: S.TrainerState, camera, gt, it, scale_weight=0.0):
+    def check(state):
         if state.params.xyz.device.type != dev.type:
             raise ValueError(f"state on {state.params.xyz.device}, step "
                              f"made for {dev}")
-        loss, grads, n_bad, out = photometric_grads(
-            state, camera, gt, cfg, use_scale_decay, scale_weight)
-        lrs = optim.learning_rates(state.params, it, cfg.optim,
-                                   cfg.spatial_lr_scale)
-        params, opt = optim.apply_updates(state.params, grads, state.opt,
-                                          lrs, cfg.optim)
-        bn = out["binned"]
-        return (dataclasses.replace(state, params=params, opt=opt),
-                {"loss": loss, "overflow": bn.overflow, "nonfinite": n_bad,
-                 "num_pairs": bn.num_pairs})
 
+    def eager(state: S.TrainerState, camera, gt, it, scale_weight=0.0):
+        check(state)
+        return photometric_step(state, camera, gt, it, scale_weight, cfg,
+                                use_scale_decay)
+
+    if dev.type == "cpu":
+        return eager
+    graph = graphs.Graph()
+    n_state, n_cam = 3 * len(FIELDS) + 2, len(TENSOR_FIELDS)
+
+    def step(state: S.TrainerState, camera, gt, it, scale_weight=0.0):
+        check(state)
+
+        def run(*ts):
+            new, aux = photometric_step(
+                _state_of(ts[:n_state]),
+                camera_with_tensors(camera, ts[n_state:n_state + n_cam]),
+                *ts[n_state + n_cam:], cfg, use_scale_decay)
+            return _state_tensors(new)[:-1], aux
+
+        new, aux = graph((state.capacity, camera.width, camera.height), run,
+                         *_state_tensors(state), *camera_tensors(camera),
+                         gt, it, scale_weight)
+        return _state_of((*new, state.live)), aux
+
+    step.graph = graph
+    step.eager = eager
     return step
 
 

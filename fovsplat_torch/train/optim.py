@@ -54,12 +54,18 @@ def init_state(params: GaussianParams) -> AdamState:
 def learning_rates(params: GaussianParams, step, cfg: OptimConfig,
                    spatial_lr_scale: float = 1.0) -> dict:
     """field -> learning rate; xyz follows the exponential schedule
-    (update_learning_rate, gaussian_model.py:297-303)."""
+    (update_learning_rate, gaussian_model.py:297-303), computed on the
+    parameters' device: `step` is a python number, filled into a 0-d
+    tensor there (no host-to-device copy, so a CUDA graph can hold the
+    step), or a 0-d tensor."""
+    dev = params.xyz.device
+    step = (step.to(dev) if torch.is_tensor(step)
+            else torch.full((), step, dtype=torch.float32, device=dev))
     xyz_lr = expon_lr(step, cfg.position_lr_init * spatial_lr_scale,
                       cfg.position_lr_final * spatial_lr_scale,
                       lr_delay_mult=cfg.position_lr_delay_mult,
                       max_steps=cfg.position_lr_max_steps)
-    return {"xyz": xyz_lr.to(params.xyz.device),
+    return {"xyz": xyz_lr,
             "features_dc": cfg.feature_lr,
             "features_rest": cfg.feature_lr / 20.0,
             "scaling": cfg.scaling_lr,

@@ -1,0 +1,185 @@
+"""CUDA graphs of the port's frames and train step: the counterpart of
+the jax.jit that the JAX package puts around them (fovsplat/eval/fps.py:93
+and :114, fovsplat/train/loops.py:149).
+
+A Graph holds one captured graph of a function of tensors at a time,
+keyed by the caller's static arguments (shapes, widths, capacities and
+configs: what jax.jit treats as static) and by the shapes and types of
+the arguments. The first call for a key:
+
+  1. copies the arguments into static input buffers;
+  2. runs the function WARMUPS times on a side stream under
+     torch.cuda.set_sync_debug_mode("error"): the kernels are built and
+     loaded there, csrc/common.cuh's resident_blocks fills its per-device
+     cache (cudaFuncSetAttribute, the occupancy query) outside the
+     capture, and any host synchronisation left on the path raises
+     there, by name;
+  3. captures one call with torch.cuda.graph, in a memory pool of its
+     own.
+
+Every call, the first included, then copies its arguments in (a python
+number is filled into a 0-d static input), replays the graph and returns
+clones of the static outputs: fresh tensors, as jax.jit returns fresh
+arrays, so no call writes into a tensor that an earlier call returned. A
+new key replaces the graph and frees its pool. A failed capture raises,
+and a CPU tensor is refused: nothing runs eagerly in a graph's place.
+The makers (eval/fps, train/loops) return their eager functions for the
+CPU.
+
+Launch counters: each kernel wrapper counts its launches in Python
+(ops/kernels.launch_counters), so a replay would not move them. A
+capture's change of every counter is taken back (the captured kernels
+did not run then) and added again on every replay; the warm-up's
+launches did run, and stay counted.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+from torch.utils import _pytree
+
+from fovsplat_torch.data.cameras import camera_tensors, camera_with_tensors
+from fovsplat_torch.ops.kernels import launch_counters
+
+WARMUPS = 1
+# The type of a 0-d static input that holds a python number.
+_SCALAR_DTYPES = {int: torch.int64, float: torch.float32}
+
+
+def _signature(arg):
+    if torch.is_tensor(arg):
+        if arg.device.type != "cuda":
+            raise ValueError(f"a CUDA graph takes CUDA tensors; got a tensor "
+                             f"on {arg.device}")
+        return tuple(arg.shape), arg.dtype, arg.device
+    if type(arg) not in _SCALAR_DTYPES:
+        raise TypeError(f"a CUDA graph takes tensors and python numbers; got "
+                        f"{type(arg).__name__}")
+    return type(arg)
+
+
+def _counts(counters):
+    return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+
+class Graph:
+    """One CUDA graph at a time. Attributes: key (the captured key),
+    captures, replays, capture_seconds (the last capture's wall time,
+    warm-up included) and launches_per_replay ({counter name: launches
+    the graph holds})."""
+
+    def __init__(self):
+        self.key = None
+        self.captures = 0
+        self.replays = 0
+        self.capture_seconds = 0.0
+        self.launches_per_replay = {}
+        self._counters = []     # (wrapper, attribute, launches a replay)
+        self._graph = None
+        self._inputs = ()
+        self._outputs = []
+        self._spec = None
+
+    def __call__(self, key, fn, *args):
+        """fn(*args) through the graph of `key`: args are CUDA tensors on
+        one device and python numbers. fn is called only to warm up and
+        capture, so it must compute the same function of its arguments
+        for every call with this key."""
+        sig = (key, tuple(_signature(a) for a in args))
+        if sig != self.key:
+            self._capture(sig, fn, args)
+        else:
+            self.load(args)
+        return self.replay()
+
+    def load(self, args):
+        """Copy the arguments into the static inputs."""
+        with torch.no_grad():
+            for dst, src in zip(self._inputs, args):
+                if torch.is_tensor(src):
+                    dst.copy_(src)
+                else:
+                    dst.fill_(src)
+
+    def replay(self):
+        """Replay the graph on the current stream, count its launches and
+        return fresh_outputs()."""
+        self._graph.replay()
+        self.replays += 1
+        for obj, attr, n in self._counters:
+            setattr(obj, attr, getattr(obj, attr) + n)
+        return self.fresh_outputs()
+
+    def fresh_outputs(self):
+        """Clones of the static outputs, in the structure fn returned."""
+        with torch.no_grad():
+            return _pytree.tree_unflatten(
+                [t.clone() if torch.is_tensor(t) else t
+                 for t in self._outputs], self._spec)
+
+    def _capture(self, sig, fn, args):
+        # Drop the old graph first, so that its pool is freed.
+        self.key, self._graph, self._inputs, self._outputs = None, None, (), []
+        self.launches_per_replay, self._counters = {}, []
+        devs = {a.device for a in args if torch.is_tensor(a)}
+        if len(devs) != 1:
+            raise ValueError(f"a CUDA graph takes tensors on one device; got "
+                             f"{sorted(map(str, devs))}")
+        dev = devs.pop()
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev):
+            with torch.no_grad():
+                inputs = tuple(
+                    a.detach().clone() if torch.is_tensor(a) else
+                    torch.full((), a, dtype=_SCALAR_DTYPES[type(a)],
+                               device=dev) for a in args)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            mode = torch.cuda.get_sync_debug_mode()
+            with torch.cuda.stream(side):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(WARMUPS):
+                        fn(*inputs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            counters = launch_counters()
+            before = _counts(counters)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    out = fn(*inputs)
+            finally:
+                after = _counts(counters)
+                for name, (obj, attr) in counters.items():
+                    setattr(obj, attr, before[name])
+        self._outputs, self._spec = _pytree.tree_flatten(out)
+        self._graph, self._inputs = graph, inputs
+        self.launches_per_replay = {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}
+        self._counters = [(*counters[k], n)
+                          for k, n in self.launches_per_replay.items()]
+        self.captures += 1
+        self.capture_seconds = time.perf_counter() - t0
+        self.key = sig
+
+
+def graphed_frame(render):
+    """render(camera, gaze) -> dict of tensors, as one CUDA graph per
+    camera (width, height); the camera's tensors and the gaze are static
+    inputs. The returned frame(camera, gaze) has attributes `graph` (its
+    Graph) and `eager` (render itself)."""
+    graph = Graph()
+
+    def frame(camera, gaze):
+        def run(*ts):
+            return render(camera_with_tensors(camera, ts[:-1]), ts[-1])
+        return graph((camera.width, camera.height), run,
+                     *camera_tensors(camera), gaze)
+
+    frame.graph = graph
+    frame.eager = render
+    return frame

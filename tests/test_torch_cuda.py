@@ -1227,3 +1227,144 @@ def test_world_size_one_nccl_shards_match_single_device(cuda):
         assert int(aux["overflow"]) == 0
     finally:
         dist.destroy_process_group()
+
+
+# CUDA graphs of the frames and the photometric step (utils/graphs)
+# against their eager functions: the same kernels in the same order on
+# the same inputs, so bit for bit.
+
+GRAPH_PATHS = ["ours", "naive", "ps1", "ps1_compact", "mmfr"]
+
+
+def _graphed_frame(dev, path):
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.utils import graphs
+    cfg = RasterizeConfig(pair_capacity=1 << 20,
+                          compact_table=path == "ps1_compact")
+    if path.startswith("ps1"):
+        model = _ps1_model(dev)
+        return graphs.graphed_frame(
+            lambda c, _gaze: rast.rasterize_ps1_soa(model, c, config=cfg))
+    sc = proxy.bicycle_proxy(n=N, seed=2)
+    if path == "mmfr":
+        return fps.make_mmfr_render(convert.mmfr_models_from_numpy(
+            sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+            sc["shs_dcs"], sc["highest_levels"], device=dev), cfg)
+    return fps.make_fov_render(convert.fov_model_from_numpy(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+        sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"], device=dev,
+        shared_colors=path == "naive"), cfg, mode=path)
+
+
+def _set_counters(value=0):
+    from fovsplat_torch.ops.kernels import launch_counters
+    counters = launch_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, value)
+    return counters
+
+
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graphed_frames_match_eager(cuda, path):
+    """The graphed "ours", SM-FR, PS1 (compaction off and on) and MM-FR
+    frames against their eager functions at two gazes: image, num_pairs
+    and overflow bit for bit, one capture, and the first frame unchanged
+    by the second (fresh outputs)."""
+    frame = _graphed_frame(cuda, path)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    outs = []
+    for gz in ((0.4, 0.6), (0.2, 0.2)):
+        g = torch.tensor(gz, device=cuda)
+        a, b = frame(cam, g), frame.eager(cam, g)
+        for k in ("render", "num_pairs", "overflow"):
+            assert torch.equal(a[k], b[k]), (gz, k)
+        outs.append((a, b))
+    (first, first_eager), (second, _) = outs
+    assert torch.equal(first["render"], first_eager["render"])
+    assert first["render"].data_ptr() != second["render"].data_ptr()
+    assert frame.graph.captures == 1 and int(first["overflow"]) == 0
+    if not path.startswith("ps1"):   # the PS1 frame has no gaze
+        assert not torch.equal(first["render"], second["render"])
+
+
+@pytest.mark.parametrize("path", ["ours", "ps1_compact", "mmfr"])
+def test_launch_counters_count_replays(cuda, path):
+    """After the capture, every launch counter moves by N times the
+    graph's captured launches over N replays, and the capture itself
+    counts only its warm-up's launches."""
+    from fovsplat_torch.utils import graphs
+    frame = _graphed_frame(cuda, path)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    g = torch.tensor((0.5, 0.5), device=cuda)
+    counters = _set_counters()
+    frame(cam, g)
+    per = frame.graph.launches_per_replay
+    assert per and all(v > 0 for v in per.values())
+    first = {k: getattr(o, a) for k, (o, a) in counters.items()}
+    assert first == {k: (graphs.WARMUPS + 1) * per.get(k, 0)
+                     for k in counters}
+    _set_counters()
+    for _ in range(4):
+        frame(cam, g)
+    assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
+        k: 4 * per.get(k, 0) for k in counters}
+    want = {"ours": {"build_table", "expand_fov", "blend_fov"},
+            "ps1_compact": {"build_table_ps1", "compact_table",
+                            "expand_ps1", "blend_forward_q"},
+            "mmfr": {"expand_ps1", "blend_forward_q"}}[path]
+    assert set(per) == want
+
+
+def test_graph_recaptures_on_a_new_camera_shape(cuda):
+    """A camera of another shape is a new key: the graph is captured
+    again (the old one is dropped) and still matches the eager frame."""
+    frame = _graphed_frame(cuda, "ours")
+    g = torch.tensor((0.5, 0.5), device=cuda)
+    for w, h in ((W, H), (160, 112), (W, H)):
+        cam = proxy.proxy_camera(w, h, device=cuda)
+        out = frame(cam, g)
+        assert tuple(out["render"].shape) == (h, w, 3)
+        assert torch.equal(out["render"], frame.eager(cam, g)["render"])
+    assert frame.graph.captures == 3
+
+
+def test_graphed_steps_match_eager_across_scale_weight(cuda):
+    """Three graphed photometric steps with the scale-decay term against
+    three eager ones (loops.photometric_step), `it` 1-3 and scale_weight
+    changed between them: loss, aux, every parameter and moment bit for
+    bit; no step writes into a state returned before it or given to it;
+    the kernels' counters move by the graph's launches per replay."""
+    n, w, h = 5000, 160, 112
+    gt = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (h, w, 3)).astype(np.float32)).to(cuda)
+    cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
+    cam = proxy.proxy_camera(w, h, device=cuda)
+    st = _train_state(cuda, n, 3)
+    step = loops.make_photometric_step(cfg, use_scale_decay=True)
+
+    def flat(s, aux=None):
+        return ([getattr(s.params, f).detach() for f in s.params.fields()]
+                + list(s.opt.mu.values()) + list(s.opt.nu.values())
+                + [s.opt.count, s.live]
+                + [aux[k] for k in sorted(aux or {})])
+    st_kept = [t.clone() for t in flat(st)]
+    se = sg = st
+    graphed = []
+    for it, sw in ((1, 2e-6), (2, 1e-4), (3, 0.0)):
+        se, ae = loops.photometric_step(se, cam, gt, it, sw, cfg, True)
+        sg, ag = step(sg, cam, gt, it, sw)
+        fe, fg = flat(se, ae), flat(sg, ag)
+        assert all(torch.equal(a, b) for a, b in zip(fe, fg)), it
+        graphed.append(([t.clone() for t in fg], fg))
+        assert int(ag["overflow"]) == 0 and int(ag["nonfinite"]) == 0
+    for kept, live in graphed:
+        assert all(torch.equal(a, b) for a, b in zip(kept, live))
+    assert all(torch.equal(a, b) for a, b in zip(st_kept, flat(st)))
+    assert step.graph.captures == 1
+    counters = _set_counters()
+    step(st, cam, gt, 4, 1e-4)
+    per = step.graph.launches_per_replay
+    assert {"expand_ps1", "blend_forward", "blend_backward",
+            "reduce_by_sorted_gid"} <= set(per)
+    assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
+        k: per.get(k, 0) for k in counters}
