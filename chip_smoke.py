@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch / CUDA port renders (the foveated
 "ours" frame and the PS1, SM-FR and MM-FR inference frames), trains
-(those frames and the photometric step as CUDA graphs, bit-identical to
-their eager functions),
+(those frames, the photometric, HVS and scratch steps and the score,
+eval, HVS and significance views as CUDA graphs, bit-identical to their
+eager functions),
 prunes and masks on the GPU, that it loads a scene, trains a model from
 scratch and runs the whole pipeline there, that it scores models (PSNR,
 SSIM, LPIPS, HVS, per-layer HVS, rendered views and video), that it
@@ -101,11 +102,20 @@ into build/kernels first. Phases, one JSON line each on stdout:
      first frame unchanged by a later one; 13 train steps with the
      scale-decay term, `it` 1-13, scale_weight 2e-6 then 1e-4 from step
      7: loss, aux, every parameter and moment bit for bit, each state
-     unchanged by the next step), one capture a path, each counter
-     moving by N times the graph's launches over N replays; per path
-     the wall ms of both in both harness forms, device ms and idle share
-     from profiler windows, the kernels the profiler names, capture
-     seconds, peak memory, and the copy-in and copy-out device ms;
+     unchanged by the next step; 13 masked HVS steps at pooling 3 and 3
+     unmasked ones, the same, the frozen fields equal to the given
+     ones; the score view of each metric, eval_view, hvs_view at
+     pooling 3 and 7 (one recapture) and the significance view on the
+     train state and a copy with a third of its rows dead, bit for bit,
+     the first output unchanged by later calls; 6 scratch steps on the
+     proxy with 65,536 rows of headroom, the SH degree raised at step 3
+     and a densify event after step 4: state, statistics and aux bit for
+     bit, one capture a degree and none at the event), one capture a
+     key, each counter moving by N times the graph's launches over N
+     replays; per path the wall ms of both (batched and synchronised
+     each call), device ms and idle share from profiler windows, the
+     kernels the profiler names, capture seconds, peak memory, and the
+     copy-in and copy-out device ms;
  17. kernel 8 (the stats blend) against its plain version on the score
      pass's own pairs at the train phase's shapes: best_lane, first_trig
      and the touched and geo_win rows exact, the float rows and best_w
@@ -146,9 +156,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
      the SH degree raised every 100, one LG prune at 280), every counter
      set to 0 just before and read just after: overflow 0 and a finite
      loss on every step, kernels 4-8 launched exactly as the schedule
-     implies; live and dropped counts at every event, ms a step (CUDA
-     events); then the first 100 iterations twice from one init and seed,
-     params, Adam moments, live mask and DensifyStats bit-identical, and
+     implies (one warm-up run more for each graph captured: one an SH
+     degree, one an LG prune); live and dropped counts at every event,
+     ms a step (CUDA events); then the first 100 iterations twice from
+     one init and seed, params, Adam moments, live mask and DensifyStats
+     bit-identical, and
      a profiler window over 3 scratch steps from the state after the
      first densify event;
  24. scratch_vs_cpu: 20 scratch steps with one densify event on the 20k
@@ -204,10 +216,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
      teacher (codebook 8,192, ratio 0.6, 10 iterations) with importance
      from global_significance_scores on the scene's 14 train views,
      counters set to 0 before and read after (kernels 4, 7, 8 once a
-     view): two runs bit-identical with TF32 allowed globally, the
-     round-trip bounds of tests/test_models_data.py, size and ratio, a
-     PS1 render of the decompressed model against the teacher's (PSNR,
-     overflow 0), seconds; the card against the CPU at 20,000 rows and
+     view, and once in the view graph's warm-up): two runs
+     bit-identical with TF32 allowed globally, the round-trip bounds of
+     tests/test_models_data.py, size and ratio, a PS1 render of the
+     decompressed model against the teacher's (PSNR, overflow 0),
+     seconds; the card against the CPU at 20,000 rows and
      codebook 256 with the same injected draws (codebook within 1e-5
      relative, keep masks equal, ids equal where the two nearest
      codewords are further apart than the distance formula's rounding
@@ -329,13 +342,17 @@ CHAIN_COMPACT_CAPACITY = 6 << 20
 
 # The phase of the last line emitted, for the error line.
 _last_phase = ["start"]
+_START = time.perf_counter()
 
 
 def emit(obj):
+    """Print one JSON line; a phase line also gets `t_s`, the seconds
+    since the script started."""
     if "phase" in obj:
         _last_phase[0] = " ".join(str(obj[k]) for k in ("phase", "kernel",
                                                          "path")
                                   if k in obj)
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -727,12 +744,13 @@ def check_blend(tag, inputs, reps):
                 shape=tag, pair_pixels_walked=int(walked.long().sum()))
 
 
-def profile_window(fn, iters):
+def profile_window(fn, iters, with_ops=True):
     """Device time by kernel name, and the device's idle share of the wall
     time, over `iters` calls of fn() under torch.profiler (which adds host
     overhead of its own), after 3 warm-up calls; up to three windows
     (profiled) until one holds CUDA events, else the device keys are
-    None."""
+    None. with_ops=False leaves out top_ops (key_averages over every host
+    op, slow on windows of thousands of ops)."""
     import torch
     from torch.autograd import DeviceType
     for _ in range(3):
@@ -755,7 +773,8 @@ def profile_window(fn, iters):
     # Device time of the kernels each host-side torch op launched itself
     # (key_averages also lists the kernels as entries of their own).
     ops = sorted(((e.key, e.self_device_time_total, e.count)
-                  for e in (prof.key_averages() if prof is not None else ())
+                  for e in (prof.key_averages()
+                            if prof is not None and with_ops else ())
                   if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0), key=lambda x: -x[1])
     return {"iters": iters, "wall_ms_per_iter": wall_us / iters / 1e3,
@@ -1185,9 +1204,11 @@ def check_stats_kernel(st, cam, results):
 
 
 def run_score_pass(st, cam, cfg, kernels):
-    """The score pass at full width: one score view per metric, with every
-    launch counter set to 0 just before and read just after; then the
-    time of each and a second run that must be bit-identical."""
+    """The score pass at full width: one score view per metric (each a
+    CUDA graph), with every launch counter set to 0 just before and read
+    just after; then the time of each and a second run that must be
+    bit-identical. Returns the launches and those the graphs' replays
+    made."""
     import torch
     from fovsplat_torch.ops import stats
     from fovsplat_torch.train import loops
@@ -1197,6 +1218,10 @@ def run_score_pass(st, cam, cfg, kernels):
     first = {m: fn(st, cam) for m, fn in fns.items()}
     torch.cuda.synchronize()
     launches = {name: kf.launches for name, kf in kernels.items()}
+    graphed = {}
+    for fn in fns.values():
+        for k, v in replayed(fn.graph).items():
+            graphed[k] = graphed.get(k, 0) + v
     same = {m: bool(torch.equal(first[m], fn(st, cam)))
             for m, fn in fns.items()}
     p = st.params
@@ -1206,6 +1231,7 @@ def run_score_pass(st, cam, cfg, kernels):
         config=cfg.raster, live_mask=st.live)
     row = {"phase": "score", "n": st.capacity, "width": cam.width,
            "height": cam.height, "launches": launches,
+           "launches_graphed": graphed,
            "bit_identical": same,
            "ms": {m: cuda_ms(lambda: fn(st, cam), 5) for m, fn in fns.items()},
            "overflow": int(out["binned"].overflow),
@@ -1215,9 +1241,11 @@ def run_score_pass(st, cam, cfg, kernels):
     if not all(same.values()):
         raise AssertionError(f"scores differ between two runs: {same}")
     if (row["overflow"] != 0 or launches["blend_stats"] <= 0
-            or launches["reduce_by_sorted_gid"] <= 0):
+            or launches["reduce_by_sorted_gid"] <= 0
+            or graphed.get("blend_stats", 0) <= 0
+            or graphed.get("reduce_by_sorted_gid", 0) <= 0):
         raise AssertionError(f"score pass: {row}")
-    return launches
+    return launches, graphed
 
 
 def score_vs_cpu(cfg):
@@ -1344,9 +1372,11 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
     """prune_training, three chained mask_training layers (pooling 3, 7,
     12) against PS1's HVS at pooling 1, compose_layers and one foveated
     frame of the composed model at the centre gaze, with every launch
-    counter set to 0 just before and read just after. Returns (the launch
-    counts, the composed model, {"ps1": the PS1 state, "train_views",
-    "counts": the live ladder}); raises when a check fails."""
+    counter set to 0 just before and read just after (the steps and views
+    run as CUDA graphs on the card: launches_graphed counts their
+    replays' launches). Returns (the launch counts, the composed model,
+    {"ps1": the PS1 state, "train_views", "counts": the live ladder,
+    "graphed": the replays' launches}); raises when a check fails."""
     import numpy as np
     import torch
     from fovsplat_torch.ops import foveated as fov
@@ -1366,8 +1396,9 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
     seconds = {"inputs": time.perf_counter() - t0}
     for kf in kernels.values():
         kf.launches = 0
-    auxs = []
-    with recorded_steps(loops, auxs):
+    auxs, graphed, caps, stage_caps = [], {}, [], {}
+    with recorded_steps(loops, auxs), replay_tally(graphed), \
+            capture_log(caps):
         t0 = time.perf_counter()
         ps1 = loops.prune_training(
             student, train_views, test_views, 0.99 * ssim0, 0.99 * psnr0,
@@ -1376,12 +1407,13 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
             log=log)
         sync()
         seconds["prune"] = time.perf_counter() - t0
+        stage_caps["prune"] = captures_since(caps, 0)
         n_prune_steps = len(auxs)
         target = float(np.mean([float(hvs_view(ps1, v.camera, v.image, 1.0))
                                 for v in train_views[:2]]))
         layers = [ps1]
         for ps in (3.0, 7.0, 12.0):
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), len(caps)
             layers.append(loops.mask_training(
                 layers[-1], train_views, ps, target, cfg, iters=mask_iters,
                 masking_iters=mask_iters - 2, prune_interval=4,
@@ -1389,6 +1421,7 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
                 log=log))
             sync()
             seconds[f"mask_ps{int(ps)}"] = time.perf_counter() - t0
+            stage_caps[f"mask_ps{int(ps)}"] = captures_since(caps, c0)
     t0 = time.perf_counter()
     model = compose.compose_layers(layers)
     frame = fov.rasterize_fov_soa(
@@ -1422,7 +1455,7 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
            "live": {"student": int(student.live_count()),
                     "ps1": counts[0], "ps3": counts[1], "ps7": counts[2],
                     "ps12": counts[3]},
-           "seconds": seconds,
+           "seconds": seconds, "captures": stage_caps,
            "steps": {"prune": n_prune_steps,
                      "mask": len(steps) - n_prune_steps,
                      "losses_first_last": [steps[0]["loss"],
@@ -1433,7 +1466,7 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
            "frame": {"finite": finite, "num_pairs": int(frame["num_pairs"]),
                      "overflow": int(frame["overflow"]),
                      "mean": float(img.mean())},
-           "launches": launches}
+           "launches": launches, "launches_graphed": graphed}
     emit(row)
     if (bad_steps or not all(nested) or not all(frozen.values())
             or not finite or row["frame"]["overflow"] != 0):
@@ -1443,7 +1476,7 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the chain")
     return launches, model, {"ps1": ps1, "train_views": train_views,
-                             "counts": counts}
+                             "counts": counts, "graphed": graphed}
 
 
 def hvs_vs_cpu(cfg):
@@ -1663,15 +1696,18 @@ def bad_rows(rows):
     return out
 
 
-def scratch_launches(iterations, views, lg_prunes):
+def scratch_launches(iterations, views, lg_prunes, degrees, warmups):
     """The launches of kernels 4-8 a train_scratch run implies: one
     expansion, forward and backward blend and gid reduce a step, and per
     view of each LG prune one expansion, stats blend and reduce (the
-    count_opacity contributions)."""
-    lg = views * lg_prunes
-    return {"expand_ps1": iterations + lg, "blend_forward": iterations,
-            "blend_backward": iterations,
-            "reduce_by_sorted_gid": iterations + lg, "blend_stats": lg}
+    count_opacity contributions). On the card each of the step's
+    `degrees` graphs (one an SH degree) and each LG prune's view graph
+    add `warmups` runs (utils/graphs.WARMUPS) when captured."""
+    steps = iterations + warmups * degrees
+    lg = (views + warmups) * lg_prunes
+    return {"expand_ps1": steps + lg, "blend_forward": steps,
+            "blend_backward": steps,
+            "reduce_by_sorted_gid": steps + lg, "blend_stats": lg}
 
 
 def scratch_config(**kw):
@@ -1683,8 +1719,9 @@ def run_scratch(scene, cfg, kernels, device):
     """Phase scratch: create_from_points on the card (knn over the scene's
     100,000 points), from_params at the pipeline's capacity, train_scratch
     on the cut schedule with every launch counter set to 0 just before
-    and read just after; then the first 100 iterations twice from the same
-    init and seed, bit-identical."""
+    and read just after (launches_graphed: those of the graphs' replays);
+    then the first 100 iterations twice from the same init and seed,
+    bit-identical. Returns the launches and the replays' launches."""
     import torch
     from fovsplat_torch.models import densify as D
     from fovsplat_torch.models import gaussians as G
@@ -1719,10 +1756,12 @@ def run_scratch(scene, cfg, kernels, device):
 
     for kf in kernels.values():
         kf.launches = 0
+    graphed = {}
     t0 = time.perf_counter()
     D.densify_and_clone = counted_clone
     try:
-        with recorded_scratch_steps(scratch, rows, last, device != "cpu"):
+        with recorded_scratch_steps(scratch, rows, last, device != "cpu"), \
+                replay_tally(graphed):
             out = scratch.train_scratch(init, scene.train_views, cfg, scfg,
                                         scene_extent=scene.spatial_scale,
                                         log=log, seed=0)
@@ -1731,8 +1770,12 @@ def run_scratch(scene, cfg, kernels, device):
     sync()
     seconds["train_scratch"] = time.perf_counter() - t0
     launches = {k: kf.launches for k, kf in kernels.items()}
+    from fovsplat_torch.utils import graphs
+    degrees = min(scfg.iterations // scfg.sh_up_every,
+                  init.params.sh_degree) + 1
     want = scratch_launches(scfg.iterations, len(scene.train_views),
-                            len(scfg.prune_iterations))
+                            len(scfg.prune_iterations), degrees,
+                            graphs.WARMUPS if device != "cpu" else 0)
     step_ms = ([a[1][0].elapsed_time(a[1][1]) for a in rows]
                if device != "cpu" else [])
     dens = [{"it": int(re.search(r"it=(\d+)", m).group(1)),
@@ -1765,7 +1808,7 @@ def run_scratch(scene, cfg, kernels, device):
            "step_ms_min_max": ([min(step_ms), max(step_ms)] if step_ms
                                else None),
            "seconds": seconds, "launches": launches,
-           "launches_expected": want}
+           "launches_graphed": graphed, "launches_expected": want}
     emit(row)
     events = [i for i in range(1, scfg.iterations + 1)
               if scfg.densify_from < i < scfg.densify_until
@@ -1818,7 +1861,7 @@ def run_scratch(scene, cfg, kernels, device):
               "live": int(a.live_count()),
               "step_ms_unprofiled": cuda_ms(one, 3),
               **profile_window(one, 3)})
-    return launches
+    return launches, graphed
 
 
 @contextlib.contextmanager
@@ -2037,7 +2080,8 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
     counter set to 0 just before and read just after; every stage file
     present, base.npz reloading bit-identically, point_cloud_ps1.ply
     reloading to ps1.npz's live rows; a second call skipping every stage;
-    one "ours" frame of the composed model at the centre gaze."""
+    one "ours" frame of the composed model at the centre gaze. Returns
+    the launches and those of the graphs' replays."""
     import io
     import os
     import shutil
@@ -2052,12 +2096,13 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
     shutil.rmtree(out_dir, ignore_errors=True)
     pcfg = pipeline.PipelineConfig(scratch_iters=300)
     lcfg = dataclasses.replace(cfg, spatial_lr_scale=scene.spatial_scale)
-    rows, seconds, saved = [], {}, {}
+    rows, seconds, saved, graphed, caps = [], {}, {}, {}, []
     for kf in kernels.values():
         kf.launches = 0
     t0 = time.perf_counter()
     with pipeline_probes(pipeline, scratch, loops, rows, seconds, saved), \
-            contextlib.redirect_stdout(sys.stderr):
+            contextlib.redirect_stdout(sys.stderr), replay_tally(graphed), \
+            capture_log(caps):
         model, layers = pipeline.run_pipeline(root, out_dir, cfg=pcfg,
                                               loop_cfg=lcfg, small=True,
                                               device=device)
@@ -2115,12 +2160,13 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
            "live_ladder": [int(s.live_count()) for s in layers],
            "base_live": int(ref.live_count()),
            "steps": len(rows), "bad_steps": bad, "seconds": seconds,
+           "captures": captures_since(caps, 0),
            "resume_seconds": resume_s, "resume_not_skipped": not_skipped,
            "frame": {"camera": scene.test_views[0].image_name,
                      "finite": finite, "num_pairs": int(frame["num_pairs"]),
                      "overflow": int(frame["overflow"]),
                      "mean": float(img.mean())},
-           "launches": launches}
+           "launches": launches, "launches_graphed": graphed}
     emit(row)
     if (missing or not base_same or not ply_same or not_skipped or bad
             or not finite or row["frame"]["overflow"] != 0):
@@ -2129,7 +2175,7 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
               "reduce_by_sorted_gid", "blend_stats"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the pipeline")
-    return launches
+    return launches, graphed
 
 
 def ps1_inputs(n, width, height, seed, device):
@@ -2299,6 +2345,50 @@ def replayed(graph):
     counter name."""
     return {k: graph.replays * v
             for k, v in graph.launches_per_replay.items()}
+
+
+@contextlib.contextmanager
+def capture_log(log):
+    """While the block runs, append the wall seconds of every graph
+    capture (warm-up included) to `log`."""
+    from fovsplat_torch.utils import graphs
+    saved = graphs.Graph._capture
+
+    def capture(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return saved(self, *a, **k)
+        finally:
+            log.append(time.perf_counter() - t0)
+    graphs.Graph._capture = capture
+    try:
+        yield log
+    finally:
+        graphs.Graph._capture = saved
+
+
+def captures_since(log, start):
+    """{"count", "seconds"} of the captures logged from index `start`."""
+    return {"count": len(log) - start, "seconds": sum(log[start:])}
+
+
+@contextlib.contextmanager
+def replay_tally(tally):
+    """While the block runs, add the launches of every graph replay to
+    `tally` (by counter name): the graphs that the loops make and drop
+    inside the block included."""
+    from fovsplat_torch.utils import graphs
+    saved = graphs.Graph.replay
+
+    def replay(self):
+        for k, n in self.launches_per_replay.items():
+            tally[k] = tally.get(k, 0) + n
+        return saved(self)
+    graphs.Graph.replay = replay
+    try:
+        yield tally
+    finally:
+        graphs.Graph.replay = saved
 
 
 def run_ps1_frame(model, cam, kernels):
@@ -2641,7 +2731,10 @@ def check_replay_counts(path, graph, call, reps=3):
 
 
 def memory_of(call, calls):
-    """Allocated bytes before, and the peak over `calls` calls of call()."""
+    """Allocated bytes before, the peak over `calls` calls of call(), and
+    the bytes the caching allocator reserves after them (a graph's pool
+    included: its intermediates are reserved, not allocated, between
+    replays)."""
     import torch
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2650,19 +2743,22 @@ def memory_of(call, calls):
         call()
     torch.cuda.synchronize()
     return {"allocated_before": before,
-            "peak": torch.cuda.max_memory_allocated()}
+            "peak": torch.cuda.max_memory_allocated(),
+            "reserved_after": torch.cuda.memory_reserved()}
 
 
 def profile_summary(call, iters):
     """profile_window's wall, device and idle numbers, the kernels it saw
     and the port's kernels among them (by name: whether the profiler
-    names the kernels of a replayed graph)."""
-    p = profile_window(call, iters)
+    names the kernels of a replayed graph), and the six kernels of the
+    most device time (ms an iteration)."""
+    p = profile_window(call, iters, with_ops=False)
     return {**{k: p[k] for k in ("wall_ms_per_iter",
                                  "device_busy_ms_per_iter",
                                  "device_idle_share", "kernel_events",
                                  "profiler_windows", "own_kernels")},
-            "top": [t["name"] for t in p["top"][:6]]}
+            "top": [{"name": t["name"], "ms": t["ms_per_iter"]}
+                    for t in p["top"][:6]]}
 
 
 def frame_forms(render, cam, gazes):
@@ -2712,10 +2808,7 @@ def graph_frame_path(path, frame, cam, gazes, iters):
     row["graphed"] = {
         "memory": mem, "wall_ms": frame_forms(frame, cam, gazes),
         "profile": profile_summary(lambda: frame(cam, gz[0]), iters),
-        "copy_in_device_ms": cuda_ms(lambda: graph.load(load), 20),
-        "copy_out_device_ms": cuda_ms(graph.fresh_outputs, 20),
-        "captures": graph.captures, "capture_seconds": graph.capture_seconds,
-        "launches_per_replay": graph.launches_per_replay}
+        **graph_costs(graph, load, 20)}
     check_replay_counts(path, graph, lambda: frame(cam, gz[0]))
     row.update(bit_identical=same, first_frame_unchanged=unchanged,
                overflow=int(first["overflow"]),
@@ -2739,17 +2832,334 @@ def state_flat(state, aux=None):
     return out
 
 
+GRAPH_HVS_STEPS = 13           # masked HVS steps at pooling 3, then
+GRAPH_HVS_UNMASKED = 3         # unmasked ones from the masked state
+GRAPH_POOLINGS = (3.0, 7.0)    # hvs_view: one recapture
+GRAPH_SCRATCH_STEPS = 6        # SH degree 0 to 2, 1 from 3; a densify
+GRAPH_SCRATCH_RAISE = 3        # event after step 4
+GRAPH_SCRATCH_DENSIFY = 4
+GRAPH_SCRATCH_HEADROOM = 65_536
+
+
+def step_forms(call, st, steps=5):
+    """A step's wall ms a step over `steps` chained steps from st: batched
+    (CUDA events) and per_step_sync (the host clock with a host read of
+    the loss after each step, after one unsynchronised run)."""
+    def chained(sync):
+        def run():
+            cur = st
+            for k in range(1, steps + 1):
+                cur, aux = call(cur, k)
+                if sync:
+                    float(aux["loss"])
+        return run
+    out = {"batched": cuda_ms(chained(False), 1) / steps}
+    run = chained(True)
+    run()
+    t0 = time.perf_counter()
+    run()
+    out["per_step_sync"] = (time.perf_counter() - t0) * 1e3 / steps
+    return out
+
+
+def graph_costs(graph, load, reps=5):
+    """A graph's copy-in and clone-out device ms, captures, capture
+    seconds and launches per replay."""
+    return {"copy_in_device_ms": cuda_ms(lambda: graph.load(load), reps),
+            "copy_out_device_ms": cuda_ms(graph.fresh_outputs, reps),
+            "captures": graph.captures,
+            "capture_seconds": graph.capture_seconds,
+            "launches_per_replay": graph.launches_per_replay}
+
+
+def compare_steps(eager, graphed, st, steps):
+    """`steps` eager and graphed steps from st (call(state, k) -> (state,
+    aux), k from 1): the names that differ at each step, the names of the
+    graphed state of step k - 1 that step k changed, whether st kept its
+    values, the losses and the two last states."""
+    import torch
+    st_kept = {k: v.clone() for k, v in state_flat(st).items()}
+    diffs, stale, losses = [], [], []
+    se, sg, prev = st, st, None
+    for k in range(1, steps + 1):
+        se, ae = eager(se, k)
+        sg, ag = graphed(sg, k)
+        fe, fg = state_flat(se, ae), state_flat(sg, ag)
+        diffs.append(sorted(n for n in fe if not torch.equal(fe[n], fg[n])))
+        if prev is not None:
+            stale.append(sorted(n for n in prev[0]
+                                if not torch.equal(prev[0][n], prev[1][n])))
+        prev = (fe, fg)
+        losses.append(float(ag["loss"]))
+    fresh = state_flat(st)
+    first_kept = all(torch.equal(fresh[n], st_kept[n]) for n in st_kept)
+    return diffs, stale, first_kept, losses, se, sg
+
+
+def graph_hvs_path(st, cam, gt, cfg):
+    """The masked HVS step of the graphs phase (mask_training's step, JAX
+    loops.py:185): GRAPH_HVS_STEPS graphed masked steps at pooling 3
+    against as many eager ones (loops.hvs_step) from one state, then
+    GRAPH_HVS_UNMASKED unmasked steps of each from the masked states:
+    loss, aux, every parameter and moment and the count bit for bit, each
+    graphed state unchanged by the next step and the first state by all,
+    the masked steps' frozen fields equal to the given ones; one capture
+    each. Then both steps' times, profiles, peak memory, copy-in and
+    clone-out device ms and the replay accounting."""
+    import torch
+    from fovsplat_torch.data.cameras import camera_tensors
+    from fovsplat_torch.train import loops
+    t0 = time.perf_counter()
+    masked = loops.make_hvs_step(cfg, 3.0, masking=True)
+    plain = loops.make_hvs_step(cfg, 3.0)
+
+    def eager_of(masking):
+        return lambda s, k: loops.hvs_step(s, cam, gt, k, cfg, 3.0, "L1",
+                                           masking)
+
+    def graphed_of(step):
+        return lambda s, k: step(s, cam, gt, k)
+    row = {"phase": "graphs", "path": "HVS step", "pooling": 3.0,
+           "steps": {"masked": GRAPH_HVS_STEPS,
+                     "unmasked": GRAPH_HVS_UNMASKED}}
+    row["eager_memory"] = memory_of(lambda: eager_of(True)(st, 1), 2)
+    row["graphed_memory"] = memory_of(lambda: masked(st, cam, gt, 1), 2)
+    diffs, stale, first_kept, losses, se, sg = compare_steps(
+        eager_of(True), graphed_of(masked), st, GRAPH_HVS_STEPS)
+    frozen = {f: bool(torch.equal(getattr(sg.params, f),
+                                  getattr(st.params, f)))
+              for f in ("xyz", "features_rest", "scaling", "rotation")}
+    udiffs, ustale, ukept, ulosses, _, _ = compare_steps(
+        lambda s, k: eager_of(False)(s, GRAPH_HVS_STEPS + k),
+        lambda s, k: graphed_of(plain)(s, GRAPH_HVS_STEPS + k),
+        sg, GRAPH_HVS_UNMASKED)
+    del se
+    load = (*loops._state_tensors(st), *camera_tensors(cam), gt, 1)
+    row.update(
+        eager={"wall_ms": step_forms(eager_of(True), st),
+               "profile": profile_summary(lambda: eager_of(True)(st, 1),
+                                          3)},
+        graphed={"wall_ms": step_forms(graphed_of(masked), st),
+                 "profile": profile_summary(lambda: masked(st, cam, gt, 1),
+                                            3),
+                 **graph_costs(masked.graph, load)},
+        differing=diffs + udiffs, changed_by_next_step=stale + ustale,
+        first_state_unchanged=first_kept and ukept,
+        frozen_equal=frozen, losses=losses + ulosses,
+        unmasked_captures=plain.graph.captures)
+    check_replay_counts("HVS step", masked.graph,
+                        lambda: masked(st, cam, gt, 1))
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    if (any(diffs + udiffs) or any(stale + ustale) or not row[
+            "first_state_unchanged"] or not all(frozen.values())
+            or masked.graph.captures != 1 or plain.graph.captures != 1):
+        raise AssertionError("graphs, HVS step: the graphed step differs "
+                             "from the eager one or failed a check")
+
+
+def leaves(out):
+    """A view's output tensors in a fixed order (dicts by key)."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def view_forms(call, reps=5):
+    """A view's wall ms a call: batched (CUDA events over `reps` calls)
+    and per_call_sync (the host clock, synchronised after each call, as
+    a caller that reads each metric waits)."""
+    import torch
+    out = {"batched": cuda_ms(call, reps)}
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+        torch.cuda.synchronize()
+    out["per_call_sync"] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def graph_view_path(path, fn, calls, iters=3, captures=1, extra=None):
+    """One view of the graphs phase: fn a graphed view (fn.graph, fn.eager
+    its eager function), calls a list of argument tuples (the state, the
+    camera, the rest; static arguments last). Eager times, profile and
+    peak memory on the first call's arguments; then the graph: each call
+    against the eager view bit for bit, the first output unchanged by the
+    later calls, the graph's times, profile, peak memory, copies and
+    replay accounting on the last call's arguments (the key it holds),
+    `captures` captures over the calls."""
+    import torch
+    from fovsplat_torch.data.cameras import camera_tensors
+    from fovsplat_torch.models.gaussians import FIELDS
+    t0 = time.perf_counter()
+    eager, graph = fn.eager, fn.graph
+    row = {"phase": "graphs", "path": path, "calls": len(calls),
+           **(extra or {})}
+    first_args, last_args = calls[0], calls[-1]
+    row["eager"] = {"memory": memory_of(lambda: eager(*first_args), 2),
+                    "wall_ms": view_forms(lambda: eager(*first_args)),
+                    "profile": profile_summary(lambda: eager(*first_args),
+                                               iters)}
+    mem = memory_of(lambda: fn(*first_args), 2)
+    first = [t.clone() for t in leaves(fn(*first_args))]
+    kept_ref = leaves(fn(*first_args))
+    same = []
+    for args in calls:
+        a, b = leaves(fn(*args)), leaves(eager(*args))
+        same.append(len(a) == len(b)
+                    and all(bool(torch.equal(x, y)) for x, y in zip(a, b)))
+    unchanged = all(torch.equal(x, y) for x, y in zip(first, kept_ref))
+    st, cam, rest = last_args[0], last_args[1], last_args[2:]
+    n_static = len(graph.key[0]) - 3 if graph.key else 0
+    dyn = rest[:len(rest) - n_static]
+    load = (*(getattr(st.params, f) for f in FIELDS), st.live,
+            *camera_tensors(cam), *dyn)
+    row["graphed"] = {"memory": mem,
+                      "wall_ms": view_forms(lambda: fn(*last_args)),
+                      "profile": profile_summary(lambda: fn(*last_args),
+                                                 iters),
+                      **graph_costs(graph, load)}
+    check_replay_counts(path, graph, lambda: fn(*last_args))
+    row.update(bit_identical=same, first_output_unchanged=unchanged,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    if not (all(same) and unchanged and graph.captures == captures):
+        raise AssertionError(f"graphs, {path}: the graphed view differs "
+                             f"from the eager one or failed a check")
+
+
+def graph_views(st, cam, gt, cfg):
+    """The views of the graphs phase on the train state and a copy with a
+    third of its rows dead: the score view of each metric (JAX
+    loops.py:217; kernel 8 and kernel 7 on the argmax stream inside),
+    eval_view (:189), hvs_view at GRAPH_POOLINGS (:200; the pooling size
+    is part of the key: one recapture) and the significance pass's view
+    (JAX scratch.py:96)."""
+    import torch
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.train import loops, scratch
+    cut = S.prune_mask(st, torch.arange(st.capacity, device=st.live.device)
+                       % 3 == 0)
+    for m in METRICS:
+        graph_view_path(f"score view ({m})", loops.make_score_fn(cfg, m),
+                        [(st, cam), (cut, cam)])
+    eval_view, hvs_view = loops.make_eval_fns(cfg)
+    graph_view_path("eval view", eval_view, [(st, cam, gt), (cut, cam, gt)])
+    graph_view_path("HVS view", hvs_view,
+                    [(st, cam, gt, GRAPH_POOLINGS[0]),
+                     (cut, cam, gt, GRAPH_POOLINGS[0]),
+                     (st, cam, gt, GRAPH_POOLINGS[1])],
+                    captures=2, extra={"poolings": list(GRAPH_POOLINGS)})
+    graph_view_path("significance view (count_opacity)",
+                    scratch.make_significance_view(cfg),
+                    [(st, cam), (cut, cam)])
+
+
+def densified(D, state, dstats, noise, extent):
+    """The scratch loop's densify event (clone, split with `noise`, the
+    size prune) and fresh statistics; (state, stats, dropped)."""
+    thr = jax_scaled_threshold(W_FULL)
+    state, d1 = D.densify_and_clone(state, dstats, thr, extent)
+    state, d2 = D.densify_and_split(state, dstats, thr, extent, noise=noise)
+    state = D.prune_oversized(state, dstats, None, extent)
+    return state, D.init_stats(state.capacity, state.live.device), d1 + d2
+
+
+def graph_scratch_path(train_state, cam, gt, cfg):
+    """The scratch step of the graphs phase (JAX scratch.py:71): the
+    train state's parameters with GRAPH_SCRATCH_HEADROOM rows of
+    headroom, GRAPH_SCRATCH_STEPS graphed steps against as many eager
+    ones (scratch.scratch_step) from one state and the aliased
+    init_stats, the SH degree 0 before
+    step GRAPH_SCRATCH_RAISE and 1 from it, and a densify event (clone,
+    split with one seeded noise draw, size prune, fresh statistics) after
+    step GRAPH_SCRATCH_DENSIFY: state, statistics and aux bit for bit at
+    every step; one capture a degree and none at the densify event (the
+    capacity is fixed). Then times, profile, copies, memory and the
+    replay accounting at degree 1."""
+    import torch
+    from fovsplat_torch.data.cameras import camera_tensors
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.models import state as S
+    from fovsplat_torch.train import loops, scratch
+    t0 = time.perf_counter()
+    st = S.from_params(train_state.params,
+                       train_state.capacity + GRAPH_SCRATCH_HEADROOM)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noise = torch.randn((2, st.capacity, 3), device="cuda", generator=gen)
+    step = scratch.make_scratch_step(cfg)
+
+    def sh(k):
+        return 0 if k < GRAPH_SCRATCH_RAISE else 1
+    de = dg = D.init_stats(st.capacity, "cuda")
+    se = sg = st
+    diffs, captures, losses, event = [], [], [], {}
+    for k in range(1, GRAPH_SCRATCH_STEPS + 1):
+        se, de, ae = scratch.scratch_step(se, de, cam, gt, k, sh(k), cfg)
+        sg, dg, ag = step(sg, dg, cam, gt, k, sh(k))
+        fe = {**state_flat(se, ae), "live": se.live,
+              **{f"stats.{i}": t for i, t in enumerate(D.stats_tensors(de))}}
+        fg = {**state_flat(sg, ag), "live": sg.live,
+              **{f"stats.{i}": t for i, t in enumerate(D.stats_tensors(dg))}}
+        diffs.append(sorted(n for n in fe if not torch.equal(fe[n], fg[n])))
+        losses.append(float(ag["loss"]))
+        captures.append(step.graph.captures)
+        if k == GRAPH_SCRATCH_DENSIFY:
+            before = se.live
+            se, de, dropped = densified(D, se, de, noise, 4.0)
+            sg, dg, _ = densified(D, sg, dg, noise, 4.0)
+            event = {"after_step": k,
+                     "live": [int(before.sum()), int(se.live_count())],
+                     "dropped": int(dropped),
+                     "live_changed": not bool(torch.equal(before, se.live)),
+                     "live_equal": bool(torch.equal(se.live, sg.live))}
+    d1 = D.init_stats(st.capacity, "cuda")
+
+    def eager(s, k):
+        new, _, aux = scratch.scratch_step(s, d1, cam, gt, k, 1, cfg)
+        return new, aux
+
+    def graphed(s, k):
+        new, _, aux = step(s, d1, cam, gt, k, 1)
+        return new, aux
+    load = (*loops._state_tensors(st), *camera_tensors(cam), gt,
+            *D.stats_tensors(d1), 1)
+    row = {"phase": "graphs", "path": "scratch step",
+           "n": train_state.capacity, "capacity": st.capacity,
+           "steps": GRAPH_SCRATCH_STEPS,
+           "sh_degree_raised_at": GRAPH_SCRATCH_RAISE,
+           "densify_event": event, "captures_by_step": captures,
+           "differing": diffs, "losses": losses,
+           "eager_memory": memory_of(lambda: eager(st, 1), 2),
+           "graphed_memory": memory_of(lambda: graphed(st, 1), 2)}
+    row.update(
+        eager={"wall_ms": step_forms(eager, st),
+               "profile": profile_summary(lambda: eager(st, 1), 3)},
+        graphed={"wall_ms": step_forms(graphed, st),
+                 "profile": profile_summary(lambda: graphed(st, 1), 3),
+                 **graph_costs(step.graph, load)})
+    check_replay_counts("scratch step", step.graph, lambda: graphed(st, 1))
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    want = [1 if k < GRAPH_SCRATCH_RAISE else 2
+            for k in range(1, GRAPH_SCRATCH_STEPS + 1)]
+    if (any(diffs) or captures != want or not event.get("live_equal")
+            or not event["live_changed"]):
+        raise AssertionError("graphs, scratch step: the graphed step "
+                             "differs from the eager one or failed a check")
+
+
 def graph_train_path(st, cam, gt, cfg):
     """The train step of the graphs phase: GRAPH_TRAIN_STEPS graphed
     photometric steps with the scale-decay term against as many eager
     steps (loops.photometric_step) from one state, `it` 1 to 13,
     scale_weight 2e-6 then 1e-4 from step GRAPH_SWITCH_STEP: loss, aux,
     every parameter and moment bit for bit, each graphed state unchanged
-    by the next step and the first state by all. Then both steps' times
-    (CUDA events over 5 chained steps; the host clock with a host read of
-    the loss after each step), profiles, peak memory, the copy-in and
-    copy-out device ms and the replay accounting."""
-    import torch
+    by the next step and the first state by all (compare_steps). Then
+    both steps' times (step_forms), profiles, peak memory, the copy-in
+    and copy-out device ms and the replay accounting."""
     from fovsplat_torch.data.cameras import camera_tensors
     from fovsplat_torch.train import loops
     step = loops.make_photometric_step(cfg, use_scale_decay=True)
@@ -2757,64 +3167,29 @@ def graph_train_path(st, cam, gt, cfg):
     def eager(state, it, sw):
         return loops.photometric_step(state, cam, gt, it, sw, cfg, True)
 
+    def graphed(state, it, sw):
+        return step(state, cam, gt, it, sw)
+
     def weight(k):
         return 2e-6 if k < GRAPH_SWITCH_STEP else 1e-4
     t0 = time.perf_counter()
     row = {"phase": "graphs", "path": "train step", "steps":
            GRAPH_TRAIN_STEPS, "switch_step": GRAPH_SWITCH_STEP}
     row["eager_memory"] = memory_of(lambda: eager(st, 1, 2e-6), 2)
-    row["graphed_memory"] = memory_of(lambda: step(st, cam, gt, 1, 2e-6), 2)
-    st_kept = {k: v.clone() for k, v in state_flat(st).items()}
-    diffs, stale, losses = [], [], []
-    se, sg, prev = st, st, None
-    for k in range(1, GRAPH_TRAIN_STEPS + 1):
-        se, ae = eager(se, k, weight(k))
-        sg, ag = step(sg, cam, gt, k, weight(k))
-        fe, fg = state_flat(se, ae), state_flat(sg, ag)
-        diffs.append(sorted(n for n in fe if not torch.equal(fe[n], fg[n])))
-        if prev is not None:
-            # The graphed state of step k - 1 against the eager one, after
-            # step k.
-            stale.append(sorted(n for n in prev[0]
-                                if not torch.equal(prev[0][n], prev[1][n])))
-        prev = (fe, fg)
-        losses.append(float(ag["loss"]))
-    fresh = state_flat(st)
-    first_kept = all(torch.equal(fresh[n], st_kept[n]) for n in st_kept)
-    del st_kept, prev
-
-    def chained(call, sync):
-        def run():
-            cur = st
-            for k in range(1, 6):
-                cur, aux = call(cur, k, 2e-6)
-                if sync:
-                    float(aux["loss"])
-        return run
-
-    def forms(call):
-        out = {"batched": cuda_ms(chained(call, False), 1) / 5}
-        run = chained(call, True)
-        run()
-        t1 = time.perf_counter()
-        run()
-        out["per_step_sync"] = (time.perf_counter() - t1) * 1e3 / 5
-        return out
-
-    def graphed(state, it, sw):
-        return step(state, cam, gt, it, sw)
+    row["graphed_memory"] = memory_of(lambda: graphed(st, 1, 2e-6), 2)
+    diffs, stale, first_kept, losses, _, _ = compare_steps(
+        lambda s, k: eager(s, k, weight(k)),
+        lambda s, k: graphed(s, k, weight(k)), st, GRAPH_TRAIN_STEPS)
     graph = step.graph
     load = (*loops._state_tensors(st), *camera_tensors(cam), gt, 1, 2e-6)
     row.update(
-        eager={"wall_ms": forms(eager), "profile": profile_summary(
-            lambda: eager(st, 1, 2e-6), 3)},
-        graphed={"wall_ms": forms(graphed), "profile": profile_summary(
-            lambda: graphed(st, 1, 2e-6), 3),
-            "copy_in_device_ms": cuda_ms(lambda: graph.load(load), 5),
-            "copy_out_device_ms": cuda_ms(graph.fresh_outputs, 5),
-            "captures": graph.captures,
-            "capture_seconds": graph.capture_seconds,
-            "launches_per_replay": graph.launches_per_replay},
+        eager={"wall_ms": step_forms(lambda s, k: eager(s, k, 2e-6), st),
+               "profile": profile_summary(lambda: eager(st, 1, 2e-6), 3)},
+        graphed={"wall_ms": step_forms(lambda s, k: graphed(s, k, 2e-6),
+                                       st),
+                 "profile": profile_summary(lambda: graphed(st, 1, 2e-6),
+                                            3),
+                 **graph_costs(graph, load)},
         differing=diffs, changed_by_next_step=stale,
         first_state_unchanged=first_kept,
         losses=losses, seconds=time.perf_counter() - t0)
@@ -2828,9 +3203,11 @@ def graph_train_path(st, cam, gt, cfg):
 def run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model,
                ps1_cam, st, tcam, gt, tcfg):
     """The graphs phase: each main-path frame ("ours" over the 9 gazes,
-    SM-FR, MM-FR and PS1 with compaction off and on at the centre gaze)
-    and the train step as fresh CUDA graphs against their eager
-    functions (graph_frame_path, graph_train_path)."""
+    SM-FR, MM-FR and PS1 with compaction off and on at the centre gaze),
+    the train step, the masked HVS step, the score, eval, HVS and
+    significance views and the scratch step as fresh CUDA graphs against
+    their eager functions (graph_frame_path, graph_train_path,
+    graph_hvs_path, graph_views, graph_scratch_path)."""
     from fovsplat_torch.eval import fps
     from fovsplat_torch.utils import graphs
     centre = [(0.5, 0.5)]
@@ -2844,6 +3221,9 @@ def run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model,
         graph_frame_path("PS1, compact_table" if flag else "PS1",
                          ps1_frame(ps1_model, flag), ps1_cam, centre, 10)
     graph_train_path(st, tcam, gt, tcfg)
+    graph_hvs_path(st, tcam, gt, tcfg)
+    graph_views(st, tcam, gt, tcfg)
+    graph_scratch_path(st, tcam, gt, tcfg)
 
 
 # --- the eval phases -------------------------------------------------------
@@ -3524,10 +3904,12 @@ def run_vq(st, scene, cfg, kernels, device):
             and book_rel <= VQ_RTOL and same_keep and same_assign
             and mismatched == 0 and worse == 0):
         raise AssertionError("the vq phase failed a check")
+    from fovsplat_torch.utils import graphs
     if not (launches["expand_ps1"] == launches["blend_stats"]
-            == len(scene.train_views)):
+            == len(scene.train_views) + graphs.WARMUPS):
         raise AssertionError(f"vq: kernels 4 and 8 must launch once a "
-                             f"view: {launches}")
+                             f"view, and once more each in the view "
+                             f"graph's warm-up: {launches}")
     return launches
 
 
@@ -3726,8 +4108,9 @@ def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
         *fargs, fcam, gaze, ALPHA, config=fxcfg))
     xscores, score_ms = {}, {}
     for m in METRICS:
+        # The eager view: the plain route is not a graph's path.
         xscores[m], score_ms[m] = timed(
-            lambda m=m: loops.make_score_fn(xcfg, m)(st, cam))
+            lambda m=m: loops.make_score_fn(xcfg, m).eager(st, cam))
     n_d, w_d, h_d = DENSE_SHAPE
     small = proxy.bicycle_proxy(n=n_d, seed=2)
     dcam = proxy.proxy_camera(w_d, h_d, device=device)
@@ -4579,6 +4962,7 @@ def main():
     step = loops.make_photometric_step(tcfg)
     emit({"phase": "profile", "path": "train step",
           **profile_window(lambda: step(st, tcam, gt, 0), 3)})
+    del step    # and its graph's memory pool
 
     # --- the graphs phase: each path's graph against its eager function ---
     run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model, ps1_cam,
@@ -4587,14 +4971,16 @@ def main():
 
     # --- the score pass, the model-building chain, the HVS step ---
     check_stats_kernel(st, tcam, results)
-    sl = run_score_pass(st, tcam, tcfg, all_kernels)
+    sl, sg = run_score_pass(st, tcam, tcfg, all_kernels)
     # Kernel 7 runs on the score pass's argmax stream only.
     launches["reduce_by_sorted_gid_argmax"] = sl["reduce_by_sorted_gid"]
+    graphed_l["reduce_by_sorted_gid_argmax"] = sg["reduce_by_sorted_gid"]
     score_vs_cpu(train_config(1 << 20, None))
     chain_cfg = train_config(CHAIN_PAIR_CAPACITY, CHAIN_COMPACT_CAPACITY)
     cl, chain_model, chain = run_chain(N_FULL, W_FULL, H_FULL, chain_cfg,
                                        chain_cfg.raster, all_kernels, dev)
     launches["blend_stats"] = cl["blend_stats"]
+    graphed_l["blend_stats"] = chain["graphed"].get("blend_stats", 0)
     hvs_vs_cpu(train_config(1 << 20, None))
     score = loops.make_score_fn(tcfg)
     emit({"phase": "profile", "path": "score view (max_comp_efficiency)",
@@ -4603,13 +4989,14 @@ def main():
     emit({"phase": "profile", "path": "masked HVS step, pooling 3",
           "step_ms_unprofiled": cuda_ms(lambda: hvs_step(st, tcam, gt, 1), 3),
           **profile_window(lambda: hvs_step(st, tcam, gt, 1), 3)})
+    del score, hvs_step
 
     # --- scene and model I/O, from-scratch training, the pipeline ---
     scene, scene_root = run_scene_io(chain_cfg, dev)
-    scratch_l = run_scratch(scene, chain_cfg, all_kernels, dev)
+    scratch_l, scratch_g = run_scratch(scene, chain_cfg, all_kernels, dev)
     scratch_vs_cpu(train_config(1 << 20, None))
-    pipeline_l = run_pipeline_phase(scene_root, scene, chain_cfg, cfg,
-                                    all_kernels, dev)
+    pipeline_l, pipeline_g = run_pipeline_phase(
+        scene_root, scene, chain_cfg, cfg, all_kernels, dev)
 
     # --- quality evaluation: metrics, LPIPS, foveated HVS, layers, the
     # unpacked foveated frame, the eval subcommands ---
@@ -4705,6 +5092,8 @@ def main():
                  "reduce_by_sorted_gid", "blend_stats"):
             rows[-1]["launches_scratch"] = scratch_l[k]
             rows[-1]["launches_pipeline"] = pipeline_l[k]
+            rows[-1]["launches_graphed_scratch"] = scratch_g.get(k, 0)
+            rows[-1]["launches_graphed_pipeline"] = pipeline_g.get(k, 0)
         # Launches in the eval phases, by the wrapper of the row's name (the
         # rows of other routes through a shared wrapper get 0).
         rows[-1]["launches_eval"] = {ph: l.get(k, 0)

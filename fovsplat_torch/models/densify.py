@@ -37,8 +37,20 @@ class DensifyStats:
     max_radii: torch.Tensor    # (C,) max screen radius seen
 
 
+def stats_tensors(stats: DensifyStats) -> tuple:
+    """The statistics' tensors, in field order (a CUDA graph's inputs and
+    outputs)."""
+    return tuple(getattr(stats, f.name) for f in dataclasses.fields(stats))
+
+
+def stats_of(ts) -> DensifyStats:
+    """stats_tensors' inverse."""
+    return DensifyStats(*ts)
+
+
 def init_stats(capacity: int, device=None) -> DensifyStats:
-    """Zero statistics on `device` (None: CUDA)."""
+    """Zero statistics on `device` (None: CUDA). The three fields share
+    one zero tensor: no caller writes into them."""
     z = torch.zeros(capacity, dtype=torch.float32,
                     device=resolve_device(device))
     return DensifyStats(grad_accum=z, denom=z, max_radii=z)

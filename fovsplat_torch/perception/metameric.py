@@ -18,6 +18,12 @@ JAX package's integral images and resize matrices compute the same maps,
 and so do torch's adaptive_avg_pool2d and bilinear interpolate, whose
 CUDA backward passes accumulate with float atomics. The gathers make the
 HVS gradient deterministic on the card.
+
+The gather tables are built on the host and copied to the device once per
+(kind, sizes, device) (_resample_map's cache). A CUDA graph cannot hold
+that copy, so prepare fills every table (and the pyramid's filters) that
+an HVS loss or view at one image size and pooling size reads, before a
+graph's warm-up.
 """
 
 from __future__ import annotations
@@ -130,6 +136,10 @@ def bilinear_upsample(x, out_h: int, out_w: int):
     return _resample(x, "bilinear", out_h, out_w)
 
 
+def _pooled(n: int, pooling_size) -> int:
+    return max(int(n / pooling_size), 1)
+
+
 def uniform_blur(x, pooling_size):
     """uniform_blur (metameric_loss_uniform.py:8-12). The reference applies
     it for pooling sizes below 1 as well (the levels halve the size): an
@@ -138,8 +148,7 @@ def uniform_blur(x, pooling_size):
     if pooling_size == 1:
         return x
     _, h, w, _ = x.shape
-    oh = max(int(h / pooling_size), 1)
-    ow = max(int(w / pooling_size), 1)
+    oh, ow = _pooled(h, pooling_size), _pooled(w, pooling_size)
     return bilinear_upsample(adaptive_area_downsample(x, oh, ow), h, w)
 
 
@@ -192,18 +201,52 @@ def metameric_loss_uniform(image, target, pooling_size, n_levels: int = 5,
     return loss_from_stats(a, target_stats, loss_type)
 
 
+def _pyramid_size(h: int, w: int, n_levels: int):
+    d = 2 ** n_levels
+    return math.ceil(h / d) * d, math.ceil(w / d) * d
+
+
 def resize_for_pyramid(image, n_levels: int = 5):
     """HVSLoss.resize_img (hvs_loss_calc.py:52-65): bilinear resize up to
     the next multiple of 2^n_levels where needed. Returns (B, H, W, C)."""
     if image.dim() == 3:
         image = image[None]
-    d = 2 ** n_levels
     _, h, w, _ = image.shape
-    rh = math.ceil(h / d) * d
-    rw = math.ceil(w / d) * d
+    rh, rw = _pyramid_size(h, w, n_levels)
     if rh == h and rw == w:
         return image
     return bilinear_upsample(image, rh, rw)
+
+
+def prepare(height: int, width: int, pooling_size, n_levels: int = 5,
+            n_orientations: int = 6, device="cpu"):
+    """Fill every resampling table (both directions) and the pyramid's
+    filters that resize_for_pyramid and the uniform HVS loss of an
+    (height, width) image at `pooling_size` read on `device`, so that the
+    HVS step and view then copy nothing from the host (a CUDA graph's
+    warm-up and capture must not). Mirrors resize_for_pyramid and
+    statsmaps: the highpass band at the pyramid size, then level i at
+    size / 2^i with pooling_size / 2^i."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = str(dev)
+    rh, rw = _pyramid_size(height, width, n_levels)
+    if (rh, rw) != (height, width):
+        _resample_map("bilinear", height, rh, dev)
+        _resample_map("bilinear", width, rw, dev)
+    blurs = [(rh, rw, pooling_size)]
+    ps = pooling_size
+    for lv in range(n_levels - 1):
+        blurs.append((rh >> lv, rw >> lv, ps))
+        ps = ps / 2
+    for h, w, ps in blurs:
+        if ps == 1:
+            continue
+        for n in (h, w):
+            _resample_map("area", n, _pooled(n, ps), dev)
+            _resample_map("bilinear", _pooled(n, ps), n, dev)
+    pyramid.device_filters(n_orientations, "cropped", dev, torch.float32)
 
 
 def gen_metamer(image, pooling_size, n_levels: int = 5,

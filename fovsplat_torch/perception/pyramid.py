@@ -12,9 +12,17 @@ the sum of its k*k shifted, weighted copies of the reflection-padded
 image (cross-correlation, as XLA's convolution). cuDNN would run an f32
 convolution in TF32 unless the caller turned that off, and the HVS loss
 must not depend on a global flag; the shift-adds are f32 on any device,
-deterministic, and their backward is shift-adds too. Filters applied to
+deterministic, and their backward is shift-adds too. The reflection
+padding is slices, flips and a concatenation, whose backward adds the
+reflected gradients in a fixed order (F.pad's reflect backward on CUDA
+adds them with float atomics, in a varying order). Filters applied to
 the same image go through one pass as a bank (filter_bank), so the six
 oriented bands of a level cost one set of k*k multiply-adds.
+
+The pyramid reads its filters as device tensors from a per-(device,
+dtype) cache (device_filters): a call then copies nothing from the host,
+so a CUDA graph can hold it once the cache is filled (before the
+capture: metameric.prepare).
 """
 
 from __future__ import annotations
@@ -24,7 +32,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 _DATA = Path(__file__).resolve().parent / "data" / "sp_filters_nyu.npz"
 
@@ -39,17 +46,41 @@ def load_filters(n_orientations: int = 6, filter_type: str = "cropped"):
             for k in ("h0", "l0", "l", "b")}
 
 
+@functools.lru_cache(maxsize=None)
+def device_filters(n_orientations: int, filter_type: str, device: str,
+                   dtype: torch.dtype):
+    """load_filters' arrays as tensors of `dtype` on `device` (a string,
+    as str(tensor.device) gives it), plus 'h0l0': h0 and l0 stacked (where
+    their shapes agree), the bank construct_pyramid applies first. Filled
+    once per key: the one host-to-device copy of the filters."""
+    f = load_filters(n_orientations, filter_type)
+    out = {k: torch.as_tensor(v, dtype=dtype, device=device)
+           for k, v in f.items()}
+    if f["h0"].shape == f["l0"].shape:
+        out["h0l0"] = torch.as_tensor(np.stack([f["h0"], f["l0"]]),
+                                      dtype=dtype, device=device)
+    return out
+
+
+def _reflect_pad(x, dim: int, pad: int):
+    """Reflection padding of `pad` along `dim` (F.pad's "reflect"): slices,
+    flips and a concatenation, whose backward is deterministic."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, pad).flip(dim), x,
+                      x.narrow(dim, n - 1 - pad, pad).flip(dim)], dim)
+
+
 def filter_bank(x, kernels):
-    """x (B, H, W, C), kernels (F, k, k) numpy -> (F, B, H', W', C): each
-    kernel applied to every channel with reflection padding (k - 1) // 2
-    on each side, as a sum of shifted copies in row-major tap order."""
+    """x (B, H, W, C), kernels (F, k, k) numpy or a tensor (used as it is
+    when it has x's device and dtype) -> (F, B, H', W', C): each kernel
+    applied to every channel with reflection padding (k - 1) // 2 on each
+    side, as a sum of shifted copies in row-major tap order."""
     nf, k = kernels.shape[0], kernels.shape[-1]
     pad = (k - 1) // 2
-    xp = x.permute(0, 3, 1, 2)
+    xp = x
     if pad:
-        xp = F.pad(xp, (pad, pad, pad, pad), mode="reflect")
-    xp = xp.permute(0, 2, 3, 1)                       # (B, H+2p, W+2p, C)
-    h, w = xp.shape[1] - k + 1, xp.shape[2] - k + 1
+        xp = _reflect_pad(_reflect_pad(x, 1, pad), 2, pad)
+    h, w = xp.shape[1] - k + 1, xp.shape[2] - k + 1   # (B, H+2p, W+2p, C)
     wt = torch.as_tensor(kernels, dtype=x.dtype, device=x.device)
     out = None
     for i in range(k):
@@ -61,9 +92,11 @@ def filter_bank(x, kernels):
 
 
 def depthwise_conv(x, kernel):
-    """x (B, H, W, C), kernel (k, k) applied per channel, reflection
-    'same' (fovsplat/perception/pyramid.py:42)."""
-    return filter_bank(x, np.asarray(kernel, np.float32)[None])[0]
+    """x (B, H, W, C), kernel (k, k) numpy or a tensor applied per
+    channel, reflection 'same' (fovsplat/perception/pyramid.py:42)."""
+    if not torch.is_tensor(kernel):
+        kernel = np.asarray(kernel, np.float32)
+    return filter_bank(x, kernel[None])[0]
 
 
 def area_downsample_2x(x):
@@ -89,9 +122,10 @@ def construct_pyramid(image, n_levels: int = 5, n_orientations: int = 6,
     highpass band 'h' to every level but the last.
 
     Returns [{'h', 'l', 'b' (list)}, ..., {'l'}], largest first."""
-    f = load_filters(n_orientations, filter_type)
-    if f["h0"].shape == f["l0"].shape:
-        h0, lowpass = filter_bank(image, np.stack([f["h0"], f["l0"]]))
+    f = device_filters(n_orientations, filter_type, str(image.device),
+                       image.dtype)
+    if "h0l0" in f:
+        h0, lowpass = filter_bank(image, f["h0l0"])
     else:
         h0, lowpass = (depthwise_conv(image, f["h0"]),
                        depthwise_conv(image, f["l0"]))

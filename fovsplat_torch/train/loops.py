@@ -15,9 +15,10 @@ pruning and PS-mask learning (counterpart of fovsplat/train/loops.py).
                       pooling size, DC-SH and opacity trainable,
                       HVS-gated "surface" pruning.
 
-On the card, make_photometric_step returns its step as a CUDA graph per
+On the card the makers return their steps and views as CUDA graphs per
 state capacity and camera shape (utils/graphs), the counterpart of the
-JAX maker's jax.jit; photometric_step is its eager body. The steps are
+JAX makers' jax.jit: make_photometric_step (eager body photometric_step),
+make_hvs_step (hvs_step), make_eval_fns and make_score_fn. The steps are
 functional: each returns a new TrainerState and leaves the old one as it
 was, and so do the prune functions of models/state.py. So
 a rollback snapshot is the state itself, where the JAX loops copy it to
@@ -197,6 +198,80 @@ def _state_of(ts) -> S.TrainerState:
         live=ts[3 * k + 1])
 
 
+def _params_state(ts) -> S.TrainerState:
+    """A state of the parameters (FIELDS order) and the live mask, without
+    Adam moments: what the views read."""
+    return S.TrainerState(params=GaussianParams(**dict(zip(FIELDS, ts[:-1]))),
+                          opt=None, live=ts[-1])
+
+
+def _check_device(state: S.TrainerState, dev: torch.device):
+    if state.params.xyz.device.type != dev.type:
+        raise ValueError(f"state on {state.params.xyz.device}, step made "
+                         f"for {dev}")
+
+
+def _graph_step(graph, body, state: S.TrainerState, camera, gt, scalars,
+                key=(), prepare=None):
+    """body(state, camera, gt, *scalars) -> (new state, aux) through
+    `graph`, keyed by the state capacity, the camera (width, height) and
+    `key`: the parameters, moments, Adam count, live mask, camera
+    tensors, ground truth and scalars are its static inputs. The new
+    state's tensors are fresh; its live mask is the caller's."""
+    n_state, n_cam = 3 * len(FIELDS) + 2, len(TENSOR_FIELDS)
+
+    def run(*ts):
+        new, aux = body(_state_of(ts[:n_state]),
+                        camera_with_tensors(camera,
+                                            ts[n_state:n_state + n_cam]),
+                        *ts[n_state + n_cam:])
+        return _state_tensors(new)[:-1], aux
+
+    new, aux = graph((state.capacity, camera.width, camera.height, *key),
+                     run, *_state_tensors(state), *camera_tensors(camera),
+                     gt, *scalars, prepare=prepare)
+    return _state_of((*new, state.live)), aux
+
+
+def graphed_view(fn, device=None, n_static: int = 0, prepare=None):
+    """fn(state, camera, *rest), a view without a gradient, as the view
+    makers return it: for device "cpu" fn itself; else a callable that
+    runs a state on the CPU through fn and a state on the card through a
+    CUDA graph keyed by the state capacity and the camera (width, height)
+    (the parameters, live mask, camera tensors and `rest` its static
+    inputs; fn's state has no Adam moments), with attributes `graph` and
+    `eager` (fn). The last n_static arguments of a call are static: they
+    join the key and are never inputs (hvs_view's pooling size fixes its
+    shapes, as JAX's static_argnums=(3,)). prepare(state, camera,
+    *static) runs before a capture's warm-up."""
+    if device is not None and resolve_device(device).type == "cpu":
+        return fn
+    graph = graphs.Graph()
+    n_p, n_cam = len(FIELDS) + 1, len(TENSOR_FIELDS)
+
+    def view(state: S.TrainerState, camera, *rest):
+        if state.live.device.type == "cpu":
+            return fn(state, camera, *rest)
+        cut = len(rest) - n_static
+        dyn, static = rest[:cut], rest[cut:]
+
+        def run(*ts):
+            return fn(_params_state(ts[:n_p]),
+                      camera_with_tensors(camera, ts[n_p:n_p + n_cam]),
+                      *ts[n_p + n_cam:], *static)
+
+        return graph(
+            (state.capacity, camera.width, camera.height, *static), run,
+            *(getattr(state.params, f) for f in FIELDS), state.live,
+            *camera_tensors(camera), *dyn,
+            prepare=(lambda: prepare(state, camera, *static)) if prepare
+            else None)
+
+    view.graph = graph
+    view.eager = fn
+    return view
+
+
 def make_photometric_step(cfg: LoopConfig, use_scale_decay: bool = False,
                           device=None):
     """The step function step(state, camera, gt, it, scale_weight) ->
@@ -213,35 +288,23 @@ def make_photometric_step(cfg: LoopConfig, use_scale_decay: bool = False,
     the CPU the eager step is returned."""
     dev = resolve_device(device)
 
-    def check(state):
-        if state.params.xyz.device.type != dev.type:
-            raise ValueError(f"state on {state.params.xyz.device}, step "
-                             f"made for {dev}")
-
     def eager(state: S.TrainerState, camera, gt, it, scale_weight=0.0):
-        check(state)
+        _check_device(state, dev)
         return photometric_step(state, camera, gt, it, scale_weight, cfg,
                                 use_scale_decay)
 
     if dev.type == "cpu":
         return eager
     graph = graphs.Graph()
-    n_state, n_cam = 3 * len(FIELDS) + 2, len(TENSOR_FIELDS)
+
+    def body(state, camera, gt, it, scale_weight):
+        return photometric_step(state, camera, gt, it, scale_weight, cfg,
+                                use_scale_decay)
 
     def step(state: S.TrainerState, camera, gt, it, scale_weight=0.0):
-        check(state)
-
-        def run(*ts):
-            new, aux = photometric_step(
-                _state_of(ts[:n_state]),
-                camera_with_tensors(camera, ts[n_state:n_state + n_cam]),
-                *ts[n_state + n_cam:], cfg, use_scale_decay)
-            return _state_tensors(new)[:-1], aux
-
-        new, aux = graph((state.capacity, camera.width, camera.height), run,
-                         *_state_tensors(state), *camera_tensors(camera),
-                         gt, it, scale_weight)
-        return _state_of((*new, state.live)), aux
+        _check_device(state, dev)
+        return _graph_step(graph, body, state, camera, gt,
+                           (it, scale_weight))
 
     step.graph = graph
     step.eager = eager
@@ -271,37 +334,82 @@ def hvs_grads(state: S.TrainerState, camera, gt, cfg: LoopConfig,
 _MASKING_FREEZE = {f: f in ("features_dc", "opacity") for f in FIELDS}
 
 
+def hvs_step(state: S.TrainerState, camera, gt, it, cfg: LoopConfig,
+             pooling_size, loss_type: str = "L1", masking: bool = False):
+    """One uniform-HVS step, the eager body of make_hvs_step's step: (new
+    state, {loss, overflow, nonfinite, num_pairs}), the values 0-d tensors
+    on the state's device (not synchronised). `it` is a python number or
+    a 0-d tensor there. With masking the other four fields keep their
+    tensors bit for bit and their Adam moments are zeroed."""
+    loss, grads, n_bad, out = hvs_grads(state, camera, gt, cfg,
+                                        pooling_size, loss_type)
+    lrs = optim.learning_rates(state.params, it, cfg.optim,
+                               cfg.spatial_lr_scale)
+    params, opt = optim.apply_updates(
+        state.params, grads, state.opt, lrs, cfg.optim,
+        freeze_mask=_MASKING_FREEZE if masking else None)
+    bn = out["binned"]
+    return (dataclasses.replace(state, params=params, opt=opt),
+            {"loss": loss, "overflow": bn.overflow, "nonfinite": n_bad,
+             "num_pairs": bn.num_pairs})
+
+
+def _prepare_hvs(cfg: LoopConfig, camera, pooling_size, device):
+    """Fill the HVS loss's tables and filters for this camera and pooling
+    size (metameric.prepare): a graph's prepare callback."""
+    metameric.prepare(camera.height, camera.width, pooling_size,
+                      cfg.hvs_levels, cfg.hvs_orientations, device)
+
+
 def make_hvs_step(cfg: LoopConfig, pooling_size, loss_type: str = "L1",
                   masking: bool = False, device=None):
     """The step function step(state, camera, gt, it) -> (new state, {loss,
     overflow, nonfinite, num_pairs}) of the uniform HVS loss at
-    `pooling_size`, the values 0-d tensors on the device. With masking
-    the other four fields keep their tensors bit for bit and their Adam
-    moments are zeroed. `device` as make_photometric_step's."""
+    `pooling_size` (hvs_step), the values 0-d tensors on the device.
+    `device` as make_photometric_step's.
+
+    On the card the step is a CUDA graph per state capacity and camera
+    (width, height), as make_photometric_step's, with `it` a 0-d input;
+    pooling_size, loss_type and masking are fixed here. Before a capture
+    the loss's tables and filters for the camera are filled
+    (metameric.prepare). With masking the frozen fields come back as
+    fresh tensors equal to the given ones. The graphed step has
+    attributes `graph` and `eager`; on the CPU the eager step is
+    returned."""
     dev = resolve_device(device)
-    freeze = _MASKING_FREEZE if masking else None
+
+    def body(state, camera, gt, it):
+        return hvs_step(state, camera, gt, it, cfg, pooling_size, loss_type,
+                        masking)
+
+    def eager(state: S.TrainerState, camera, gt, it):
+        _check_device(state, dev)
+        return body(state, camera, gt, it)
+
+    if dev.type == "cpu":
+        return eager
+    graph = graphs.Graph()
 
     def step(state: S.TrainerState, camera, gt, it):
-        if state.params.xyz.device.type != dev.type:
-            raise ValueError(f"state on {state.params.xyz.device}, step "
-                             f"made for {dev}")
-        loss, grads, n_bad, out = hvs_grads(state, camera, gt, cfg,
-                                            pooling_size, loss_type)
-        lrs = optim.learning_rates(state.params, it, cfg.optim,
-                                   cfg.spatial_lr_scale)
-        params, opt = optim.apply_updates(state.params, grads, state.opt,
-                                          lrs, cfg.optim, freeze_mask=freeze)
-        bn = out["binned"]
-        return (dataclasses.replace(state, params=params, opt=opt),
-                {"loss": loss, "overflow": bn.overflow, "nonfinite": n_bad,
-                 "num_pairs": bn.num_pairs})
+        _check_device(state, dev)
+        return _graph_step(graph, body, state, camera, gt, (it,),
+                           prepare=lambda: _prepare_hvs(
+                               cfg, camera, pooling_size, gt.device))
 
+    step.graph = graph
+    step.eager = eager
     return step
 
 
-def make_eval_fns(cfg: LoopConfig):
+def make_eval_fns(cfg: LoopConfig, device=None):
     """(eval_view(state, camera, gt) -> {ssim, psnr}, hvs_view(state,
-    camera, gt, pooling_size) -> HVS MSE), 0-d tensors, no gradient."""
+    camera, gt, pooling_size) -> HVS MSE), 0-d tensors, no gradient.
+
+    Unless `device` is "cpu" (then the eager functions), each runs a state
+    on the card through a CUDA graph per state capacity and camera
+    (width, height) (graphed_view), hvs_view one per pooling size too:
+    the pooling size fixes its shapes, so it is part of the key and not
+    an input. A state on the CPU runs eagerly."""
     @torch.no_grad()
     def eval_view(state, camera, gt):
         img = torch.clamp(render_state(state, camera, cfg)["render"], 0.0,
@@ -320,14 +428,22 @@ def make_eval_fns(cfg: LoopConfig):
             img, gt_r, pooling_size, cfg.hvs_levels, cfg.hvs_orientations,
             "MSE")
 
-    return eval_view, hvs_view
+    def prepare(state, camera, pooling_size):
+        _prepare_hvs(cfg, camera, pooling_size, state.live.device)
+
+    return (graphed_view(eval_view, device),
+            graphed_view(hvs_view, device, n_static=1, prepare=prepare))
 
 
-def make_score_fn(cfg: LoopConfig, metric: str = "max_comp_efficiency"):
+def make_score_fn(cfg: LoopConfig, metric: str = "max_comp_efficiency",
+                  device=None):
     """score_view(state, camera) -> (C,) per-Gaussian metric of one view
     (metric_pruning's inner body, prune.py:79-97): "max_comp_efficiency"
     (pixels won / fetched pairs), "max_contrib" (the largest alpha * T)
-    or "surface" (pixels won)."""
+    or "surface" (pixels won). Unless `device` is "cpu" (then the eager
+    function), a state on the card runs through a CUDA graph per state
+    capacity and camera (width, height) (graphed_view), kernel 8 and the
+    reductions inside; a state on the CPU runs eagerly."""
     mode = "max" if metric == "max_contrib" else "loss_weighted_max_count"
 
     def score_view(state: S.TrainerState, camera):
@@ -346,7 +462,7 @@ def make_score_fn(cfg: LoopConfig, metric: str = "max_comp_efficiency"):
             return torch.where(gs >= 1, s, torch.zeros_like(s))
         return contribs
 
-    return score_view
+    return graphed_view(score_view, device)
 
 
 def metric_prune_scores(state, views, score_view):
@@ -455,8 +571,8 @@ def prune_training(state: S.TrainerState, train_views, test_views,
     dev = state.live.device
     step_fn = make_photometric_step(cfg, use_scale_decay=use_scale_decay,
                                     device=dev)
-    eval_view, _ = make_eval_fns(cfg)
-    score_view = make_score_fn(cfg, metric)
+    eval_view, _ = make_eval_fns(cfg, device=dev)
+    score_view = make_score_fn(cfg, metric, device=dev)
 
     def run_eval(st):
         return evaluate(st, test_views or train_views, eval_view,
@@ -552,8 +668,8 @@ def mask_training(state: S.TrainerState, train_views, pooling_size: float,
     dev = state.live.device
     step_fn = make_hvs_step(cfg, pooling_size, "L1", masking=True,
                             device=dev)
-    _, hvs_view = make_eval_fns(cfg)
-    score_view = make_score_fn(cfg, "surface")
+    _, hvs_view = make_eval_fns(cfg, device=dev)
+    score_view = make_score_fn(cfg, "surface", device=dev)
 
     def run_hvs(st):
         return float(np.mean([

@@ -8,12 +8,16 @@ global-significance prune rounds (LightGaussian, at 16k/24k by default),
 progressive SH degree (oneupSHdegree every 1000 iters).
 
 The step renders through rasterize's fused train route (kernels 4-7) with
-a zero mean2d_offset whose gradient feeds the densification statistics;
-the active SH degree is an argument of the step, so raising it builds
-nothing new. The global-significance scores run the count_opacity stats
-pass (kernel 8). The split's normal samples are drawn from a
-torch.Generator on the state's device, seeded from `seed`, in place of
-the JAX package's key chain.
+a zero mean2d_offset whose gradient feeds the densification statistics.
+The global-significance scores run the count_opacity stats pass (kernel
+8). On the card the step and the significance pass's view are CUDA
+graphs (utils/graphs), the counterpart of the JAX package's jax.jit
+(scratch.py:71 and :96): the step one per state capacity, camera (width,
+height) and active SH degree, which picks the SH coefficients (a 30k run
+captures once a degree); a densify event keeps the capacity, so it
+captures nothing. scratch_step is the step's eager body. The split's
+normal samples are drawn from a torch.Generator on the state's device,
+seeded from `seed`, in place of the JAX package's key chain.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from fovsplat_torch.models import state as S
 from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops import stats as stats_ops
 from fovsplat_torch.train import loops, losses, optim
+from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
 
 
@@ -48,43 +53,76 @@ class ScratchConfig:
     densify_budget: int = 16384
 
 
+def scratch_step(state: S.TrainerState, dstats: D.DensifyStats, camera,
+                 gt, it, sh_degree: int, cfg: loops.LoopConfig):
+    """One from-scratch step, the eager body of make_scratch_step's step:
+    (new state, new dstats, {loss, nonfinite, overflow, num_pairs}), the
+    values 0-d tensors on the state's device (not synchronised). `it` is
+    a python number or a 0-d tensor there."""
+    p = state.params
+    fields = p.fields()
+    offset = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                         device=p.xyz.device, requires_grad=True)
+    with torch.enable_grad():
+        out = rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
+                             p.get_opacity(), camera,
+                             shs=p.get_features(), sh_degree=sh_degree,
+                             config=cfg.raster, live_mask=state.live,
+                             mean2d_offset=offset)
+        loss = losses.photometric_loss(out["render"], gt, cfg.lambda_dssim)
+        g = torch.autograd.grad(loss, [*fields.values(), offset])
+    grads, n_bad = loops._mask_dead_grads(dict(zip(fields, g[:-1])),
+                                          state.live)
+    lrs = optim.learning_rates(p, it, cfg.optim, cfg.spatial_lr_scale)
+    params, opt = optim.apply_updates(p, grads, state.opt, lrs, cfg.optim)
+    dstats = D.accumulate(dstats, g[-1], out["radii"], camera.width,
+                          camera.height)
+    bn = out["binned"]
+    return (dataclasses.replace(state, params=params, opt=opt), dstats,
+            {"loss": loss.detach(), "nonfinite": n_bad,
+             "overflow": bn.overflow, "num_pairs": bn.num_pairs})
+
+
 def make_scratch_step(cfg: loops.LoopConfig, device=None):
     """step(state, dstats, camera, gt, it, sh_degree) -> (new state, new
-    dstats, {loss, nonfinite, overflow, num_pairs}), the values 0-d
-    tensors on the device (not synchronised). `device` None means CUDA
-    and raises without it; pass "cpu" for the plain path."""
+    dstats, {loss, nonfinite, overflow, num_pairs}) (scratch_step), the
+    values 0-d tensors on the device (not synchronised). `device` None
+    means CUDA and raises without it; pass "cpu" for the plain path.
+
+    On the card the step is a CUDA graph per state capacity, camera
+    (width, height) and sh_degree: the state's tensors, the DensifyStats
+    tensors, the camera tensors, the ground truth and `it` are its static
+    inputs, and the new state and statistics come back as fresh tensors
+    (the live mask is the caller's). The graphed step has attributes
+    `graph` and `eager`; on the CPU the eager step is returned."""
     dev = resolve_device(device)
+
+    def eager(state: S.TrainerState, dstats: D.DensifyStats, camera, gt,
+              it, sh_degree: int):
+        loops._check_device(state, dev)
+        return scratch_step(state, dstats, camera, gt, it, sh_degree, cfg)
+
+    if dev.type == "cpu":
+        return eager
+    graph = graphs.Graph()
+    n_stats = len(dataclasses.fields(D.DensifyStats))
 
     def step(state: S.TrainerState, dstats: D.DensifyStats, camera, gt, it,
              sh_degree: int):
-        if state.params.xyz.device.type != dev.type:
-            raise ValueError(f"state on {state.params.xyz.device}, step "
-                             f"made for {dev}")
-        p = state.params
-        fields = p.fields()
-        offset = torch.zeros((state.capacity, 2), dtype=torch.float32,
-                             device=p.xyz.device, requires_grad=True)
-        with torch.enable_grad():
-            out = rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
-                                 p.get_opacity(), camera,
-                                 shs=p.get_features(), sh_degree=sh_degree,
-                                 config=cfg.raster, live_mask=state.live,
-                                 mean2d_offset=offset)
-            loss = losses.photometric_loss(out["render"], gt,
-                                           cfg.lambda_dssim)
-            g = torch.autograd.grad(loss, [*fields.values(), offset])
-        grads, n_bad = loops._mask_dead_grads(dict(zip(fields, g[:-1])),
-                                              state.live)
-        lrs = optim.learning_rates(p, it, cfg.optim, cfg.spatial_lr_scale)
-        params, opt = optim.apply_updates(p, grads, state.opt, lrs,
-                                          cfg.optim)
-        dstats = D.accumulate(dstats, g[-1], out["radii"], camera.width,
-                              camera.height)
-        bn = out["binned"]
-        return (dataclasses.replace(state, params=params, opt=opt), dstats,
-                {"loss": loss.detach(), "nonfinite": n_bad,
-                 "overflow": bn.overflow, "num_pairs": bn.num_pairs})
+        loops._check_device(state, dev)
 
+        def body(st, cam, g, *rest):
+            new, ds, aux = scratch_step(st, D.stats_of(rest[:n_stats]), cam,
+                                        g, rest[n_stats], sh_degree, cfg)
+            return new, (D.stats_tensors(ds), aux)
+
+        new, (ds, aux) = loops._graph_step(
+            graph, body, state, camera, gt,
+            (*D.stats_tensors(dstats), it), key=(sh_degree,))
+        return new, D.stats_of(ds), aux
+
+    step.graph = graph
+    step.eager = eager
     return step
 
 
@@ -103,22 +141,38 @@ def v_importance_score(state: S.TrainerState, gs_count, important_score,
     return torch.pow(torch.clamp(v_norm, min=1e-12), v_pow) * important_score
 
 
+def make_significance_view(cfg: loops.LoopConfig, device=None):
+    """view(state, camera) -> (gs_count (C,) i32, contribs (C,) f32): one
+    view's count_opacity stats pass (rasterize_stats, kernel 8), the
+    per-view body of global_significance_scores. Unless `device` is "cpu"
+    (then the eager function), a state on the card runs through a CUDA
+    graph per state capacity and camera (width, height)
+    (loops.graphed_view); a state on the CPU runs eagerly."""
+    def view(state: S.TrainerState, camera):
+        p = state.params
+        out = stats_ops.rasterize_stats(
+            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(),
+            camera, shs=p.get_features(), sh_degree=cfg.sh_degree,
+            mode="count_opacity", config=cfg.raster, live_mask=state.live)
+        return out["gs_count"], out["contribs"]
+
+    return loops.graphed_view(view, device)
+
+
 def global_significance_scores(state: S.TrainerState, views,
                                cfg: loops.LoopConfig):
     """LightGaussian prune_list (prune.py:133-157): accumulate per-Gaussian
     count and opacity-importance over all training views via the counting
-    rasterizer (rasterize_stats' count_opacity mode, kernel 8)."""
+    rasterizer (make_significance_view: rasterize_stats' count_opacity
+    mode, kernel 8)."""
     dev = state.live.device
+    view = make_significance_view(cfg, device=dev)
     gs_count = torch.zeros(state.capacity, dtype=torch.int32, device=dev)
     imp = torch.zeros(state.capacity, dtype=torch.float32, device=dev)
-    p = state.params
     for v in views:
-        out = stats_ops.rasterize_stats(
-            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(),
-            v.camera, shs=p.get_features(), sh_degree=cfg.sh_degree,
-            mode="count_opacity", config=cfg.raster, live_mask=state.live)
-        gs_count = gs_count + out["gs_count"]
-        imp = imp + out["contribs"]
+        count, contribs = view(state, v.camera)
+        gs_count = gs_count + count
+        imp = imp + contribs
     return gs_count, imp
 
 

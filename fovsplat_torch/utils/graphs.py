@@ -1,13 +1,20 @@
-"""CUDA graphs of the port's frames and train step: the counterpart of
-the jax.jit that the JAX package puts around them (fovsplat/eval/fps.py:93
-and :114, fovsplat/train/loops.py:149).
+"""CUDA graphs of the port's frames, train steps and score and eval
+passes: the counterpart of the jax.jit that the JAX package puts around
+them (fovsplat/eval/fps.py:93 and :114; fovsplat/train/loops.py:149, the
+photometric step, :185 the HVS step, :189 and :200 the eval and HVS
+views, :217 the score view; fovsplat/train/scratch.py:71 the scratch step
+and :96 the significance pass).
 
 A Graph holds one captured graph of a function of tensors at a time,
 keyed by the caller's static arguments (shapes, widths, capacities and
 configs: what jax.jit treats as static) and by the shapes and types of
 the arguments. The first call for a key:
 
-  1. copies the arguments into static input buffers;
+  1. copies the arguments into static input buffers and runs the
+     caller's `prepare` callback, if any, outside the sync-debug window:
+     it fills the host-built tables a path reads (the HVS loss's
+     resampling tables and pyramid filters), so that no host-to-device
+     copy is left for the warm-up or the capture;
   2. runs the function WARMUPS times on a side stream under
      torch.cuda.set_sync_debug_mode("error"): the kernels are built and
      loaded there, csrc/common.cuh's resident_blocks fills its per-device
@@ -23,8 +30,8 @@ clones of the static outputs: fresh tensors, as jax.jit returns fresh
 arrays, so no call writes into a tensor that an earlier call returned. A
 new key replaces the graph and frees its pool. A failed capture raises,
 and a CPU tensor is refused: nothing runs eagerly in a graph's place.
-The makers (eval/fps, train/loops) return their eager functions for the
-CPU.
+The makers (eval/fps, train/loops, train/scratch) return their eager
+functions for the CPU.
 
 Launch counters: each kernel wrapper counts its launches in Python
 (ops/kernels.launch_counters), so a replay would not move them. A
@@ -82,14 +89,15 @@ class Graph:
         self._outputs = []
         self._spec = None
 
-    def __call__(self, key, fn, *args):
+    def __call__(self, key, fn, *args, prepare=None):
         """fn(*args) through the graph of `key`: args are CUDA tensors on
         one device and python numbers. fn is called only to warm up and
         capture, so it must compute the same function of its arguments
-        for every call with this key."""
+        for every call with this key. prepare() runs before a capture's
+        warm-up, outside the sync-debug window (not on a replay)."""
         sig = (key, tuple(_signature(a) for a in args))
         if sig != self.key:
-            self._capture(sig, fn, args)
+            self._capture(sig, fn, args, prepare)
         else:
             self.load(args)
         return self.replay()
@@ -119,7 +127,7 @@ class Graph:
                 [t.clone() if torch.is_tensor(t) else t
                  for t in self._outputs], self._spec)
 
-    def _capture(self, sig, fn, args):
+    def _capture(self, sig, fn, args, prepare):
         # Drop the old graph first, so that its pool is freed.
         self.key, self._graph, self._inputs, self._outputs = None, None, (), []
         self.launches_per_replay, self._counters = {}, []
@@ -135,6 +143,8 @@ class Graph:
                     a.detach().clone() if torch.is_tensor(a) else
                     torch.full((), a, dtype=_SCALAR_DTYPES[type(a)],
                                device=dev) for a in args)
+            if prepare is not None:
+                prepare()
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             mode = torch.cuda.get_sync_debug_mode()

@@ -1368,3 +1368,163 @@ def test_graphed_steps_match_eager_across_scale_weight(cuda):
             "reduce_by_sorted_gid"} <= set(per)
     assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
         k: per.get(k, 0) for k in counters}
+
+
+# CUDA graphs of the HVS step, the eval, HVS, score and significance views
+# and the scratch step against their eager functions, bit for bit.
+
+def _small_graph_inputs(dev, n=5000, w=160, h=112, capacity=None):
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=3))
+    st = S.from_params(convert.params_from_numpy(**raw, device=dev),
+                       capacity or n + 64)
+    gt = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (h, w, 3)).astype(np.float32)).to(dev)
+    cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
+    return st, proxy.proxy_camera(w, h, device=dev), gt, cfg
+
+
+def _flat_state(s, aux=None):
+    return ([getattr(s.params, f).detach() for f in s.params.fields()]
+            + list(s.opt.mu.values()) + list(s.opt.nu.values())
+            + [s.opt.count] + [aux[k] for k in sorted(aux or {})])
+
+
+@pytest.mark.parametrize("masking", [True, False])
+def test_graphed_hvs_step_matches_eager(cuda, masking):
+    """Three graphed HVS steps at pooling 3 against three eager ones
+    (loops.hvs_step), `it` 1-3: loss, aux, every parameter and moment bit
+    for bit; with masking the frozen fields equal the given ones in fresh
+    tensors; no step changes a state given to or returned before it; one
+    capture, and the counters move by the graph's launches a replay."""
+    st, cam, gt, cfg = _small_graph_inputs(cuda)
+    step = loops.make_hvs_step(cfg, 3.0, masking=masking)
+    kept = [t.clone() for t in _flat_state(st)]
+    se = sg = st
+    outs = []
+    for it in (1, 2, 3):
+        se, ae = loops.hvs_step(se, cam, gt, it, cfg, 3.0, "L1", masking)
+        sg, ag = step(sg, cam, gt, it)
+        fe, fg = _flat_state(se, ae), _flat_state(sg, ag)
+        assert all(torch.equal(a, b) for a, b in zip(fe, fg)), it
+        outs.append(([t.clone() for t in fg], fg))
+        assert int(ag["overflow"]) == 0 and int(ag["nonfinite"]) == 0
+    for k, live in outs:
+        assert all(torch.equal(a, b) for a, b in zip(k, live))
+    assert all(torch.equal(a, b) for a, b in zip(kept, _flat_state(st)))
+    if masking:
+        for f in ("xyz", "features_rest", "scaling", "rotation"):
+            assert torch.equal(getattr(sg.params, f), getattr(st.params, f))
+            assert getattr(sg.params, f).data_ptr() != getattr(
+                st.params, f).data_ptr()
+    assert step.graph.captures == 1
+    counters = _set_counters()
+    step(st, cam, gt, 4)
+    per = step.graph.launches_per_replay
+    assert {"expand_ps1", "blend_forward", "blend_backward",
+            "reduce_by_sorted_gid"} <= set(per)
+    assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
+        k: per.get(k, 0) for k in counters}
+
+
+VIEW_PATHS = ["eval_view", "hvs_view", "score_max_comp_efficiency",
+              "score_max_contrib", "score_surface", "significance"]
+
+
+def _view_fn(path, cfg):
+    from fovsplat_torch.train import scratch
+    if path == "eval_view":
+        return loops.make_eval_fns(cfg)[0], ()
+    if path == "hvs_view":
+        return loops.make_eval_fns(cfg)[1], (3.0,)
+    if path == "significance":
+        return scratch.make_significance_view(cfg), ()
+    return loops.make_score_fn(cfg, path[len("score_"):]), ()
+
+
+def _leaves(out):
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("path", VIEW_PATHS)
+def test_graphed_views_match_eager(cuda, path):
+    """The graphed eval, HVS (pooling 3), score (three metrics) and
+    significance views against their eager functions on two states (the
+    second with a third of the rows dead): bit for bit, one capture, the
+    first output unchanged by the second call, the counters moved by the
+    graph's launches a replay (kernel 8 on the score and significance
+    views)."""
+    st, cam, gt, cfg = _small_graph_inputs(cuda)
+    fn, static = _view_fn(path, cfg)
+    args = (gt,) if path in ("eval_view", "hvs_view") else ()
+    cut = S.prune_mask(st, torch.arange(st.capacity, device=cuda) % 3 == 0)
+    first = [t.clone() for t in _leaves(fn(st, cam, *args, *static))]
+    for s in (st, cut):
+        a = _leaves(fn(s, cam, *args, *static))
+        b = _leaves(fn.eager(s, cam, *args, *static))
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    assert not all(torch.equal(x, y) for x, y in zip(first, a))
+    again = _leaves(fn(st, cam, *args, *static))
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert fn.graph.captures == 1
+    counters = _set_counters()
+    fn(st, cam, *args, *static)
+    per = fn.graph.launches_per_replay
+    if path.startswith("score") or path == "significance":
+        assert {"expand_ps1", "blend_stats"} <= set(per)
+    assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
+        k: per.get(k, 0) for k in counters}
+
+
+def test_hvs_view_recaptures_on_a_pooling_change(cuda):
+    """The pooling size is part of hvs_view's key (it fixes the pooling's
+    shapes): pooling 3, 7, 7, 3 capture three times and each call matches
+    the eager view; `float(pooling)` and the int give the same key."""
+    st, cam, gt, cfg = _small_graph_inputs(cuda)
+    _, hvs_view = loops.make_eval_fns(cfg)
+    for ps in (3, 7.0, 7, 3.0):
+        assert torch.equal(hvs_view(st, cam, gt, ps),
+                           hvs_view.eager(st, cam, gt, ps)), ps
+    assert hvs_view.graph.captures == 3
+
+
+def test_graphed_scratch_step_across_sh_raise_and_densify(cuda):
+    """Six graphed scratch steps against six eager ones (scratch_step),
+    the SH degree raised from 0 to 1 after step 2 and a densify event
+    (clone, split with one noise draw, size prune, fresh aliased
+    statistics) after step 4: state, statistics and aux bit for bit;
+    one capture a degree and none at the densify event (the capacity is
+    fixed)."""
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.train import scratch
+    st, cam, gt, cfg = _small_graph_inputs(cuda, capacity=6000)
+    step = scratch.make_scratch_step(cfg)
+    de = dg = D.init_stats(st.capacity, cuda)
+    se = sg = st
+    noise = torch.randn((2, st.capacity, 3),
+                        generator=torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    captures = []
+    for it in range(1, 7):
+        sh = 0 if it <= 2 else 1
+        se, de, ae = scratch.scratch_step(se, de, cam, gt, it, sh, cfg)
+        sg, dg, ag = step(sg, dg, cam, gt, it, sh)
+        fe = _flat_state(se, ae) + list(D.stats_tensors(de))
+        fg = _flat_state(sg, ag) + list(D.stats_tensors(dg))
+        assert all(torch.equal(a, b) for a, b in zip(fe, fg)), it
+        assert torch.equal(se.live, sg.live)
+        if it == 4:
+            live_before = se.live.clone()
+            outs = []
+            for s, d in ((se, de), (sg, dg)):
+                s, _ = D.densify_and_clone(s, d, 1e-7, 4.0, 0.01, 256)
+                s, _ = D.densify_and_split(s, d, 1e-7, 4.0, 0.01, 256,
+                                           noise=noise)
+                outs.append((D.prune_oversized(s, d, None, 4.0),
+                             D.init_stats(st.capacity, cuda)))
+            (se, de), (sg, dg) = outs
+            assert not torch.equal(se.live, live_before)
+        captures.append(step.graph.captures)
+    assert captures == [1, 1, 2, 2, 2, 2]

@@ -1,13 +1,16 @@
-"""The port's CUDA-graph slice on the CPU: the pieces changed so that a
-graph can hold the photometric step (the pair counts of the scale-decay
-term, the device-side learning-rate schedule, `it` and `scale_weight` as
-0-d tensors), the makers' fresh outputs, and the graph helper's refusal
-of CPU tensors. The graphs themselves run on the card only
-(tests/test_torch_cuda.py, chip_smoke.py's graphs phase).
+"""The port's CUDA-graph slices on the CPU: the pieces changed so that a
+graph can hold the photometric, HVS and scratch steps and the views (the
+pair counts of the scale-decay term, the device-side learning-rate
+schedule, `it` and `scale_weight` as 0-d tensors, the HVS loss's tables
+and filters filled before a capture, the DensifyStats as flat tensors),
+the makers' fresh outputs and eager functions on the CPU, and the graph
+helper's refusal of CPU tensors. The graphs themselves run on the card
+only (tests/test_torch_cuda.py, chip_smoke.py's graphs phase).
 
-The scale-decay step is held against the JAX package's jitted step on
-the same numpy inputs (the XLA route, as tests/test_torch_train.py's
-test_step_variants_match_jax_xla), one compile for both of its `it`.
+The scale-decay, masked HVS and scratch steps are held against the JAX
+package's jitted steps on the same numpy inputs (the XLA route, as
+tests/test_torch_train.py's test_step_variants_match_jax_xla), one
+compile a fixture.
 """
 
 import jax.numpy as jnp
@@ -25,6 +28,7 @@ from fovsplat_torch.ops import kernels
 from fovsplat_torch.ops import rasterize as trast
 from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.train import optim as toptim
+from fovsplat_torch.train import scratch as tscratch
 from fovsplat_torch.utils import general, graphs
 from tests.test_torch_train import FIELDS, _kept_pair_counts, _train_setup
 from tests.test_torch_prune import tcam
@@ -286,3 +290,251 @@ def test_launch_counters_list_every_wrapper():
     assert set(counters) == found | {"blend_fov_tile0"}
     for name, (obj, attr) in counters.items():
         assert isinstance(getattr(obj, attr), int), name
+
+
+# ------------------------------------------------------------ HVS, scratch
+
+@pytest.fixture(scope="module")
+def hvs_steps():
+    """The JAX masked HVS step at it = 5 (tests/test_torch_prune.py's
+    test_hvs_step_masking_matches_jax's call, so the two share one
+    compile) and the port's inputs."""
+    jst, tst, cam, gt = _train_setup(n=200, capacity=224)
+    jcfg = jloops.LoopConfig(raster=jrast.RasterizeConfig(
+        pair_capacity=1 << 13, chunk=256))
+    jout = jloops.make_hvs_step(jcfg, 3.0, "L1", masking=True)(
+        jst, cam, jnp.asarray(gt), jnp.int32(5))
+    tcfg = tloops.LoopConfig(raster=trast.RasterizeConfig(
+        pair_capacity=1 << 13))
+    return jout, tst, tcam(cam), torch.from_numpy(gt), tcfg
+
+
+@pytest.mark.parametrize("masking", [True, False])
+def test_hvs_step_tensor_it_matches_python_and_jax(hvs_steps, masking):
+    """hvs_step with `it` as a 0-d tensor (as a CUDA graph holds it) is
+    the step with a python int bit for bit; the masked step matches JAX's
+    as test_hvs_step_masking_matches_jax holds it (loss within 1e-5
+    relative, DC and opacity moments scaled within rtol 2e-3, atol 2e-4,
+    the four frozen fields bit for bit), and its frozen fields come back
+    equal to the given ones."""
+    (jnew, jaux), tst, cam, gt, tcfg = hvs_steps
+    py_new, py_aux = tloops.hvs_step(tst, cam, gt, 5, tcfg, 3.0, "L1",
+                                     masking)
+    t_new, t_aux = tloops.hvs_step(tst, cam, gt, torch.tensor(5), tcfg, 3.0,
+                                   "L1", masking)
+    for a, b in zip(_flat(py_new, py_aux), _flat(t_new, t_aux)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(t_aux["nonfinite"]) == 0 and int(t_aux["overflow"]) == 0
+    moved = {f for f in FIELDS if not torch.equal(
+        getattr(t_new.params, f), getattr(tst.params, f))}
+    if not masking:
+        assert moved == set(FIELDS)
+        return
+    assert moved == {"features_dc", "opacity"}
+    np.testing.assert_allclose(float(t_aux["loss"]), float(jaux["loss"]),
+                               rtol=1e-5)
+    for f in FIELDS:
+        if f in moved:
+            g = np.asarray(getattr(jnew.opt.mu, f))
+            scale = np.abs(g).max()
+            np.testing.assert_allclose(t_new.opt.mu[f].numpy() / scale,
+                                       g / scale, rtol=2e-3, atol=2e-4,
+                                       err_msg=f)
+        else:
+            np.testing.assert_array_equal(
+                getattr(t_new.params, f).detach().numpy(),
+                np.asarray(getattr(jnew.params, f)), err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def scratch_steps():
+    """The JAX scratch step at SH degree 1 and it = 3 from the HVS
+    fixture's state (tests/test_torch_scratch.py's test_scratch_steps_
+    match_jax holds a chain of them), and the port's inputs."""
+    from fovsplat.models import densify as jdens
+    from fovsplat.train import scratch as jscratch
+    jst, tst, cam, gt = _train_setup(n=200, capacity=224)
+    jcfg = jloops.LoopConfig(raster=jrast.RasterizeConfig(
+        pair_capacity=1 << 13, chunk=256))
+    jout = jscratch.make_scratch_step(jcfg, 1)(
+        jst, jdens.init_stats(224), cam, jnp.asarray(gt), jnp.int32(3))
+    tcfg = tloops.LoopConfig(raster=trast.RasterizeConfig(
+        pair_capacity=1 << 13))
+    return jout, tst, tcam(cam), torch.from_numpy(gt), tcfg
+
+
+def test_scratch_step_tensor_it_matches_python_and_jax(scratch_steps):
+    """scratch_step with `it` as a 0-d tensor and the aliased init_stats
+    is the step with a python int bit for bit (state, statistics, aux),
+    and matches JAX's at tests/test_torch_scratch.py's tolerances: loss
+    1e-5 relative, first moments and grad_accum scaled within rtol 2e-3,
+    atol 2e-4, denom and max_radii exact."""
+    from fovsplat_torch.models import densify as tdens
+    (jnew, jd, jaux), tst, cam, gt, tcfg = scratch_steps
+    outs = [tscratch.scratch_step(tst, tdens.init_stats(224, device="cpu"),
+                                  cam, gt, it, 1, tcfg)
+            for it in (3, torch.tensor(3))]
+    (pn, pd, pa), (tn, td, ta) = outs
+    for a, b in zip(_flat(pn, pa) + list(tdens.stats_tensors(pd)),
+                    _flat(tn, ta) + list(tdens.stats_tensors(td))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(ta["nonfinite"]) == int(jaux["nonfinite"]) == 0
+    assert int(ta["overflow"]) == 0
+    np.testing.assert_allclose(float(ta["loss"]), float(jaux["loss"]),
+                               rtol=1e-5)
+    for name, a, b in ([(f, tn.opt.mu[f], getattr(jnew.opt.mu, f))
+                        for f in FIELDS]
+                       + [("grad_accum", td.grad_accum, jd.grad_accum)]):
+        b = np.asarray(b)
+        scale = np.abs(b).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, rtol=2e-3,
+                                   atol=2e-4, err_msg=name)
+    np.testing.assert_array_equal(td.denom.numpy(), np.asarray(jd.denom))
+    np.testing.assert_array_equal(td.max_radii.numpy(),
+                                  np.asarray(jd.max_radii))
+
+
+def test_densify_stats_round_trip_through_tensors():
+    """stats_tensors and stats_of round-trip, the aliased init_stats (one
+    zero tensor in all three fields) included; a graph copies the three
+    into separate static inputs, so the step's statistics do not depend
+    on the aliasing."""
+    from fovsplat_torch.models import densify as tdens
+    z = tdens.init_stats(7, device="cpu")
+    assert z.grad_accum is z.denom is z.max_radii
+    rng = np.random.default_rng(0)
+    ds = tdens.DensifyStats(*(torch.from_numpy(rng.uniform(
+        0, 1, 7).astype(np.float32)) for _ in range(3)))
+    for s in (z, ds):
+        ts = tdens.stats_tensors(s)
+        assert len(ts) == 3
+        back = tdens.stats_of(ts)
+        assert all(getattr(back, f) is getattr(s, f)
+                   for f in ("grad_accum", "denom", "max_radii"))
+        copies = [t.clone() for t in ts]
+        copies[0].add_(1.0)     # separate buffers, as a graph's inputs
+        sep = tdens.stats_of(copies)
+        assert torch.equal(sep.denom, s.denom)
+        assert torch.equal(sep.max_radii, s.max_radii)
+
+
+# ------------------------------------------------------------ tables
+
+def test_device_filters_match_numpy_weights():
+    """The pyramid's cached device filters give filter_bank and
+    depthwise_conv outputs bit-equal to the numpy-weight path."""
+    from fovsplat_torch.perception import pyramid as tpyr
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (1, 32, 48, 3)).astype(np.float32))
+    f = tpyr.load_filters(6, "cropped")
+    dev = tpyr.device_filters(6, "cropped", "cpu", torch.float32)
+    assert torch.equal(tpyr.filter_bank(x, dev["b"]),
+                       tpyr.filter_bank(x, f["b"]))
+    assert torch.equal(tpyr.filter_bank(x, dev["h0l0"]),
+                       tpyr.filter_bank(x, np.stack([f["h0"], f["l0"]])))
+    for k in ("h0", "l0", "l"):
+        assert torch.equal(tpyr.depthwise_conv(x, dev[k]),
+                           tpyr.depthwise_conv(x, f[k])), k
+    assert tpyr.device_filters(6, "cropped", "cpu", torch.float32) is dev
+
+
+@pytest.mark.parametrize("pooling", [1.0, 3.0, 12.0])
+def test_prepare_fills_every_table(pooling):
+    """After metameric.prepare for a camera and pooling size, an eager HVS
+    step (forward and backward) and hvs_view at that size add no miss to
+    the resampling tables' cache or the pyramid filters' cache: a CUDA
+    graph's warm-up and capture then copy nothing from the host. 80x56
+    is resized for the pyramid (to 96x64)."""
+    from fovsplat_torch.perception import metameric as tmeta
+    from fovsplat_torch.perception import pyramid as tpyr
+    _, tst, _, _ = _train_setup(n=200, capacity=224)
+    cam = proxy.proxy_camera(W, H, device="cpu")
+    gt = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (H, W, 3)).astype(np.float32))
+    cfg = tloops.LoopConfig(raster=trast.RasterizeConfig(
+        pair_capacity=1 << 13))
+    tmeta._resample_map.cache_clear()
+    tpyr.device_filters.cache_clear()
+    tmeta.prepare(H, W, pooling, cfg.hvs_levels, cfg.hvs_orientations, "cpu")
+    misses = (tmeta._resample_map.cache_info().misses,
+              tpyr.device_filters.cache_info().misses)
+    assert misses[0] > 0 and misses[1] == 1
+    _, aux = tloops.hvs_step(tst, cam, gt, 1, cfg, pooling)
+    _, hvs_view = tloops.make_eval_fns(cfg, device="cpu")
+    mse = hvs_view(tst, cam, gt, pooling)
+    assert np.isfinite(float(aux["loss"])) and np.isfinite(float(mse))
+    assert (tmeta._resample_map.cache_info().misses,
+            tpyr.device_filters.cache_info().misses) == misses
+
+
+# ------------------------------------------------------------ makers
+
+MAKERS = ["hvs_step", "eval_view", "hvs_view", "score_view", "scratch_step",
+          "significance_view"]
+
+
+def _maker(name, cfg, device):
+    if name == "hvs_step":
+        return tloops.make_hvs_step(cfg, 3.0, masking=True, device=device)
+    if name == "scratch_step":
+        return tscratch.make_scratch_step(cfg, device=device)
+    if name == "significance_view":
+        return tscratch.make_significance_view(cfg, device=device)
+    if name == "score_view":
+        return tloops.make_score_fn(cfg, device=device)
+    return tloops.make_eval_fns(cfg, device=device)[name == "hvs_view"]
+
+
+def _call(name, fn, st, cam, gt):
+    from fovsplat_torch.models import densify as tdens
+    if name == "hvs_step":
+        return fn(st, cam, gt, 1)
+    if name == "scratch_step":
+        return fn(st, tdens.init_stats(st.capacity, device="cpu"), cam, gt,
+                  1, 1)
+    if name == "eval_view":
+        return fn(st, cam, gt)
+    if name == "hvs_view":
+        return fn(st, cam, gt, 3.0)
+    return fn(st, cam)
+
+
+def _leaves(out):
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _leaves(o)]
+    if hasattr(out, "params"):
+        return _flat(out, {})
+    if hasattr(out, "grad_accum"):
+        return [out.grad_accum, out.denom, out.max_radii]
+    return [out]
+
+
+@pytest.mark.parametrize("name", MAKERS)
+def test_cpu_makers_return_eager_functions(name):
+    """On the CPU the makers of the HVS step, the eval and HVS views, the
+    score view, the scratch step and the significance view return their
+    eager functions (no graph). The view makers' default (device None)
+    gives a graphed callable that runs a state on the CPU through the
+    same eager function: equal outputs, no capture."""
+    _, tst, _, _ = _train_setup(n=200, capacity=224)
+    cam = proxy.proxy_camera(W, H, device="cpu")
+    gt = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (H, W, 3)).astype(np.float32))
+    cfg = tloops.LoopConfig(raster=trast.RasterizeConfig(
+        pair_capacity=1 << 13))
+    fn = _maker(name, cfg, "cpu")
+    assert not hasattr(fn, "graph")
+    want = _leaves(_call(name, fn, tst, cam, gt))
+    assert want and all(bool(torch.isfinite(t.float()).all()) for t in want)
+    if name in ("hvs_step", "scratch_step"):
+        return
+    graphed = _maker(name, cfg, None)
+    assert graphed.eager is not None and graphed.graph.captures == 0
+    got = _leaves(_call(name, graphed, tst, cam, gt))
+    assert len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    assert graphed.graph.captures == 0 and graphed.graph.replays == 0
+
