@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch / CUDA port renders (the foveated
 "ours" frame and the PS1, SM-FR and MM-FR inference frames), trains
-(those frames, the photometric, HVS and scratch steps and the score,
-eval, HVS and significance views as CUDA graphs, bit-identical to their
-eager functions),
+(those frames, the photometric, HVS and scratch steps, the score, eval,
+HVS and significance views, distill's teacher render, the quality and
+layer renders, SSIM, LPIPS, VQ's assignment and EMA update and the DP
+step as CUDA graphs, bit-identical to their eager functions),
 prunes and masks on the GPU, that it loads a scene, trains a model from
 scratch and runs the whole pipeline there, that it scores models (PSNR,
 SSIM, LPIPS, HVS, per-layer HVS, rendered views and video), that it
@@ -110,9 +111,15 @@ into build/kernels first. Phases, one JSON line each on stdout:
      the first output unchanged by later calls; 6 scratch steps on the
      proxy with 65,536 rows of headroom, the SH degree raised at step 3
      and a densify event after step 4: state, statistics and aux bit for
-     bit, one capture a degree and none at the event), one capture a
-     key, each counter moving by N times the graph's launches over N
-     replays; per path the wall ms of both (batched and synchronised
+     bit, one capture a degree and none at the event; on the train state
+     at the train camera and a ring camera distill's teacher render, the
+     quality render and the two layer renders (layer 2 of seeded level
+     arrays), then SSIM and LPIPS on those renders, then VQ's assignment
+     (two 8,192-row chunks) and EMA update (two 80,000-row batches) with
+     8,192 codewords and TF32 allowed globally: bit for bit, every
+     argument unchanged), one
+     capture a key, each counter moving by N times the graph's launches
+     over N replays; per path the wall ms of both (batched and synchronised
      each call), device ms and idle share from profiler windows, the
      kernels the profiler names, capture seconds, peak memory, and the
      copy-in and copy-out device ms;
@@ -162,7 +169,10 @@ into build/kernels first. Phases, one JSON line each on stdout:
      one init and seed, params, Adam moments, live mask and DensifyStats
      bit-identical, and
      a profiler window over 3 scratch steps from the state after the
-     first densify event;
+     first densify event; then knn: mean_knn_sqdist eager against a
+     CUDA graph of it at 100,000 and 1,040,000 points, bit for bit, the
+     wall ms of each form's first and second calls (the port keeps it
+     eager: it runs once a model);
  24. scratch_vs_cpu: 20 scratch steps with one densify event on the 20k
      proxy at 320x224, card against the CPU plain path with the same
      split noise: DensifyStats within 1e-4 of the largest sum, clone and
@@ -183,14 +193,17 @@ into build/kernels first. Phases, one JSON line each on stdout:
      render rounds to its PNG exactly (only the 8-bit rounding separates
      them), mean PSNR >= 50 dB and SSIM >= 0.998 (the rounding alone
      gives 58.9 dB and 0.99886), LPIPS null (no weights file), both JSON
-     files with the reference's keys, overflow 0 on every render, kernels
-     4 and 5 launched once a view; seconds a view split into render,
-     SSIM, PSNR, LPIPS and HVS;
+     files with the reference's keys, kernels 4 and 5 launched once a
+     view in the render graph's replays (captured in set-up); each view's
+     graphed render bit-identical to the eager one (overflow 0 there) and
+     its graphed SSIM equal to the eager one; seconds a view split into
+     render, SSIM, PSNR, LPIPS and HVS;
  27. lpips: LPIPS-vgg on synthetic weights (a fixed numpy seed, written to
-     build/lpips_synthetic.npz) at full width, timed, two calls
-     bit-identical, TF32 allowed globally for the phase so that only the
-     module's local flag keeps it off; the card against the CPU at
-     160x112 within 1e-5 relative;
+     build/lpips_synthetic.npz) at full width as a CUDA graph, timed
+     against the eager function, two calls bit-identical and equal to
+     eager, TF32 allowed globally for the phase so that only the module's
+     local flag keeps it off; the card (a second capture) against the CPU
+     at 160x112 within 1e-5 relative;
  28. hvs_fov: the foveated HVS metric and blur_loss at full width at
      gazes (0.5, 0.5) and (0.2, 0.8), timed; metameric_loss_fov and
      blur_loss on the card against the CPU at 320x224 within 1e-5
@@ -199,7 +212,9 @@ into build/kernels first. Phases, one JSON line each on stdout:
  29. layers: eval_layers with layer_render_ours on the chain phase's
      composed model, ladder [1, 3, 7, 12], the scene's 2 test views,
      counters set to 0 before and read after: four JSON files, finite
-     values, overflow 0, kernels 4 and 5 launched once a layer and view;
+     values, kernels 4 and 5 launched once a layer and view and once in
+     each layer graph's warm-up (one capture a layer); each layer's graph
+     bit-identical to its eager render on each view, overflow 0 there;
      one layer's scores on the card against the CPU (20k proxy, 320x224)
      within 1e-5 relative;
  30. fov_unpacked: rasterize_fov on the unpacked f32 full-width proxy at
@@ -216,19 +231,23 @@ into build/kernels first. Phases, one JSON line each on stdout:
      teacher (codebook 8,192, ratio 0.6, 10 iterations) with importance
      from global_significance_scores on the scene's 14 train views,
      counters set to 0 before and read after (kernels 4, 7, 8 once a
-     view, and once in the view graph's warm-up): two runs
-     bit-identical with TF32 allowed globally, the round-trip bounds of
+     view, and once in the view graph's warm-up): two runs (each EMA
+     update and the last assignment a CUDA graph) bit-identical with
+     TF32 allowed globally, the most near ties a chunk held, the slots
+     and their regrowths (recaptures), the round-trip bounds of
      tests/test_models_data.py, size and ratio, a PS1 render of the
      decompressed model against the teacher's (PSNR, overflow 0),
      seconds; the card against the CPU at 20,000 rows and
      codebook 256 with the same injected draws (codebook within 1e-5
      relative, keep masks equal, ids equal where the two nearest
      codewords are further apart than the distance formula's rounding
-     bound, and no near-tie pick further than that);
+     bound, and no near-tie pick further than that), and the graphed
+     card run equal to an eager card run;
  33. distill: the teacher distilled from SH degree 3 to 1 for 20
      iterations on the 14 views, twice from one seed (bit-identical),
-     launches of kernels 4-7 (the graphed step's warm-up run included),
-     the loss against the teacher's render
+     launches of kernels 4-7 (the warm-up runs of the graphed step and
+     the graphed teacher render included), the teacher's graph against
+     its eager render, the loss against the teacher's render
      before and after, ms an iteration;
  34. mm_models: generate_mm_models from the chain phase's PS1 state with
      its live ladder as layer_counts (3 finetune iterations a level),
@@ -251,7 +270,10 @@ into build/kernels first. Phases, one JSON line each on stdout:
      tiles of a whole-grid launch and over two launches, timed;
  38. parallel_nccl: a world-size-1 NCCL group in this process, every
      counter 0 before each sharded call and read after it: the DP step
-     over one ring view bit-identical to trainer.make_train_step, the
+     over one ring view (a CUDA graph, its all-reduce captured)
+     bit-identical to trainer.make_train_step; 3 graphed DP steps against
+     3 eager ones and 3 of make_train_step(group=), bit for bit, with
+     the graphs phase's row (times, profiles, copies, replay counts); the
      tile-sharded PS1 frame (kernel 5q) bit-identical to
      rasterize(fwd_only, sort_exact_depth) and the fov-sharded frame
      (kernels 1-3) bit-identical to rasterize_fov_soa(sort_exact_depth),
@@ -1864,6 +1886,55 @@ def run_scratch(scene, cfg, kernels, device):
     return launches, graphed
 
 
+KNN_POINTS = (SCENE_POINTS, 1_040_000)   # the scratch phase's init;
+                                         # the pipeline's capacity
+
+
+def run_knn(device):
+    """Phase knn: mean_knn_sqdist (create_from_points' scale init; JAX
+    jits it, ops/knn.py:37) eager against a CUDA graph of it
+    (graphs.graphed_fn) at KNN_POINTS points of the proxy: wall ms of the
+    first and second eager calls, of the graph's first call (its eager
+    warm-up, the capture and a replay) and of its replays, CUDA-event
+    device ms of both, the graph bit for bit against eager. The port
+    keeps knn eager: it runs once a model, so only the first call
+    counts, and a graph's first call cannot beat it."""
+    import torch
+    from fovsplat_torch.data import proxy
+    from fovsplat_torch.ops import knn
+    from fovsplat_torch.utils import graphs
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+    rows = []
+    for n in KNN_POINTS:
+        pts = torch.as_tensor(proxy.bicycle_proxy(n=n, seed=0)["means"],
+                              dtype=torch.float32, device=device)
+        e, first = wall(lambda: knn.mean_knn_sqdist(pts))
+        _, second = wall(lambda: knn.mean_knn_sqdist(pts))
+        g = graphs.graphed_fn(knn.mean_knn_sqdist, n_static=2)
+        a, g_first = wall(lambda: g(pts, 3, 32))
+        b, g_second = wall(lambda: g(pts, 3, 32))
+        rows.append({"points": n, "eager_first_ms": first,
+                     "eager_second_ms": second, "graphed_first_ms": g_first,
+                     "graphed_second_ms": g_second,
+                     "capture_seconds": g.graph.capture_seconds,
+                     "eager_device_ms": cuda_ms(
+                         lambda: knn.mean_knn_sqdist(pts), 3),
+                     "graphed_device_ms": cuda_ms(lambda: g(pts, 3, 32), 3),
+                     "bit_identical": bool(torch.equal(a, e)
+                                           and torch.equal(b, e)),
+                     "graph_first_call_slower": g_first > first})
+        del g, a, b, e, pts
+    emit({"phase": "knn", "rows": rows, "kept": "eager"})
+    if not all(r["bit_identical"] for r in rows):
+        raise AssertionError("knn: the graph differs from the eager knn")
+
+
 @contextlib.contextmanager
 def recorded_densify(D, split_noise, rec):
     """While train_scratch runs: the split takes `split_noise` (moved to the
@@ -2981,55 +3052,6 @@ def view_forms(call, reps=5):
     return out
 
 
-def graph_view_path(path, fn, calls, iters=3, captures=1, extra=None):
-    """One view of the graphs phase: fn a graphed view (fn.graph, fn.eager
-    its eager function), calls a list of argument tuples (the state, the
-    camera, the rest; static arguments last). Eager times, profile and
-    peak memory on the first call's arguments; then the graph: each call
-    against the eager view bit for bit, the first output unchanged by the
-    later calls, the graph's times, profile, peak memory, copies and
-    replay accounting on the last call's arguments (the key it holds),
-    `captures` captures over the calls."""
-    import torch
-    from fovsplat_torch.data.cameras import camera_tensors
-    from fovsplat_torch.models.gaussians import FIELDS
-    t0 = time.perf_counter()
-    eager, graph = fn.eager, fn.graph
-    row = {"phase": "graphs", "path": path, "calls": len(calls),
-           **(extra or {})}
-    first_args, last_args = calls[0], calls[-1]
-    row["eager"] = {"memory": memory_of(lambda: eager(*first_args), 2),
-                    "wall_ms": view_forms(lambda: eager(*first_args)),
-                    "profile": profile_summary(lambda: eager(*first_args),
-                                               iters)}
-    mem = memory_of(lambda: fn(*first_args), 2)
-    first = [t.clone() for t in leaves(fn(*first_args))]
-    kept_ref = leaves(fn(*first_args))
-    same = []
-    for args in calls:
-        a, b = leaves(fn(*args)), leaves(eager(*args))
-        same.append(len(a) == len(b)
-                    and all(bool(torch.equal(x, y)) for x, y in zip(a, b)))
-    unchanged = all(torch.equal(x, y) for x, y in zip(first, kept_ref))
-    st, cam, rest = last_args[0], last_args[1], last_args[2:]
-    n_static = len(graph.key[0]) - 3 if graph.key else 0
-    dyn = rest[:len(rest) - n_static]
-    load = (*(getattr(st.params, f) for f in FIELDS), st.live,
-            *camera_tensors(cam), *dyn)
-    row["graphed"] = {"memory": mem,
-                      "wall_ms": view_forms(lambda: fn(*last_args)),
-                      "profile": profile_summary(lambda: fn(*last_args),
-                                                 iters),
-                      **graph_costs(graph, load)}
-    check_replay_counts(path, graph, lambda: fn(*last_args))
-    row.update(bit_identical=same, first_output_unchanged=unchanged,
-               seconds=time.perf_counter() - t0)
-    emit(row)
-    if not (all(same) and unchanged and graph.captures == captures):
-        raise AssertionError(f"graphs, {path}: the graphed view differs "
-                             f"from the eager one or failed a check")
-
-
 def graph_views(st, cam, gt, cfg):
     """The views of the graphs phase on the train state and a copy with a
     third of its rows dead: the score view of each metric (JAX
@@ -3043,16 +3065,16 @@ def graph_views(st, cam, gt, cfg):
     cut = S.prune_mask(st, torch.arange(st.capacity, device=st.live.device)
                        % 3 == 0)
     for m in METRICS:
-        graph_view_path(f"score view ({m})", loops.make_score_fn(cfg, m),
+        graph_call_path(f"score view ({m})", loops.make_score_fn(cfg, m),
                         [(st, cam), (cut, cam)])
     eval_view, hvs_view = loops.make_eval_fns(cfg)
-    graph_view_path("eval view", eval_view, [(st, cam, gt), (cut, cam, gt)])
-    graph_view_path("HVS view", hvs_view,
+    graph_call_path("eval view", eval_view, [(st, cam, gt), (cut, cam, gt)])
+    graph_call_path("HVS view", hvs_view,
                     [(st, cam, gt, GRAPH_POOLINGS[0]),
                      (cut, cam, gt, GRAPH_POOLINGS[0]),
                      (st, cam, gt, GRAPH_POOLINGS[1])],
                     captures=2, extra={"poolings": list(GRAPH_POOLINGS)})
-    graph_view_path("significance view (count_opacity)",
+    graph_call_path("significance view (count_opacity)",
                     scratch.make_significance_view(cfg),
                     [(st, cam), (cut, cam)])
 
@@ -3200,14 +3222,171 @@ def graph_train_path(st, cam, gt, cfg):
                              "from the eager one or failed a check")
 
 
+def arg_tensors(args):
+    """The tensors of a call's arguments (a camera's in TENSOR_FIELDS
+    order)."""
+    import torch
+    from fovsplat_torch.data.cameras import Camera, camera_tensors
+    out = []
+    for a in args:
+        if isinstance(a, Camera):
+            out += camera_tensors(a)
+        elif torch.is_tensor(a):
+            out.append(a)
+    return out
+
+
+def graph_call_path(path, fn, calls, iters=3, captures=1, extra=None):
+    """One path of the graphs phase given as a graphed callable (fn.graph,
+    fn.eager its eager function; utils/graphs.graphed_fn or
+    graphed_camera), calls a list of argument tuples (static arguments
+    last). Eager times, profile and peak memory on the first call's
+    arguments; then the graph: each call against the eager function bit
+    for bit, the first output unchanged by the later calls and apart from
+    the last in memory, every argument tensor unchanged, the graph's
+    times, profile, peak memory, copy-in (its static inputs loaded again)
+    and clone-out device ms and the replay accounting on the last call's
+    arguments, `captures` captures over the calls."""
+    import torch
+    t0 = time.perf_counter()
+    eager, graph = fn.eager, fn.graph
+    row = {"phase": "graphs", "path": path, "calls": len(calls),
+           **(extra or {})}
+    first_args, last_args = calls[0], calls[-1]
+    row["eager"] = {"memory": memory_of(lambda: eager(*first_args), 2),
+                    "wall_ms": view_forms(lambda: eager(*first_args)),
+                    "profile": profile_summary(lambda: eager(*first_args),
+                                               iters)}
+    given = [t.clone() for args in calls for t in arg_tensors(args)]
+    mem = memory_of(lambda: fn(*first_args), 2)
+    first_out = leaves(fn(*first_args))
+    first = [t.clone() for t in first_out]
+    same = []
+    for args in calls:
+        a, b = leaves(fn(*args)), leaves(eager(*args))
+        same.append(len(a) == len(b)
+                    and all(bool(torch.equal(x, y)) for x, y in zip(a, b)))
+    unchanged = all(torch.equal(x, y) and x.data_ptr() != z.data_ptr()
+                    for x, y, z in zip(first_out, first, a))
+    inputs_kept = all(torch.equal(x, y) for x, y in zip(
+        given, [t for args in calls for t in arg_tensors(args)]))
+    load = tuple(t.clone() for t in graph._inputs)
+    row["graphed"] = {"memory": mem,
+                      "wall_ms": view_forms(lambda: fn(*last_args)),
+                      "profile": profile_summary(lambda: fn(*last_args),
+                                                 iters),
+                      **graph_costs(graph, load)}
+    check_replay_counts(path, graph, lambda: fn(*last_args))
+    row.update(bit_identical=same, first_output_unchanged=unchanged,
+               inputs_unchanged=inputs_kept,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    if not (all(same) and unchanged and inputs_kept
+            and graph.captures == captures):
+        raise AssertionError(f"graphs, {path}: the graph differs from its "
+                             f"eager function or failed a check")
+
+
+def lpips_weights_path():
+    """The synthetic LPIPS weights (synthetic_vgg_weights), written under
+    build/ once."""
+    import numpy as np
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        LPIPS_SYNTHETIC)
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, **synthetic_vgg_weights())
+    return path
+
+
+LAYER_SEED = 8                   # the graphs phase's layer arrays
+VQ_GRAPH_ROWS = 80_000           # one EMA batch (vq.ema_kmeans' batch)
+
+
+def graph_last_sites(st, cam, gt, cfg):
+    """The graphs phase's paths of the last jit sites, on the train state
+    at full width: distill's teacher render, the quality render and both
+    layer renders (layer 2 of seeded level arrays over the state's rows)
+    at the train camera and a ring camera; the SSIM metric and LPIPS
+    (synthetic weights) on those two renders against the ground truth;
+    VQ's assignment of one 8,192-row chunk (vq.assign replays it for
+    each chunk) and EMA update on two 80,000-row batches of the state's
+    SH rows with 8,192 codewords drawn from them, TF32 allowed globally
+    (vq's local flag must hold inside the capture). Each as
+    graph_call_path: bit for bit, one capture."""
+    import types
+    import numpy as np
+    import torch
+    from fovsplat_torch.eval import layers, lpips_torch, metrics, quality
+    from fovsplat_torch.models import vq
+    from fovsplat_torch.train import distill
+    from fovsplat_torch.utils import graphs
+    dev = gt.device
+    cams = [(cam,), (ring_cameras(1, cam.width, cam.height, dev)[0],)]
+    graph_call_path("teacher render (distill)",
+                    distill.teacher_render(st, cfg), cams)
+    ps1 = quality.make_ps1_render(st, cfg.raster, cfg.sh_degree)
+    graph_call_path("quality render", ps1, cams)
+    rng = np.random.default_rng(LAYER_SEED)
+    n = st.capacity
+    comp = types.SimpleNamespace(
+        highest_levels=rng.integers(0, 4, n),
+        opacities=rng.uniform(0.2, 0.9, (n, 4)).astype(np.float32),
+        shs_dcs=rng.normal(0, 0.5, (n, 4, 3)).astype(np.float32))
+    graph_call_path("layer render (ours), layer 2",
+                    layers.layer_render_ours(st.params, st.live, comp, 2,
+                                             cfg.raster), cams)
+    graph_call_path("layer render (naive), layer 2",
+                    layers.layer_render_naive(st.params, st.live,
+                                              comp.highest_levels, 2,
+                                              cfg.raster), cams)
+    imgs = [torch.clamp(ps1.eager(c[0]), 0.0, 1.0) for c in cams]
+    del ps1
+    graph_call_path("SSIM metric", metrics._ssim,
+                    [(img, gt, 11, False) for img in imgs])
+    net = lpips_torch.LPIPS(lpips_weights_path())
+    graph_call_path("LPIPS", net, [(img, gt) for img in imgs])
+    del net, imgs
+    p = st.params
+    feats = torch.cat([p.features_dc.reshape(n, -1),
+                       p.features_rest.reshape(n, -1)], 1).detach()
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(3))
+    cb = feats[pick[:VQ_CODEBOOK].to(dev)]
+    batches = [feats[s:s + VQ_GRAPH_ROWS]
+               for s in (0, VQ_GRAPH_ROWS)]
+    cap = vq.NEAR_TIE_CAPACITY
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    chunk = vq.ASSIGN_ELEMENTS // VQ_CODEBOOK    # vq.assign's graph
+    try:
+        graph_call_path("VQ assignment (one chunk)",
+                        graphs.graphed_fn(vq._assign, n_static=1),
+                        [(b[:chunk], cb, cap) for b in batches], iters=1,
+                        extra={"rows": chunk, "codebook": VQ_CODEBOOK,
+                               "near_tie_capacity": cap})
+        count = torch.ones(VQ_CODEBOOK, dtype=torch.float32, device=dev)
+        graph_call_path("VQ EMA update",
+                        graphs.graphed_fn(vq._update, n_static=2),
+                        [(cb, count, cb.clone(), b, 0.8, cap)
+                         for b in batches], iters=1,
+                        extra={"rows": VQ_GRAPH_ROWS,
+                               "codebook": VQ_CODEBOOK,
+                               "near_tie_capacity": cap})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model,
                ps1_cam, st, tcam, gt, tcfg):
     """The graphs phase: each main-path frame ("ours" over the 9 gazes,
     SM-FR, MM-FR and PS1 with compaction off and on at the centre gaze),
     the train step, the masked HVS step, the score, eval, HVS and
-    significance views and the scratch step as fresh CUDA graphs against
-    their eager functions (graph_frame_path, graph_train_path,
-    graph_hvs_path, graph_views, graph_scratch_path)."""
+    significance views, the scratch step, distill's teacher render, the
+    quality and layer renders, SSIM, LPIPS and VQ's assignment and EMA
+    update as fresh CUDA graphs against their eager functions
+    (graph_frame_path, graph_train_path, graph_hvs_path, graph_views,
+    graph_scratch_path, graph_last_sites; the DP step's row comes from
+    the parallel_nccl phase, which holds the NCCL group)."""
     from fovsplat_torch.eval import fps
     from fovsplat_torch.utils import graphs
     centre = [(0.5, 0.5)]
@@ -3224,6 +3403,7 @@ def run_graphs(model, cam, cfg, smfr_render, mmfr_render, ps1_model,
     graph_hvs_path(st, tcam, gt, tcfg)
     graph_views(st, tcam, gt, tcfg)
     graph_scratch_path(st, tcam, gt, tcfg)
+    graph_last_sites(st, tcam, gt, tcfg)
 
 
 # --- the eval phases -------------------------------------------------------
@@ -3328,8 +3508,13 @@ def run_quality(root, scene, sc, cfg, kernels, device):
     over the 16 views of the scene_io scene, the teacher being the proxy
     state write_scene rendered the PNGs from (loops.render_state, the same
     exact route: kernel 4's f32 rows, the exact sort, kernel 5), every
-    counter set to 0 just before and read just after. Returns the
-    teacher's render and the ground truth of the first view."""
+    counter set to 0 just before and read just after. The render is a
+    CUDA graph captured in set-up (view 0), so kernels 4 and 5 launch in
+    its replays, once a view. Then each view graphed against the eager
+    render bit for bit, its SSIM in the JSON equal to the eager
+    losses.ssim (the metric's graph), overflow 0 on the eager renders.
+    Returns the teacher's render and the ground truth of the first
+    view."""
     import json
     import os
     import torch
@@ -3338,6 +3523,7 @@ def run_quality(root, scene, sc, cfg, kernels, device):
     from fovsplat_torch.eval import metrics, quality
     from fovsplat_torch.models import state as S
     from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.train import losses
     sync = synced(device)
     t0 = time.perf_counter()
     teacher = S.from_params(convert.params_from_numpy(
@@ -3350,7 +3536,7 @@ def run_quality(root, scene, sc, cfg, kernels, device):
     metrics.hvs_uniform(img0, gt0)
     sync()
     setup_s = time.perf_counter() - t0
-    seconds, overflow = {"render": 0.0}, []
+    seconds = {"render": 0.0}
 
     def timed_render(camera):
         t = time.perf_counter()
@@ -3359,25 +3545,35 @@ def run_quality(root, scene, sc, cfg, kernels, device):
         seconds["render"] += time.perf_counter() - t
         return img
     out_dir = os.path.join(root, "quality")
+    replays = render.graph.replays
     for kf in kernels.values():
         kf.launches = 0
     t0 = time.perf_counter()
     with timed_calls(metrics, ("ssim", "psnr", "lpips", "hvs_uniform"),
-                     seconds, sync), recorded_overflow(rast, overflow):
+                     seconds, sync):
         mean = quality.quality_eval(timed_render, views, out_dir, "scene")
     total = time.perf_counter() - t0
     launches = {k: kf.launches for k, kf in kernels.items()}
-    # Each render rounded to 8 bits as write_scene rounded it, against the
-    # PNG the loader read: only the rounding may separate them.
-    differing = 0
-    for v in views:
-        img = render(v.camera)
-        u8 = torch.round(torch.clamp(img, 0.0, 1.0) * 255).to(torch.uint8)
-        png = torch.round(torch.as_tensor(v.image, device=img.device)
-                          * 255).to(torch.uint8)
-        differing += int((u8 != png).any(-1).sum())
+    replays = render.graph.replays - replays
     full = json.load(open(os.path.join(out_dir, "scene_quality.json")))
     per = json.load(open(os.path.join(out_dir, "scene_quality_per.json")))
+    # Each render rounded to 8 bits as write_scene rounded it, against the
+    # PNG the loader read: only the rounding may separate them. The graph
+    # against the eager render (whose rasterize calls give the overflow),
+    # and the graphed SSIM the JSON holds against the eager one.
+    differing, overflow, same, ssim_same = 0, [], [], []
+    with recorded_overflow(rast, overflow):
+        for v in views:
+            img = render(v.camera)
+            ref = render.eager(v.camera)
+            same.append(bool(torch.equal(img, ref)))
+            gt = torch.as_tensor(v.image, device=img.device)
+            ssim_same.append(per["ps1"]["Per SSIM"][v.image_name] == float(
+                losses.ssim(torch.clamp(ref, 0, 1), gt)))
+            u8 = torch.round(torch.clamp(img, 0.0, 1.0) * 255).to(
+                torch.uint8)
+            png = torch.round(gt * 255).to(torch.uint8)
+            differing += int((u8 != png).any(-1).sum())
     names = [v.image_name for v in views]
     keys_ok = (list(full) == ["ps1"]
                and sorted(full["ps1"]) == ["HVS", "LPIPS", "PSNR", "SSIM"]
@@ -3393,7 +3589,13 @@ def run_quality(root, scene, sc, cfg, kernels, device):
            "mean": mean, "psnr_min_max": [min(psnrs), max(psnrs)],
            "pixels_differing_after_rounding": differing,
            "json_keys_ok": keys_ok, "overflow": max_overflow(overflow),
-           "rasterize_calls": len(overflow),
+           "rasterize_calls_eager": len(overflow),
+           "graphed_vs_eager_bit_identical": all(same),
+           "ssim_graphed_vs_eager_equal": all(ssim_same),
+           "render_captures": render.graph.captures,
+           "render_capture_seconds": render.graph.capture_seconds,
+           "replays_in_quality_eval": replays,
+           "ssim_captures": metrics._ssim.graph.captures,
            "seconds_per_view": {k: v / len(views) for k, v in
                                 seconds.items()},
            "seconds": {"setup": setup_s, "quality_eval": total},
@@ -3404,29 +3606,30 @@ def run_quality(root, scene, sc, cfg, kernels, device):
     if not (mean["psnr"] >= QUALITY_PSNR_MIN
             and mean["ssim"] >= QUALITY_SSIM_MIN and mean["lpips"] is None
             and differing == 0 and keys_ok and row["overflow"] == 0
-            and len(overflow) == len(views)):
+            and len(overflow) == len(views) and all(same)
+            and all(ssim_same) and render.graph.captures == 1
+            and replays == len(views)):
         raise AssertionError("the quality phase failed a check")
     if not (launches["expand_ps1"] == launches["blend_forward"] == len(views)
             and launches["blend_backward"] == 0):
         raise AssertionError(f"quality: kernels 4 and 5 must launch once a "
-                             f"view, kernel 6 never: {launches}")
+                             f"view in the render graph's replays (its "
+                             f"capture was in set-up), kernel 6 never: "
+                             f"{launches}")
     return img0, gt0, launches
 
 
 def run_lpips(img, gt):
     """Phase lpips: LPIPS-vgg on synthetic weights (written under build/)
-    at full width, timed, two calls bit-identical, with TF32 allowed
-    globally for the phase (the module's local flag must keep it off);
-    then the card against the CPU at 160x112."""
-    import os
+    at full width as a CUDA graph, timed, two calls bit-identical and
+    equal to the eager function bit for bit, with TF32 allowed globally
+    for the phase (the module's local flag must keep it off, inside the
+    capture too); then the card (a second capture, at 160x112) against
+    the CPU."""
     import numpy as np
     import torch
     from fovsplat_torch.eval import lpips_torch
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        LPIPS_SYNTHETIC)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez(path, **synthetic_vgg_weights())
-    net = lpips_torch.LPIPS(path)
+    net = lpips_torch.LPIPS(lpips_weights_path())
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
@@ -3434,9 +3637,13 @@ def run_lpips(img, gt):
     try:
         first, second = net(img, gt), net(img, gt)
         bit = bool(torch.equal(first, second))
+        eager_bit = bool(torch.equal(first, net.eager(img, gt)))
         t0 = time.perf_counter()
         vals = [float(net(img, gt)) for _ in range(3)]
         full_s = (time.perf_counter() - t0) / 3
+        t0 = time.perf_counter()
+        eager_vals = [float(net.eager(img, gt)) for _ in range(3)]
+        eager_s = (time.perf_counter() - t0) / 3
         rng = np.random.default_rng(8)
         a = rng.uniform(0, 1, (112, 160, 3)).astype(np.float32)
         b = np.clip(a + 0.1 * rng.normal(0, 1, a.shape), 0, 1).astype(
@@ -3450,14 +3657,20 @@ def run_lpips(img, gt):
     rel = abs(card - cpu) / abs(cpu)
     row = {"phase": "lpips", "weights": "synthetic, seed 7",
            "full": {"shape": [H_FULL, W_FULL], "value": vals[0],
-                    "seconds_per_call": full_s, "bit_identical_twice": bit,
-                    "repeat_equal": len(set(vals)) == 1},
+                    "seconds_per_call": full_s,
+                    "eager_seconds_per_call": eager_s,
+                    "bit_identical_twice": bit,
+                    "graphed_vs_eager_bit_identical": eager_bit,
+                    "repeat_equal": len(set(vals + eager_vals)) == 1},
+           "captures": net.graph.captures,
+           "capture_seconds": net.graph.capture_seconds,
            "vs_cpu": {"shape": [112, 160], "card": card, "cpu": cpu,
                       "rel_err": rel},
            "global_tf32_during_phase": True, "tol": EVAL_RTOL}
     emit(row)
-    if not (bit and len(set(vals)) == 1 and math.isfinite(vals[0])
-            and rel <= EVAL_RTOL):
+    if not (bit and eager_bit and len(set(vals + eager_vals)) == 1
+            and math.isfinite(vals[0]) and rel <= EVAL_RTOL
+            and net.graph.captures == 2):
         raise AssertionError("the LPIPS phase failed a check")
 
 
@@ -3557,26 +3770,41 @@ def run_layers(root, model, views, cfg, kernels, device):
     """Phase layers: eval_layers with layer_render_ours on the chain
     phase's composed model (4 levels of the full-width proxy), ladder [1,
     3, 7, 12], the scene's 2 test views, counters set to 0 just before and
-    read just after; then one layer's eval on the card against the CPU on
-    the 20k proxy at 320x224."""
+    read just after (each layer's render is a CUDA graph: one capture, so
+    one warm-up run, a layer); then each layer's graph against its eager
+    render on each view bit for bit, overflow 0 on the eager renders; then
+    one layer's eval on the card against the CPU on the 20k proxy at
+    320x224."""
     import os
     import numpy as np
     import torch
     from fovsplat_torch.data import proxy
     from fovsplat_torch.eval import layers
     from fovsplat_torch.ops import rasterize as rast
+    from fovsplat_torch.utils import graphs
     out_dir = os.path.join(root, "layers_eval")
-    overflow = []
+    renders = []
+
+    def render_for_layer(i):
+        renders.append(layers.layer_render_ours(model.params, model.live,
+                                                model, i, cfg.raster))
+        return renders[-1]
     for kf in kernels.values():
         kf.launches = 0
     t0 = time.perf_counter()
-    with recorded_overflow(rast, overflow):
-        res = layers.eval_layers(
-            lambda i: layers.layer_render_ours(model.params, model.live,
-                                               model, i, cfg.raster),
-            views, LADDER, out_dir, "scene")
+    res = layers.eval_layers(render_for_layer, views, LADDER, out_dir,
+                             "scene")
     seconds = time.perf_counter() - t0
     launches = {k: kf.launches for k, kf in kernels.items()}
+    overflow, same = [], []
+    with recorded_overflow(rast, overflow):
+        for r in renders:
+            for v in views:
+                same.append(bool(torch.equal(r(v.camera),
+                                             r.eager(v.camera))))
+    captures = [r.graph.captures for r in renders]
+    capture_s = [r.graph.capture_seconds for r in renders]
+    del renders
     files = [f"scene_{ps}.json" for ps in LADDER]
     missing = [f for f in files
                if not os.path.exists(os.path.join(out_dir, f))]
@@ -3604,21 +3832,27 @@ def run_layers(root, model, views, cfg, kernels, device):
            "results": {str(k): v for k, v in res.items()},
            "files_missing": missing, "finite": finite,
            "overflow": max_overflow(overflow),
-           "rasterize_calls": len(overflow), "seconds": seconds,
-           "launches": launches,
+           "rasterize_calls_eager": len(overflow),
+           "graphed_vs_eager_bit_identical": same,
+           "captures_per_layer": captures,
+           "capture_seconds_per_layer": capture_s,
+           "seconds": seconds, "launches": launches,
            "vs_cpu": {"shape": "N=20000, 320x224, layer 2 at ps 7",
                       "card": pair[0], "cpu": pair[1], "rel_err": rel},
            "tol": EVAL_RTOL}
     emit(row)
     calls = len(LADDER) * len(views)
     if (missing or not finite or row["overflow"] != 0
-            or len(overflow) != calls
+            or len(overflow) != calls or not all(same)
+            or captures != [1] * len(LADDER)
             or max(rel.values()) > EVAL_RTOL):
         raise AssertionError("the layers phase failed a check")
-    if not (launches["expand_ps1"] == launches["blend_forward"] == calls
+    w = graphs.WARMUPS * len(LADDER)    # one capture a layer
+    if not (launches["expand_ps1"] == launches["blend_forward"] == calls + w
             and launches["blend_backward"] == 0):
         raise AssertionError(f"layers: kernels 4 and 5 must launch once a "
-                             f"layer and view: {launches}")
+                             f"layer and view, and once in each layer "
+                             f"graph's warm-up: {launches}")
     return launches
 
 
@@ -3781,19 +4015,24 @@ def vq_id_check(ids, ref_ids, rows, codebook, rtol=VQ_RTOL):
 def run_vq(st, scene, cfg, kernels, device):
     """Phase vq: importance from global_significance_scores on the scene's
     14 train views, then compress of the 1.16M teacher (codebook 8,192,
-    ratio 0.6, 10 iterations) twice with TF32 allowed globally (only
-    vq's local flag keeps it off): bit-identical; the round-trip bounds
+    ratio 0.6, 10 iterations; each EMA update and the last assignment a
+    CUDA graph) twice with TF32 allowed globally (only vq's local flag
+    keeps it off): bit-identical, the most near ties a chunk held against
+    the slots and the regrowths (each a recapture); the round-trip bounds
     of tests/test_models_data.py's test_vq_compress_roundtrip (xyz's fp16
     bound relative to the larger of |x| and 1, the proxy's positions
     reaching past 1); a PS1 render of the decompressed model against the
     teacher's; then the card against the CPU at 20,000 rows and codebook
-    256 with the same injected draws. Returns the launch counts."""
+    256 with the same injected draws, and the graphed card run against an
+    eager card run (graphs.graphed_fn made the identity). Returns the
+    launch counts."""
     import numpy as np
     import torch
     from fovsplat_torch.models import state as S
     from fovsplat_torch.models import vq
     from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
     from fovsplat_torch.train import loops, scratch
+    from fovsplat_torch.utils import graphs
     sync = synced(device)
     p = st.params
     for kf in kernels.values():
@@ -3806,8 +4045,10 @@ def run_vq(st, scene, cfg, kernels, device):
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
+        ties = vq.Ties()
         t0 = time.perf_counter()
-        comp = vq.compress(p, imp, VQ_RATIO, VQ_CODEBOOK, VQ_ITERS)
+        comp = vq.compress(p, imp, VQ_RATIO, VQ_CODEBOOK, VQ_ITERS,
+                           ties=ties)
         sync()
         compress_s = time.perf_counter() - t0
         again = vq.compress(p, imp, VQ_RATIO, VQ_CODEBOOK, VQ_ITERS)
@@ -3845,6 +4086,16 @@ def run_vq(st, scene, cfg, kernels, device):
              for d in (device, "cpu")}
     comps = {d: vq.compress(m, imp[:rows_n], VQ_RATIO, k, VQ_ITERS, init,
                             starts) for d, m in small.items()}
+    saved = graphs.graphed_fn
+    graphs.graphed_fn = lambda fn, n_static=0, prepare=None: fn
+    try:
+        eager_comp = vq.compress(small[device], imp[:rows_n], VQ_RATIO, k,
+                                 VQ_ITERS, init, starts)
+    finally:
+        graphs.graphed_fn = saved
+    graphed_eq_eager = sorted(eager_comp) == sorted(comps[device]) and all(
+        np.array_equal(eager_comp[key], comps[device][key])
+        for key in eager_comp)
     kept = np.unpackbits(comps["cpu"]["keep_mask_packed"])[:rows_n].astype(
         bool)
     m = small["cpu"]
@@ -3862,8 +4113,8 @@ def run_vq(st, scene, cfg, kernels, device):
         b = int(c["bits"])
         raw = np.unpackbits(c["vq_indices_packed"])[:int(c["num_vq"]) * b]
         return raw.reshape(-1, b) @ (1 << np.arange(b - 1, -1, -1))
-    same_book = {d: vq._assign(torch.as_tensor(feats, device=d),
-                               torch.as_tensor(books["cpu"], device=d))
+    same_book = {d: vq.assign(torch.as_tensor(feats, device=d),
+                              torch.as_tensor(books["cpu"], device=d))
                  .cpu().numpy() for d in (device, "cpu")}
     same_assign = bool(np.array_equal(same_book[device], same_book["cpu"]))
     clear, mismatched, worse = vq_id_check(ids(comps[device]),
@@ -3880,6 +4131,10 @@ def run_vq(st, scene, cfg, kernels, device):
            "seconds": {"scores": score_s, "compress": compress_s,
                        "decompress": decompress_s},
            "bit_identical_twice": bit,
+           "near_ties": {"most_in_a_chunk": ties.most,
+                         "capacity": ties.capacity,
+                         "default_capacity": vq.NEAR_TIE_CAPACITY,
+                         "regrown_recaptures": ties.regrown},
            "round_trip": {"kept_dc_max_err": dc_err,
                           "rest_mean_abs_err": rest_err,
                           "xyz_rel_err": xyz_rel},
@@ -3894,7 +4149,8 @@ def run_vq(st, scene, cfg, kernels, device):
                           ids(comps[device]), ids(comps["cpu"]))),
                       "rows_without_near_tie": clear,
                       "ids_differing_there": mismatched,
-                      "near_tie_rows_picking_worse": worse},
+                      "near_tie_rows_picking_worse": worse,
+                      "graphed_equals_eager_on_card": graphed_eq_eager},
            "launches": launches,
            "tol": {"kept_dc": 2e-3, "rest_mean": 0.12, "xyz_rel": 2e-3,
                    "size_of_raw": 0.55, "codebook_rtol": VQ_RTOL}}
@@ -3902,7 +4158,8 @@ def run_vq(st, scene, cfg, kernels, device):
     if not (bit and dc_err <= 2e-3 and rest_err < 0.12 and xyz_rel <= 2e-3
             and size < 0.55 * raw_bytes and overflow == 0
             and book_rel <= VQ_RTOL and same_keep and same_assign
-            and mismatched == 0 and worse == 0):
+            and mismatched == 0 and worse == 0 and graphed_eq_eager
+            and ties.most <= ties.capacity):
         raise AssertionError("the vq phase failed a check")
     from fovsplat_torch.utils import graphs
     if not (launches["expand_ps1"] == launches["blend_stats"]
@@ -3918,9 +4175,11 @@ def run_distill(st, scene, cfg, kernels, device):
     degree 3) distilled to degree 1 for DISTILL_ITERS iterations on the
     scene's 14 train views, counters set to 0 before and read after
     (kernels 4 and 5 twice an iteration, 6 and 7 once, and each once more
-    in the graphed step's warm-up run), twice from the
-    same seed: the students bit-identical; the loss against the teacher's
-    render of view 0 before and after, ms an iteration."""
+    in the warm-up runs of the two graphs a run captures: the student's
+    step (kernels 4-7) and the teacher's render (4 and 5)), twice from
+    the same seed: the students bit-identical; the graphed teacher render
+    of view 0 against its eager render bit for bit; the loss against the
+    teacher's render of view 0 before and after, ms an iteration."""
     import torch
     from fovsplat_torch.models.gaussians import FIELDS
     from fovsplat_torch.train import distill, loops, losses
@@ -3942,6 +4201,9 @@ def run_distill(st, scene, cfg, kernels, device):
               and torch.equal(s1.opt.nu[f], s2.opt.nu[f]) for f in FIELDS)
     s_cfg = dataclasses.replace(cfg, sh_degree=DISTILL_DEGREE)
     cam = views[0].camera
+    teacher = distill.teacher_render(st, cfg)
+    teacher_same = bool(torch.equal(teacher(cam), teacher.eager(cam)))
+    del teacher
     with torch.no_grad():
         pseudo = loops.render_state(st, cam, cfg)["render"]
         before = float(losses.photometric_loss(loops.render_state(
@@ -3956,19 +4218,23 @@ def run_distill(st, scene, cfg, kernels, device):
            "features_rest": list(s1.params.features_rest.shape),
            "loss_view0": {"truncated": before, "distilled": after},
            "seconds": secs, "ms_per_iter": 1000.0 * secs / DISTILL_ITERS,
-           "bit_identical_twice": bit, "launches": launches}
+           "bit_identical_twice": bit,
+           "teacher_graph_vs_eager_bit_identical": teacher_same,
+           "launches": launches}
     emit(row)
     it = DISTILL_ITERS
-    w = graphs.WARMUPS     # the student's step: one capture a run
-    if not (bit and math.isfinite(after)
+    w = graphs.WARMUPS     # a run captures the student's step and the
+                           # teacher's render once each
+    if not (bit and teacher_same and math.isfinite(after)
             and row["features_rest"] == [st.capacity, 3, 3]):
         raise AssertionError("the distill phase failed a check")
     if not (launches["expand_ps1"] == launches["blend_forward"]
-            == 2 * it + w and launches["blend_backward"]
+            == 2 * it + 2 * w and launches["blend_backward"]
             == launches["reduce_by_sorted_gid"] == it + w):
         raise AssertionError(f"distill: kernels 4, 5 twice and 6, 7 once "
                              f"an iteration, and once more each in the "
-                             f"warm-up: {launches}")
+                             f"warm-ups of the student's step and (4, 5) "
+                             f"the teacher's render: {launches}")
     return launches
 
 
@@ -4381,7 +4647,8 @@ def parallel_rank(rank, dev):
     del full, mine
 
     params, cams, gts, tcfg = dp_views(dev)
-    step = dp.make_dp_train_step(tcfg, group, device=dev)
+    # gloo: a graph cannot capture its collectives, so the step is eager.
+    step = dp.make_dp_train_step(tcfg, group, device=dev, graph=False)
     view = dp.stack_cameras([cams[rank]])
     runs = []
     for _ in range(2):
@@ -4503,9 +4770,80 @@ def run_parallel_ranks(results):
     return launches
 
 
+DP_GRAPH_STEPS = 3
+
+
+def graph_dp_path(step, grouped, params, cams, gts, cam):
+    """The DP step's row of the graphs phase, on the NCCL group of one
+    rank (phase parallel_nccl): DP_GRAPH_STEPS chained graphed steps of
+    one view against as many eager DP steps (step.eager) and
+    trainer.make_train_step(group=) steps (grouped) from one state:
+    parameters, moments, count and loss bit for bit, every graphed output
+    unchanged by the later steps, the given parameters unchanged, one
+    capture; then both forms' times (batched and synchronised each
+    call), profiles, peak memory, the copy-in and clone-out device ms and
+    the replay accounting. Returns whether every check held."""
+    import torch
+    from fovsplat_torch.train import optim
+    t0 = time.perf_counter()
+    opt0 = optim.init_state(params)
+    kept = [getattr(params, f).detach().clone() for f in params.fields()]
+
+    def flat(p, o, loss):
+        return ([getattr(p, f).detach() for f in p.fields()]
+                + list(o.mu.values()) + list(o.nu.values())
+                + [o.count, loss])
+    row = {"phase": "graphs", "path": "DP step (NCCL, world size 1)",
+           "steps": DP_GRAPH_STEPS, "views_a_rank": int(gts.shape[0])}
+    row["eager_memory"] = memory_of(
+        lambda: step.eager(params, opt0, cams, gts, 1), 2)
+    row["graphed_memory"] = memory_of(
+        lambda: step(params, opt0, cams, gts, 1), 2)
+    runs = {k: (params, opt0) for k in ("graph", "eager", "one")}
+    diffs, outs = [], []
+    for it in range(1, DP_GRAPH_STEPS + 1):
+        p, o, aux = step(*runs["graph"], cams, gts, it)
+        pe, oe, auxe = step.eager(*runs["eager"], cams, gts, it)
+        p1, o1, aux1 = grouped(*runs["one"], cam, gts[0], it)
+        fg = flat(p, o, aux["loss"])
+        diffs.append({"vs_eager": sum(not torch.equal(a, b) for a, b in
+                                      zip(fg, flat(pe, oe, auxe["loss"]))),
+                      "vs_train_step": sum(
+                          not torch.equal(a, b) for a, b in
+                          zip(fg, flat(p1, o1, aux1["loss"])))})
+        outs.append(([t.clone() for t in fg], fg))
+        runs = {"graph": (p, o), "eager": (pe, oe), "one": (p1, o1)}
+    later_kept = all(torch.equal(a, b) for c, live in outs
+                     for a, b in zip(c, live))
+    given_kept = all(torch.equal(a, getattr(params, f))
+                     for a, f in zip(kept, params.fields()))
+    load = tuple(t.clone() for t in step.graph._inputs)
+    row.update(
+        eager={"wall_ms": view_forms(
+                   lambda: step.eager(params, opt0, cams, gts, 1)),
+               "profile": profile_summary(
+                   lambda: step.eager(params, opt0, cams, gts, 1), 3)},
+        graphed={"wall_ms": view_forms(
+                     lambda: step(params, opt0, cams, gts, 1)),
+                 "profile": profile_summary(
+                     lambda: step(params, opt0, cams, gts, 1), 3),
+                 **graph_costs(step.graph, load)},
+        differing=diffs, outputs_unchanged_by_later_steps=later_kept,
+        given_state_unchanged=given_kept)
+    check_replay_counts(row["path"], step.graph,
+                        lambda: step(params, opt0, cams, gts, 1))
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return (not any(d["vs_eager"] or d["vs_train_step"] for d in diffs)
+            and later_kept and given_kept and step.graph.captures == 1)
+
+
 def run_parallel_nccl(dev):
-    """Phase parallel_nccl: a world-size-1 NCCL group in this process. The
-    DP step over one view against trainer.make_train_step, the
+    """Phase parallel_nccl: a world-size-1 NCCL group in this process
+    (TORCH_NCCL_ASYNC_ERROR_HANDLING=0, set by multihost.init_group, so
+    that the DP step's all-reduce can be captured). The DP step over one
+    view, a CUDA graph, against trainer.make_train_step (its launches
+    counting the capture's warm-up), then graph_dp_path, the
     tile-sharded frame ("kernels") against rasterize(fwd_only,
     sort_exact_depth) and the fov-sharded frame against rasterize_fov_soa
     (sort_exact_depth), each bit-identical, with the launches of each
@@ -4563,16 +4901,23 @@ def run_parallel_nccl(dev):
         dp_same = bool(dp_aux["loss"] == one_aux["loss"] and all(
             torch.equal(getattr(dp_p, f), getattr(one_p, f))
             for f in params.fields()))
+        dp_graph_ok = graph_dp_path(
+            dp.make_dp_train_step(tcfg, group, device=dev),
+            trainer.make_train_step(tcfg, device=dev, group=group), params,
+            dp.stack_cameras(cams[:1]), gts[:1], cams[0])
+        async_handling = os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING")
     finally:
         dist.destroy_process_group()
     launches = {"fov_shard": fl, "tile_shard": tl, "dp_step": dl}
     emit({"phase": "parallel_nccl", "world_size": 1, "backend": "nccl",
           "n": N_FULL, "width": W_FULL, "height": H_FULL,
           "fov_bit_identical": fov_same, "tile_bit_identical": tile_same,
-          "dp_bit_identical": dp_same, "launches": launches,
+          "dp_bit_identical": dp_same, "dp_graph_checks": dp_graph_ok,
+          "torch_nccl_async_error_handling": async_handling,
+          "launches": launches,
           "ms_first_call": {"fov_shard": fms, "tile_shard": tms,
                             "dp_step": dms}})
-    if not (fov_same and tile_same and dp_same):
+    if not (fov_same and tile_same and dp_same and dp_graph_ok):
         raise AssertionError("parallel_nccl: a sharded result differs from "
                              "the single-device one")
     return launches
@@ -4792,6 +5137,67 @@ def run_trace(render, cam):
         raise AssertionError("profiling.trace wrote an empty trace")
 
 
+def time_last_sites(tree, label):
+    """`python3 chip_smoke.py --time-last-sites DIR LABEL`: whole-call
+    times of the paths whose jax.jit sites the port graphs last, with
+    fovsplat_torch imported from DIR, so that a revision can be compared
+    with its parent in one card call (unpack the parent with `git
+    archive REV | tar -x -C DIR`; run parent, change, change, parent:
+    the host's speed moves between calls). On the 1.16M proxy at
+    1237x822 (train_inputs) with the chain's capacities, one JSON line:
+    compress (codebook 8,192, ratio 0.6, 10 iterations, a seeded random
+    importance) twice, wall s; distill to SH degree 1 on 14 ring cameras
+    for 20 and for 60 iterations, wall s; and two quality eval passes
+    (render, SSIM, PSNR; no LPIPS weights, no HVS) over those cameras
+    against seeded targets, wall s a view. Each time is taken after a
+    synchronisation; the first of each pair includes a graphed tree's
+    captures."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    from fovsplat_torch.eval import quality
+    from fovsplat_torch.models import vq
+    from fovsplat_torch.ops.kernels import _build
+    from fovsplat_torch.train import distill
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st, _, _ = train_inputs(N_FULL, W_FULL, H_FULL, 0, dev)
+    imp = np.random.default_rng(0).random(N_FULL)
+    row = {"phase": "last_sites", "tree": label,
+           "package": os.path.dirname(os.path.dirname(quality.__file__)),
+           "compress_s": [wall(lambda: vq.compress(st.params, imp, 0.6,
+                                                   8192, 10))
+                          for _ in range(2)]}
+    cams = ring_cameras(14, W_FULL, H_FULL, dev)
+    cfg = train_config(CHAIN_PAIR_CAPACITY, CHAIN_COMPACT_CAPACITY)
+    row["distill_s"] = {iters: wall(lambda: distill.distill(
+        st, [View(c, None) for c in cams], 1, cfg, iters,
+        log=lambda *_: None)) for iters in (20, 60)}
+    render = quality.make_ps1_render(st, cfg.raster, cfg.sh_degree)
+    views = [View(c, torch.clamp(render(c) + 0.01, 0, 1).cpu().numpy())
+             for c in cams]
+    for i, v in enumerate(views):
+        v.image_name = f"ring_{i:02d}"
+    row["quality_eval_s_per_view"] = [
+        wall(lambda: quality.eval_views(render, views, None)) / len(views)
+        for _ in range(2)]
+    row["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    emit(row)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4994,6 +5400,7 @@ def main():
     # --- scene and model I/O, from-scratch training, the pipeline ---
     scene, scene_root = run_scene_io(chain_cfg, dev)
     scratch_l, scratch_g = run_scratch(scene, chain_cfg, all_kernels, dev)
+    run_knn(dev)
     scratch_vs_cpu(train_config(1 << 20, None))
     pipeline_l, pipeline_g = run_pipeline_phase(
         scene_root, scene, chain_cfg, cfg, all_kernels, dev)
@@ -5134,7 +5541,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--time-last-sites"]:
+            code = time_last_sites(*sys.argv[2:4])
+        else:
+            code = main()
     except Exception as exc:
         emit({"phase": "error", "at": _last_phase[0],
               "error": f"{type(exc).__name__}: {exc}"})

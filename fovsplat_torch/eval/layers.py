@@ -4,6 +4,12 @@ Counterpart of fov3dgs/quality_eval_layers_{ours,naive,mmfr}.py and
 quality_metrics_layer.py: each foveation layer's model is scored at its
 pooling size (uniform HVS, MSE), and `<scene>_<ps>.json` files are written
 as in the reference's layers_eval_results/.
+
+On the card each layer's render is one CUDA graph per camera shape
+(utils/graphs.graphed_camera; JAX jits them, layers.py:33, :51): the
+layer's keep mask, opacity and DC are fixed when the maker runs and read
+by the graph where they lie; the camera (its centre included) is the
+input. eval_layers makes one render, so one capture, a layer.
 """
 
 from __future__ import annotations
@@ -17,6 +23,11 @@ import torch
 from fovsplat_torch.eval import metrics
 from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops.foveated import compute_fov_colors
+from fovsplat_torch.utils import graphs
+
+
+def _graphed(render, dev):
+    return render if dev.type == "cpu" else graphs.graphed_camera(render)
 
 
 def layer_render_ours(params, live, composed, layer: int,
@@ -24,7 +35,8 @@ def layer_render_ours(params, live, composed, layer: int,
     """Layer `layer` of the composed model everywhere (no foveation): the
     level's DC and opacity for the Gaussians that survive to it
     (quality_eval_layers_ours.py:25-37). Arrays may be numpy or tensors;
-    they go to the params' device."""
+    they go to the params' device. Returns render(camera), eager on the
+    CPU and graphed on the card."""
     dev = params.xyz.device
     hl = torch.as_tensor(composed.highest_levels, device=dev)
     keep = torch.as_tensor(live, device=dev) & (hl >= layer)
@@ -40,7 +52,7 @@ def layer_render_ours(params, live, composed, layer: int,
                                   colors=colors, config=cfg,
                                   live_mask=keep)["render"]
 
-    return render
+    return _graphed(render, dev)
 
 
 def layer_render_naive(params, live, highest_levels, layer: int,
@@ -59,7 +71,7 @@ def layer_render_naive(params, live, highest_levels, layer: int,
                                   shs=params.get_features(), config=cfg,
                                   live_mask=keep)["render"]
 
-    return render
+    return _graphed(render, dev)
 
 
 def eval_layers(render_for_layer, views, pooling_ladder, out_dir: str,

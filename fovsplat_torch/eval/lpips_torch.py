@@ -9,6 +9,12 @@ run under a local cuDNN flag that forbids TF32 and picks deterministic
 algorithms, so the card computes in f32 and two calls agree bit for bit.
 The head is an elementwise product and a sum, which no matmul can take
 to TF32.
+
+On the card a call is one CUDA graph per input shape (JAX jits the
+forward, lpips_jax.py:36): the weights and the z-score constants are
+copied to the device before the capture (a graph's prepare), and the
+cuDNN flag holds inside the captured function, so the capture records
+the f32 deterministic algorithms.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fovsplat_torch.utils import graphs
 
 # VGG16 convolutions (name, out channels); pools between the blocks.
 _VGG_LAYERS = [
@@ -45,7 +53,14 @@ class LPIPS:
             elif k.startswith("lin"):
                 a = a.reshape(-1)                        # (C,)
             self._host[k] = torch.from_numpy(np.ascontiguousarray(a))
+        self._host["shift"] = torch.from_numpy(_SHIFT).view(1, 3, 1, 1)
+        self._host["scale"] = torch.from_numpy(_SCALE).view(1, 3, 1, 1)
         self._on = {}
+        # __call__'s graph; like the makers' graphed callables, the
+        # instance has `graph` and `eager`.
+        self._graphed = graphs.graphed_fn(
+            self.eager, prepare=lambda a, b: self._weights(a.device))
+        self.graph = self._graphed.graph
 
     def _weights(self, device):
         key = str(device)
@@ -59,9 +74,7 @@ class LPIPS:
         # [0, 1] input straight into (x - mean) / std, without the [-1, 1]
         # mapping of richzhang's scaling layer. The reference's published
         # LPIPS (BASELINE.md 0.17881) needs this quirk.
-        shift = torch.as_tensor(_SHIFT, device=x.device).view(1, 3, 1, 1)
-        scale = torch.as_tensor(_SCALE, device=x.device).view(1, 3, 1, 1)
-        h = (x - shift) / scale
+        h = (x - w["shift"]) / w["scale"]
         feats = []
         for layer in _VGG_LAYERS:
             if layer == "pool":
@@ -78,7 +91,11 @@ class LPIPS:
         """a, b (H, W, 3) or (B, H, W, 3) f32 tensors on one device.
         Returns a 0-d tensor: the sum over the five taps of the spatial
         mean of the head-weighted squared difference of unit-normalised
-        features."""
+        features. Eager on the CPU, a CUDA graph per shape on the card."""
+        return self._graphed(a, b)
+
+    def eager(self, a, b):
+        """__call__'s function, run eagerly."""
         if a.dim() == 3:
             a, b = a[None], b[None]
         w = self._weights(a.device)

@@ -10,6 +10,11 @@ LPIPS needs pretrained VGG features. Without the weights file `lpips()`
 returns None and the JSON writers record null, as in the JAX package. The
 path comes from FOVSPLAT_LPIPS_WEIGHTS, read at import, or defaults to
 fovsplat_torch/eval/data/lpips_vgg.npz.
+
+On the card SSIM and LPIPS run as CUDA graphs, one per input shape (JAX
+jits them, train/losses.py:65 and eval/lpips_jax.py:36); the float is
+read after the replay. PSNR and the HVS metrics run eagerly, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from fovsplat_torch.perception import foveated_loss, metameric
 from fovsplat_torch.train import losses
+from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
 
 LPIPS_WEIGHTS = os.environ.get(
@@ -38,8 +44,14 @@ def psnr(a, b) -> float:
     return float(losses.psnr(*_pair(a, b)))
 
 
+# losses.ssim keyed by the shapes, the window size and `robust`.
+_ssim = graphs.graphed_fn(
+    lambda a, b, size, robust: losses.ssim(a, b, size, robust=robust),
+    n_static=2)
+
+
 def ssim(a, b) -> float:
-    return float(losses.ssim(*_pair(a, b)))
+    return float(_ssim(*_pair(a, b), 11, False))
 
 
 def hvs_uniform(a, b, pooling_size: float = 1.0, loss_type: str = "MSE") -> float:

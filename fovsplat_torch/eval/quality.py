@@ -17,6 +17,7 @@ import torch
 
 from fovsplat_torch.eval import metrics
 from fovsplat_torch.ops import rasterize as rast
+from fovsplat_torch.utils import graphs
 
 
 def eval_views(render_fn, views, hvs_pooling: float | None = 1.0) -> dict:
@@ -74,14 +75,23 @@ def make_ps1_render(state, cfg: rast.RasterizeConfig, sh_degree: int = 3,
     """The full-quality render of a trainer state (quality_eval.py uses
     cuda_type=pcheck_obb): rasterize with `cfg` under no_grad, so on the
     card kernel 4's f32 rows, the exact tile sort and kernel 5 (the JAX
-    render is f32 too). Returns render(camera) -> (H, W, 3)."""
+    render is f32 too). Returns render(camera) -> (H, W, 3): for a state
+    on the CPU the eager render, else one CUDA graph per camera shape
+    (utils/graphs.graphed_camera; JAX jits it, quality.py:76) that reads
+    the state's tensors in place."""
+    dev = state.live.device
+    bg = None if bg_color is None else torch.as_tensor(
+        bg_color, dtype=torch.float32, device=dev)
+
     def render(camera):
         p = state.params
         with torch.no_grad():
             return rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
                                   p.get_opacity(), camera,
                                   shs=p.get_features(), sh_degree=sh_degree,
-                                  bg_color=bg_color, config=cfg,
+                                  bg_color=bg, config=cfg,
                                   live_mask=state.live)["render"]
 
-    return render
+    if dev.type == "cpu":
+        return render
+    return graphs.graphed_camera(render)

@@ -21,23 +21,51 @@ Three choices keep the result reproducible on the card:
   - the draws (initial codewords, per-iteration batch starts) come from
     a torch.Generator on the host, or are passed in, in place of the
     JAX package's jax.random key.
+
+Every device step has a fixed size, so that on the card the assignment
+and the EMA update run as CUDA graphs (JAX jits them, vq.py:24 and :44;
+the port's assignment is a graph of one chunk, replayed for each): a
+chunk's near-tie rows are compacted by a stable sort into
+`capacity` slots (Ties.capacity), the counts are an integer index_add_
+into k slots and the sums a segmented sum over k per-codeword lengths
+(searchsorted on the sorted ids), empty codewords included. A chunk that
+holds more near ties than its slots is counted and never dropped: the
+slots grow to the next power of two that holds them, the graph is
+captured again and the same step reruns from the same inputs (a pure
+function of them, so the rerun is exact). The CPU runs the same
+functions eagerly.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from fovsplat_torch.models.gaussians import GaussianParams
-from fovsplat_torch.ops.kernels.segment_reduce import (
-    reduce_by_sorted_gid_plain)
+from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
 
 ASSIGN_ELEMENTS = 1 << 26    # distance entries per chunk (256 MB of f32)
 TIE_RTOL = 1e-5              # near tie: gap below this of |a|^2 + |b|^2
+# Near-tie slots a chunk: the next power of two above twice the most
+# that one 8,192-row chunk of the 1.16M proxy held at codebook 8,192 (55
+# in chip_smoke.py's vq phase on an H100 80GB HBM3 at 700 W; PERF.md).
+NEAR_TIE_CAPACITY = 128
+
+
+@dataclasses.dataclass
+class Ties:
+    """The near-tie slots of an assign, ema_kmeans or compress call:
+    `capacity` slots a chunk, the most near ties one chunk held (`most`),
+    and the steps rerun with grown slots (`regrown`; on the card each is
+    a new capture)."""
+    capacity: int = NEAR_TIE_CAPACITY
+    most: int = 0
+    regrown: int = 0
 
 
 @contextlib.contextmanager
@@ -52,31 +80,113 @@ def _ieee_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _assign(data, codebook):
-    """Nearest-codeword ids (i64) via |a - b|^2 = |a|^2 - 2 a.b + |b|^2,
-    the first index on ties (vq.py:24-30); near ties (TIE_RTOL) on
-    float64 differences."""
-    k = codebook.shape[0]
+def _assign(data, codebook, capacity: int = NEAR_TIE_CAPACITY):
+    """(ids i64, most): nearest-codeword ids via |a - b|^2 = |a|^2 -
+    2 a.b + |b|^2, the first index on ties (vq.py:24-30), and the most
+    near-tie rows (TIE_RTOL) one chunk held, a 0-d i64. A chunk's
+    near-tie rows, in row order, fill `capacity` slots (a stable sort
+    puts them first) and are decided on float64 differences; the slots
+    past the count hold other rows, whose float64 pick is dropped. ids
+    are right when most <= capacity (_fitted reruns otherwise)."""
+    k, d = codebook.shape
     rows = max(1, ASSIGN_ELEMENTS // k)
+    step = max(1, ASSIGN_ELEMENTS // (k * d))
     cb2 = torch.sum(codebook * codebook, 1)[None, :]
-    ids = []
+    ids, counts = [], [torch.zeros((), dtype=torch.int64,
+                                   device=data.device)]
     with _ieee_matmul():
         for s in range(0, data.shape[0], rows):
             a = data[s:s + rows]
             a2 = torch.sum(a * a, 1, keepdim=True)
             d2 = a2 - 2.0 * a @ codebook.T + cb2
-            two, idx = torch.topk(d2, min(2, k), dim=1, largest=False)
             best = torch.argmin(d2, dim=1)
             if k > 1:
-                near = torch.nonzero((two[:, 1] - two[:, 0]) <= TIE_RTOL * (
-                    a2[:, 0] + cb2[0, idx[:, 0]]))[:, 0]
-                step = max(1, ASSIGN_ELEMENTS // (k * a.shape[1]))
-                for t in range(0, near.numel(), step):
-                    sel = near[t:t + step]
-                    diff = a[sel, None, :].double() - codebook[None].double()
-                    best[sel] = torch.argmin((diff * diff).sum(-1), dim=1)
+                two, idx = torch.topk(d2, 2, dim=1, largest=False)
+                near = (two[:, 1] - two[:, 0]) <= TIE_RTOL * (
+                    a2[:, 0] + cb2[0, idx[:, 0]])
+                counts.append(near.sum())
+                slots = min(capacity, a.shape[0])
+                sel = torch.sort((~near).to(torch.uint8),
+                                 stable=True).indices[:slots]
+                picks = []
+                for t in range(0, slots, step):
+                    diff = (a[sel[t:t + step], None, :].double()
+                            - codebook[None].double())
+                    picks.append(torch.argmin((diff * diff).sum(-1), dim=1))
+                held = torch.arange(slots, device=a.device) < counts[-1]
+                best = best.index_copy(0, sel, torch.where(
+                    held, torch.cat(picks), best[sel]))
             ids.append(best)
-    return torch.cat(ids)
+    return torch.cat(ids), torch.stack(counts).max()
+
+
+def _codeword_counts(ids, k: int):
+    """Rows a codeword (k,) i64: an integer index_add_, exact in any
+    order (bincount would read its length back to the host)."""
+    return torch.zeros(k, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids))
+
+
+def _codeword_sums(ids, rows, k: int):
+    """(k, d) f32 sums of the rows of each codeword, each added in row
+    order (a stable sort by id, then torch.segment_reduce over k
+    per-codeword lengths from searchsorted; an empty codeword sums to
+    0). unsafe skips segment_reduce's host checks of the lengths, which
+    hold by construction."""
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    bounds = torch.searchsorted(sorted_ids, torch.arange(
+        k + 1, dtype=sorted_ids.dtype, device=ids.device))
+    return torch.segment_reduce(rows[perm], "sum",
+                                lengths=bounds[1:] - bounds[:-1], axis=0,
+                                unsafe=True)
+
+
+def _update(codebook, ema_count, ema_sum, chunk, decay: float,
+            capacity: int):
+    """One EMA k-means step over `chunk` (vq.py:44-52): (codebook,
+    ema_count, ema_sum, most), most as _assign's."""
+    k = codebook.shape[0]
+    ids, most = _assign(chunk, codebook, capacity)
+    counts = _codeword_counts(ids, k).to(torch.float32)
+    sums = _codeword_sums(ids, chunk, k)
+    ema_count = decay * ema_count + (1 - decay) * counts
+    ema_sum = decay * ema_sum + (1 - decay) * sums
+    codebook = ema_sum / torch.clamp(ema_count[:, None], min=1e-5)
+    return codebook, ema_count, ema_sum, most
+
+
+def _fitted(run, ties: Ties):
+    """run(capacity) -> (*out, most) until `most` fits the slots: each
+    overflow grows ties.capacity to the next power of two that holds it
+    (one host read a step) and reruns from the same inputs. Returns
+    out."""
+    while True:
+        *out, most = run(ties.capacity)
+        most = int(most)
+        ties.most = max(ties.most, most)
+        if most <= ties.capacity:
+            return out
+        ties.capacity = 1 << (most - 1).bit_length()
+        ties.regrown += 1
+
+
+def assign(data, codebook, ties: Ties | None = None):
+    """Nearest-codeword ids (i64) of data's rows, near ties on float64
+    differences, chunk by chunk (_assign's chunks): eager on the CPU; on
+    the card one CUDA graph of a chunk, replayed for each (the last,
+    shorter chunk captures again), so the capture's warm-up costs one
+    chunk, not a second pass over the rows. ties (a Ties, default slots
+    if None) records the near ties and grows on overflow, read once
+    after every chunk."""
+    rows = max(1, ASSIGN_ELEMENTS // codebook.shape[0])
+    run = graphs.graphed_fn(_assign, n_static=1)
+
+    def chunks(cap):
+        outs = [run(data[s:s + rows], codebook, cap)
+                for s in range(0, data.shape[0], rows)]
+        return (torch.cat([ids for ids, _ in outs]),
+                torch.stack([most for _, most in outs]).max())
+    return _fitted(chunks, ties or Ties())[0]
 
 
 def draws(n: int, k: int, iters: int, batch: int, generator=None):
@@ -95,42 +205,42 @@ def draws(n: int, k: int, iters: int, batch: int, generator=None):
 
 def ema_kmeans(data, k: int, iters: int = 10, decay: float = 0.8,
                batch: int = 80_000, init_idx=None, starts=None,
-               generator=None):
+               generator=None, ties: Ties | None = None):
     """EMA k-means (VectorQuantize semantics: decay 0.8, one batch of
     `batch` consecutive rows an iteration) over data (n, d) f32. init_idx
     (k,) and starts (iters,) are the draws (see `draws`, which makes them
-    from `generator` when they are None). Returns the codebook (k, d) on
-    data's device."""
+    from `generator` when they are None). Each step is _update, eager on
+    the CPU and one CUDA graph on the card; ties as assign's. Returns the
+    codebook (k, d) on data's device."""
     n, d = data.shape
     if init_idx is None or starts is None:
         init_idx, starts = draws(n, k, iters, batch, generator)
+    ties = ties or Ties()
     init_idx = torch.as_tensor(np.array(init_idx), dtype=torch.long)
     codebook = data[init_idx.to(data.device)]
     ema_count = torch.ones(k, dtype=torch.float32, device=data.device)
     ema_sum = codebook * ema_count[:, None]
+    update = graphs.graphed_fn(_update, n_static=2)
     for start in [int(s) for s in starts][:max(iters, 1)]:
         chunk = data[start:start + batch]
-        ids = _assign(chunk, codebook)
-        counts = torch.bincount(ids, minlength=k).to(torch.float32)
-        sorted_ids, perm = torch.sort(ids, stable=True)
-        sums = reduce_by_sorted_gid_plain(sorted_ids, chunk[perm].T, k).T
-        ema_count = decay * ema_count + (1 - decay) * counts
-        ema_sum = decay * ema_sum + (1 - decay) * sums
-        codebook = ema_sum / torch.clamp(ema_count[:, None], min=1e-5)
+        codebook, ema_count, ema_sum = _fitted(
+            lambda cap: update(codebook, ema_count, ema_sum, chunk, decay,
+                               cap), ties)
     return codebook
 
 
 @torch.no_grad()
 def compress(params: GaussianParams, importance, vq_ratio: float = 0.6,
              codebook_size: int = 8192, iters: int = 10, init_idx=None,
-             starts=None, generator=None) -> dict:
+             starts=None, generator=None, ties: Ties | None = None) -> dict:
     """The compressed model as a dict of numpy arrays (write it with
     np.savez_compressed), with the keys and dtypes of vq.py:61-96.
     importance (N,) host array: the top int(N (1 - vq_ratio)) rows by
     np.argsort(-importance) stay uncompressed, as in the JAX package (the
     same host sort, so equal importances keep equal rows). The k-means
-    runs on the device of `params`; init_idx, starts and generator as in
-    ema_kmeans."""
+    runs on the device of `params`; init_idx, starts, generator and ties
+    (the near-tie slots, shared by the k-means and the last assignment)
+    as in ema_kmeans."""
     n = params.num_points
     feats = torch.cat([params.features_dc.reshape(n, -1),
                        params.features_rest.reshape(n, -1)], dim=1).detach()
@@ -142,10 +252,11 @@ def compress(params: GaussianParams, importance, vq_ratio: float = 0.6,
 
     vq_sel = torch.as_tensor(np.nonzero(~keep_mask)[0], device=feats.device)
     vq_rows = feats[vq_sel]
+    ties = ties or Ties()
     codebook = ema_kmeans(vq_rows, codebook_size, iters=iters,
                           init_idx=init_idx, starts=starts,
-                          generator=generator)
-    ids = _assign(vq_rows, codebook).cpu().numpy()
+                          generator=generator, ties=ties)
+    ids = assign(vq_rows, codebook, ties).cpu().numpy()
 
     bits = int(math.log2(codebook_size))
     bin_idx = ((ids[:, None] >> np.arange(bits - 1, -1, -1)) & 1).astype(bool)

@@ -52,8 +52,10 @@ def mean_knn_sqdist(points: torch.Tensor, k: int = 3,
     idx = torch.clamp(base[:, None] + offs[None, :], 0, n - 1)
     d2s, nbs = [], []
     for perm in ((0, 1, 2), (1, 2, 0), (2, 0, 1)):
-        order = torch.argsort(morton_codes(points[:, list(perm)]),
-                              stable=True)
+        # The permuted columns by slicing: a python index list would be
+        # copied from the host, which a CUDA graph cannot hold.
+        order = torch.argsort(morton_codes(torch.stack(
+            [points[:, i] for i in perm], 1)), stable=True)
         sorted_pts = points[order]
         d2 = ((sorted_pts[idx] - sorted_pts[:, None, :]) ** 2).sum(-1)
         d2 = torch.where(idx == base[:, None],

@@ -9,6 +9,15 @@ all-reduced and divided by the world size (JAX's pmean,
 data_parallel.py:89-90) before the per-group Adam, which every rank then
 applies identically to its replica.
 
+On the card the step is one CUDA graph per (rows, views, width, height)
+(utils/graphs; JAX jits it, data_parallel.py:115), its all-reduce
+captured with it. Only NCCL's collectives can be captured: on a gloo
+group (the CPU, or ranks that share one card) the step runs eagerly when
+asked with graph=False, and asking it for a graph raises
+CaptureUnsupported. multihost.init_group turns NCCL's asynchronous error
+handling off (TORCH_NCCL_ASYNC_ERROR_HANDLING=0) for that reason, as
+torch's CUDA-graph notes ask for captured collectives.
+
 Gaussian- and tile-sharded single-frame rendering lives in
 parallel/tile_shard and parallel/fov_shard.
 """
@@ -18,10 +27,18 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from fovsplat_torch.data.cameras import Camera
+from fovsplat_torch.data.cameras import (TENSOR_FIELDS, Camera,
+                                         camera_tensors, camera_with_tensors)
+from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.parallel import collectives
-from fovsplat_torch.train import trainer
+from fovsplat_torch.train import optim, trainer
+from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
+
+
+class CaptureUnsupported(RuntimeError):
+    """A CUDA graph was asked to hold a collective of a backend it cannot
+    capture (gloo)."""
 
 
 def make_mesh(n_devices: int | None = None):
@@ -55,7 +72,8 @@ def _index_camera(cams: Camera, i: int) -> Camera:
                   height=cams.height)
 
 
-def make_dp_train_step(cfg: trainer.TrainConfig, group=None, device=None):
+def make_dp_train_step(cfg: trainer.TrainConfig, group=None, device=None,
+                       graph: bool | None = None):
     """step(params, opt_state, cams, gts, step_idx) -> (params, opt_state,
     {"loss", "grads", "overflow"}), run by every rank of `group` (a process
     group or 1-D DeviceMesh; None: the default group). cams: this rank's
@@ -67,11 +85,28 @@ def make_dp_train_step(cfg: trainer.TrainConfig, group=None, device=None):
     rank is make_train_step(cfg, group=group) bit for bit (masking mode
     included, which the JAX step ignores). "overflow" sums the pair
     overflow of this rank's views. `device` None means CUDA and raises
-    without it."""
-    resolve_device(device)
+    without it.
+
+    graph (None: on CUDA) makes the step one CUDA graph per (rows, views,
+    width, height): the parameters, moments, Adam count, cameras, ground
+    truths and step_idx (a 0-d input) are its static inputs and the
+    outputs fresh tensors; attributes `graph` and `eager`. A graph needs
+    an NCCL group: on any other backend graph=True raises
+    CaptureUnsupported (run a gloo group with graph=False)."""
+    dev = resolve_device(device)
+    if graph is None:
+        graph = dev.type == "cuda"
+    if graph:
+        backend = dist.get_backend(collectives.as_group(group))
+        if backend != "nccl":
+            raise CaptureUnsupported(
+                f"a CUDA graph cannot capture a {backend} collective: "
+                f"make the DP step with graph=False on a {backend} group")
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
     loss_fn = trainer.photometric_loss_fn(cfg)
 
-    def step(params, opt_state, cams: Camera, gts, step_idx):
+    def eager(params, opt_state, cams: Camera, gts, step_idx):
         views = [trainer.value_and_grad(params, _index_camera(cams, i),
                                         gts[i], cfg, loss_fn)
                  for i in range(gts.shape[0])]
@@ -87,4 +122,35 @@ def make_dp_train_step(cfg: trainer.TrainConfig, group=None, device=None):
         return new_params, new_state, {"loss": loss, "grads": grads,
                                        "overflow": overflow}
 
+    if not graph:
+        return eager
+    g = graphs.Graph()
+    k, n_cam = len(FIELDS), len(TENSOR_FIELDS)
+
+    def step(params, opt_state, cams: Camera, gts, step_idx):
+        def run(*ts):
+            p, o, aux = eager(
+                GaussianParams(**dict(zip(FIELDS, ts[:k]))),
+                optim.AdamState(mu=dict(zip(FIELDS, ts[k:2 * k])),
+                                nu=dict(zip(FIELDS, ts[2 * k:3 * k])),
+                                count=ts[3 * k]),
+                camera_with_tensors(cams, ts[3 * k + 1:3 * k + 1 + n_cam]),
+                *ts[3 * k + 1 + n_cam:])
+            return ([getattr(p, f) for f in FIELDS],
+                    [o.mu[f] for f in FIELDS], [o.nu[f] for f in FIELDS],
+                    o.count, aux)
+
+        p, mu, nu, count, aux = g(
+            (params.num_points, gts.shape[0], cams.width, cams.height), run,
+            *(getattr(params, f) for f in FIELDS),
+            *(opt_state.mu[f] for f in FIELDS),
+            *(opt_state.nu[f] for f in FIELDS), opt_state.count,
+            *camera_tensors(cams), gts, step_idx)
+        return (GaussianParams(**dict(zip(FIELDS, p))),
+                optim.AdamState(mu=dict(zip(FIELDS, mu)),
+                                nu=dict(zip(FIELDS, nu)), count=count),
+                aux)
+
+    step.graph = g
+    step.eager = eager
     return step

@@ -162,7 +162,10 @@ def dryrun_rank(rank, dev):
     gts = torch.full((1, 64, 64, 3), 0.3, device=dev)
     cfg = trainer.TrainConfig(
         raster=RasterizeConfig(pair_capacity=1 << 13, chunk=256))
-    step = dp.make_dp_train_step(cfg, group, device=dev)
+    # A graph holds NCCL's all-reduce; gloo ranks run the step eagerly.
+    step = dp.make_dp_train_step(
+        cfg, group, device=dev,
+        graph=torch.distributed.get_backend(group) == "nccl")
     t0 = time.perf_counter()
     _, _, aux = step(params, opt_state, cams, gts, 1)
     loss = float(aux["loss"])

@@ -48,6 +48,11 @@ def init_group(coordinator: str, world_size: int, rank: int, device=None,
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    if backend == "nccl":
+        # The DP step captures its all-reduce in a CUDA graph; torch's
+        # CUDA-graph notes ask for NCCL's asynchronous error handling off
+        # before the group is made. A value the caller set stays.
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=world_size, rank=rank)
     return dev

@@ -10,6 +10,14 @@ The teacher renders through loops.render_state (kernels 4 and 5 on the
 card) and the student takes loops' photometric step at its own degree
 (kernels 4-7), on the device of the teacher's state. The view order is
 the JAX package's random.Random(seed) stack.
+
+On the card the teacher's render is one CUDA graph per camera shape
+(utils/graphs.graphed_camera; JAX jits it at distill.py:37), made once a
+distill call. The teacher does not change in the loop, so its tensors
+are read by the graph where they lie, as jax.jit bakes the closed-over
+teacher in: copying its 1.16M rows into static inputs each iteration
+would cost a copy of the model per view and a second copy's memory for
+nothing. The student's step is loops' graphed photometric step.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from fovsplat_torch.models import state as S
 from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.ops import sh as sh_mod
 from fovsplat_torch.train import loops, optim
+from fovsplat_torch.utils import graphs
 
 
 def truncate_sh(params: GaussianParams, student_degree: int
@@ -31,6 +40,19 @@ def truncate_sh(params: GaussianParams, student_degree: int
     f = {name: getattr(params, name) for name in FIELDS}
     f["features_rest"] = f["features_rest"][:, :k]
     return GaussianParams(**f)
+
+
+def teacher_render(teacher: S.TrainerState, cfg: loops.LoopConfig):
+    """render(camera) -> the teacher's (H, W, 3) render without a
+    gradient: eager for a state on the CPU, else a CUDA graph per camera
+    shape that reads the teacher's tensors in place (graphed_camera)."""
+    def render(camera):
+        with torch.no_grad():
+            return loops.render_state(teacher, camera, cfg)["render"]
+
+    if teacher.live.device.type == "cpu":
+        return render
+    return graphs.graphed_camera(render)
 
 
 def distill(teacher: S.TrainerState, views: Sequence, student_degree: int,
@@ -46,11 +68,11 @@ def distill(teacher: S.TrainerState, views: Sequence, student_degree: int,
     step = loops.make_photometric_step(
         dataclasses.replace(cfg, sh_degree=student_degree), device=dev)
 
+    render = teacher_render(teacher, cfg)
     stack = loops._ViewStack(views, seed)
     for it in range(1, iters + 1):
         v = stack.pop()
-        with torch.no_grad():
-            pseudo = loops.render_state(teacher, v.camera, cfg)["render"]
+        pseudo = render(v.camera)
         student, aux = step(student, v.camera, pseudo, it)
         if it % 200 == 0:
             log(f"[distill] it={it} loss={float(aux['loss']):.5f}")

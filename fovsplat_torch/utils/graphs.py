@@ -1,9 +1,13 @@
-"""CUDA graphs of the port's frames, train steps and score and eval
+"""CUDA graphs of the port's frames, train steps, renders, metrics and
 passes: the counterpart of the jax.jit that the JAX package puts around
 them (fovsplat/eval/fps.py:93 and :114; fovsplat/train/loops.py:149, the
 photometric step, :185 the HVS step, :189 and :200 the eval and HVS
 views, :217 the score view; fovsplat/train/scratch.py:71 the scratch step
-and :96 the significance pass).
+and :96 the significance pass; fovsplat/train/distill.py:37 the
+teacher's render, fovsplat/eval/quality.py:76 and eval/layers.py:33, :51
+the quality and layer renders, train/losses.py:65 SSIM,
+eval/lpips_jax.py:36 LPIPS, models/vq.py:24 and :44 VQ's assignment and
+EMA update, parallel/data_parallel.py:115 the DP step).
 
 A Graph holds one captured graph of a function of tensors at a time,
 keyed by the caller's static arguments (shapes, widths, capacities and
@@ -30,8 +34,9 @@ clones of the static outputs: fresh tensors, as jax.jit returns fresh
 arrays, so no call writes into a tensor that an earlier call returned. A
 new key replaces the graph and frees its pool. A failed capture raises,
 and a CPU tensor is refused: nothing runs eagerly in a graph's place.
-The makers (eval/fps, train/loops, train/scratch) return their eager
-functions for the CPU.
+The makers (eval/fps, eval/quality, eval/layers, train/loops,
+train/scratch, parallel/data_parallel) return their eager functions for
+the CPU, and graphed_fn and graphed_camera run CPU tensors eagerly.
 
 Launch counters: each kernel wrapper counts its launches in Python
 (ops/kernels.launch_counters), so a replay would not move them. A
@@ -193,3 +198,48 @@ def graphed_frame(render):
     frame.graph = graph
     frame.eager = render
     return frame
+
+
+def graphed_camera(render):
+    """render(camera) -> tensors, as one CUDA graph per camera (width,
+    height): the camera's tensors are the static inputs. What render
+    closes over (a model's tensors, fixed for the maker's life) is read
+    by the graph where it lies, as jax.jit bakes a closure's arrays into
+    its executable: nothing is copied in for it. A camera on the CPU runs
+    render eagerly. The returned call(camera) has attributes `graph` and
+    `eager` (render itself)."""
+    graph = Graph()
+
+    def call(camera):
+        if camera.world_view.device.type == "cpu":
+            return render(camera)
+        return graph((camera.width, camera.height),
+                     lambda *ts: render(camera_with_tensors(camera, ts)),
+                     *camera_tensors(camera))
+
+    call.graph = graph
+    call.eager = render
+    return call
+
+
+def graphed_fn(fn, n_static: int = 0, prepare=None):
+    """fn(*args) through one CUDA graph at a time: the last n_static
+    arguments are static (they join the key and fix shapes, as jax.jit's
+    static arguments), the others tensors and python numbers, the static
+    inputs. Arguments whose first tensor lies on the CPU run fn eagerly.
+    prepare(*args) runs before a capture's warm-up. The returned call has
+    attributes `graph` and `eager` (fn)."""
+    graph = Graph()
+
+    def call(*args):
+        cut = len(args) - n_static
+        dyn, static = args[:cut], args[cut:]
+        first = next(a for a in dyn if torch.is_tensor(a))
+        if first.device.type == "cpu":
+            return fn(*args)
+        return graph(static, lambda *ts: fn(*ts, *static), *dyn,
+                     prepare=(lambda: prepare(*args)) if prepare else None)
+
+    call.graph = graph
+    call.eager = fn
+    return call

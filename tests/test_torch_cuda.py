@@ -1528,3 +1528,201 @@ def test_graphed_scratch_step_across_sh_raise_and_densify(cuda):
             assert not torch.equal(se.live, live_before)
         captures.append(step.graph.captures)
     assert captures == [1, 1, 2, 2, 2, 2]
+
+
+# CUDA graphs of the last jit sites: distill's teacher render, the
+# quality and layer renders, SSIM and LPIPS, VQ's assignment and EMA
+# update, the DP step on NCCL.
+
+RENDER_PATHS = ["teacher", "ps1", "layer_ours", "layer_naive"]
+
+
+def _graphed_render(path, st, cfg):
+    from types import SimpleNamespace
+    from fovsplat_torch.eval import layers, quality
+    from fovsplat_torch.train import distill
+    if path == "teacher":
+        return distill.teacher_render(st, cfg)
+    if path == "ps1":
+        return quality.make_ps1_render(st, cfg.raster)
+    rng = np.random.default_rng(8)
+    n = st.capacity
+    hl = rng.integers(0, 4, n)
+    if path == "layer_naive":
+        return layers.layer_render_naive(st.params, st.live, hl, 2,
+                                         cfg.raster)
+    comp = SimpleNamespace(
+        highest_levels=hl,
+        opacities=rng.uniform(0.2, 0.9, (n, 4)).astype(np.float32),
+        shs_dcs=rng.normal(0, 0.5, (n, 4, 3)).astype(np.float32))
+    return layers.layer_render_ours(st.params, st.live, comp, 2, cfg.raster)
+
+
+@pytest.mark.parametrize("path", RENDER_PATHS)
+def test_graphed_renders_match_eager(cuda, path):
+    """distill's teacher render, the quality render and both layer
+    renders as graphs against their eager functions on two cameras of one
+    shape: bit for bit, fresh outputs, the camera tensors unchanged, one
+    capture, and the counters moved by N times the graph's launches
+    (kernels 4 and 5) over N replays."""
+    from fovsplat_torch.data.cameras import camera_tensors
+    st, cam, _, cfg = _small_graph_inputs(cuda)
+    from fovsplat_torch.data.cameras import look_at_camera
+    other = look_at_camera([3.0, -1.0, -2.6], [0.0, 0.0, 0.0], [0, -1, 0],
+                           fovx=1.20, fovy=1.20 * cam.height / cam.width
+                           * 1.24, width=cam.width, height=cam.height,
+                           device=cuda)
+    render = _graphed_render(path, st, cfg)
+    kept = [t.clone() for t in camera_tensors(cam)]
+    first = render(cam)
+    first_copy = first.clone()
+    second = render(other)
+    assert torch.equal(first, render.eager(cam))
+    assert torch.equal(second, render.eager(other))
+    assert not torch.equal(first, second)
+    assert torch.equal(first, first_copy)
+    assert first.data_ptr() != second.data_ptr()
+    assert all(torch.equal(a, b) for a, b in zip(kept, camera_tensors(cam)))
+    assert render.graph.captures == 1
+    counters = _set_counters()
+    for _ in range(3):
+        render(cam)
+    per = render.graph.launches_per_replay
+    assert {"expand_ps1", "blend_forward"} <= set(per)
+    assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
+        k: 3 * per.get(k, 0) for k in counters}
+
+
+@pytest.mark.parametrize("name", ["ssim", "lpips"])
+def test_graphed_metrics_match_eager(cuda, name, tmp_path):
+    """The SSIM metric (losses.ssim) and LPIPS as graphs against their
+    eager functions with TF32 allowed globally: bit for bit on two image
+    pairs, fresh outputs, inputs unchanged, one capture a shape (a second
+    shape captures again), no kernel counter moved."""
+    from fovsplat_torch.eval import lpips_torch, metrics
+    from fovsplat_torch.train import losses
+    if name == "ssim":
+        fn = metrics.graphs.graphed_fn(
+            lambda a, b, size, robust: losses.ssim(a, b, size,
+                                                   robust=robust), 2)
+        static = (11, False)
+    else:
+        from chip_smoke import synthetic_vgg_weights
+        path = tmp_path / "vgg.npz"
+        np.savez(path, **synthetic_vgg_weights())
+        fn, static = lpips_torch.LPIPS(str(path)), ()
+    rng = np.random.default_rng(3)
+    imgs = [torch.from_numpy(rng.uniform(0, 1, (H, W, 3)).astype(
+        np.float32)).to(cuda) for _ in range(4)]
+    kept = [t.clone() for t in imgs]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    counters = _set_counters()
+    try:
+        a = fn(imgs[0], imgs[1], *static)
+        b = fn(imgs[2], imgs[3], *static)
+        assert torch.equal(a, fn.eager(imgs[0], imgs[1], *static))
+        assert torch.equal(b, fn.eager(imgs[2], imgs[3], *static))
+        assert a.data_ptr() != b.data_ptr() and not torch.equal(a, b)
+        assert fn.graph.captures == 1
+        small = [t[:56, :80] for t in imgs[:2]]
+        assert torch.equal(fn(*small, *static), fn.eager(*small, *static))
+        assert fn.graph.captures == 2
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert all(torch.equal(x, y) for x, y in zip(kept, imgs))
+    assert all(getattr(o, at) == 0 for o, at in counters.values())
+
+
+def test_graphed_vq_matches_eager_and_cpu(cuda, monkeypatch):
+    """compress at 20,000 rows, codebook 256 (chip_smoke's vs_cpu shape)
+    with one set of draws: the graphed card run equals the eager card run
+    (graphs.graphed_fn made the identity) and the CPU's key for key; one
+    near-tie slot a chunk overflows, regrows (a recapture) and gives the
+    same dict."""
+    from fovsplat_torch.models import vq
+    from fovsplat_torch.utils import graphs
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=20_000, seed=3))
+    imp = np.random.default_rng(4).random(20_000)
+    n_vq = 20_000 - int(20_000 * 0.4)
+    init, starts = vq.draws(n_vq, 256, 10, 80_000,
+                            torch.Generator().manual_seed(2))
+
+    def run(dev, ties=None):
+        p = convert.params_from_numpy(**raw, device=dev)
+        return vq.compress(p, imp, 0.6, 256, 10, init, starts, ties=ties)
+    ties = vq.Ties()
+    graphed = run(cuda, ties)
+    one = vq.Ties(capacity=1)
+    regrown = run(cuda, one)
+    cpu = run("cpu")
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "graphed_fn", lambda fn, n_static=0,
+                  prepare=None: fn)
+        eager = run(cuda)
+    for c in (regrown, cpu, eager):
+        assert sorted(c) == sorted(graphed)
+        for k in c:
+            np.testing.assert_array_equal(c[k], graphed[k], err_msg=k)
+    assert ties.regrown == 0 and ties.most <= ties.capacity
+    if one.most > 1:
+        assert one.regrown >= 1 and one.capacity >= one.most
+
+
+def test_graphed_dp_step_matches_eager_on_nccl(cuda):
+    """The DP step as a graph on a world-size-1 NCCL group, three steps
+    of one view from one state against the eager DP step and
+    trainer.make_train_step(group=): parameters, moments, count and loss
+    bit for bit, fresh outputs, the given state unchanged, one capture,
+    and the counters moved by the graph's launches a replay."""
+    import torch.distributed as dist
+    from fovsplat_torch.parallel import data_parallel as dp
+    from fovsplat_torch.parallel import dryrun, multihost
+    from fovsplat_torch.train import optim, trainer
+    multihost.init_group(f"127.0.0.1:{dryrun.free_port()}", 1, 0, cuda,
+                         "nccl")
+    try:
+        st, cam, gt, _ = _small_graph_inputs(cuda)
+        cfg = trainer.TrainConfig(raster=RasterizeConfig(
+            pair_capacity=1 << 20))
+        group = dp.make_mesh()
+        step = dp.make_dp_train_step(cfg, group)
+        one = trainer.make_train_step(cfg, group=group)
+        cams = dp.stack_cameras([cam])
+        p0, o0 = st.params, optim.init_state(st.params)
+        kept = [getattr(p0, f).detach().clone() for f in p0.fields()]
+
+        def flat(p, o, loss):
+            return ([getattr(p, f).detach() for f in p.fields()]
+                    + list(o.mu.values()) + list(o.nu.values())
+                    + [o.count, loss])
+        runs = {"graph": (p0, o0), "eager": (p0, o0), "one": (p0, o0)}
+        outs = []
+        for it in (1, 2, 3):
+            p, o, aux = step(*runs["graph"], cams, gt[None], it)
+            pe, oe, auxe = step.eager(*runs["eager"], cams, gt[None], it)
+            p1, o1, aux1 = one(*runs["one"], cam, gt, it)
+            fg, fe = flat(p, o, aux["loss"]), flat(pe, oe, auxe["loss"])
+            f1 = flat(p1, o1, aux1["loss"])
+            assert all(torch.equal(a, b) for a, b in zip(fg, fe)), it
+            assert all(torch.equal(a, b) for a, b in zip(fg, f1)), it
+            assert int(aux["overflow"]) == 0
+            outs.append(([t.clone() for t in fg], fg))
+            runs = {"graph": (p, o), "eager": (pe, oe), "one": (p1, o1)}
+        for copy, live in outs:
+            assert all(torch.equal(a, b) for a, b in zip(copy, live))
+        assert all(torch.equal(a, getattr(p0, f))
+                   for a, f in zip(kept, p0.fields()))
+        assert step.graph.captures == 1
+        counters = _set_counters()
+        step(p0, o0, cams, gt[None], 1)
+        per = step.graph.launches_per_replay
+        assert {"expand_ps1", "blend_forward", "blend_backward",
+                "reduce_by_sorted_gid"} <= set(per)
+        assert {k: getattr(o_, a_) for k, (o_, a_) in counters.items()} == {
+            k: per.get(k, 0) for k in counters}
+    finally:
+        dist.destroy_process_group()

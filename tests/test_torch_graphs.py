@@ -11,6 +11,12 @@ The scale-decay, masked HVS and scratch steps are held against the JAX
 package's jitted steps on the same numpy inputs (the XLA route, as
 tests/test_torch_train.py's test_step_variants_match_jax_xla), one
 compile a fixture.
+
+VQ's fixed-size steps (the near-tie slots, the integer counts, the sums
+over k per-codeword lengths) are held against the forms they replace,
+which are kept here as references; tests/test_torch_lightgaussian.py
+holds ema_kmeans and compress against JAX. The DP step's maker refuses a
+graph on a gloo group.
 """
 
 import jax.numpy as jnp
@@ -471,10 +477,44 @@ def test_prepare_fills_every_table(pooling):
 # ------------------------------------------------------------ makers
 
 MAKERS = ["hvs_step", "eval_view", "hvs_view", "score_view", "scratch_step",
-          "significance_view"]
+          "significance_view", "teacher_render", "ps1_render", "layer_ours",
+          "layer_naive", "dp_step"]
+# Makers that follow the device of the model they are given, or take
+# `device` and raise without CUDA: no graphed callable on a CPU machine.
+EAGER_ONLY = ("hvs_step", "scratch_step", "teacher_render", "ps1_render",
+              "layer_ours", "layer_naive", "dp_step")
 
 
-def _maker(name, cfg, device):
+def _composed(st):
+    """A 4-level composed model's arrays over the state's rows."""
+    import types
+    rng = np.random.default_rng(8)
+    n = st.capacity
+    return types.SimpleNamespace(
+        highest_levels=rng.integers(0, 4, n),
+        opacities=rng.uniform(0.2, 0.9, (n, 4)).astype(np.float32),
+        shs_dcs=rng.normal(0, 0.5, (n, 4, 3)).astype(np.float32))
+
+
+def _maker(name, cfg, device, st=None):
+    from fovsplat_torch.eval import layers as tlayers
+    from fovsplat_torch.eval import quality as tquality
+    from fovsplat_torch.parallel import data_parallel as tdp
+    from fovsplat_torch.train import distill as tdistill
+    from fovsplat_torch.train import trainer as ttrainer
+    if name == "teacher_render":
+        return tdistill.teacher_render(st, cfg)
+    if name == "ps1_render":
+        return tquality.make_ps1_render(st, cfg.raster)
+    if name == "layer_ours":
+        return tlayers.layer_render_ours(st.params, st.live, _composed(st),
+                                         2, cfg.raster)
+    if name == "layer_naive":
+        return tlayers.layer_render_naive(
+            st.params, st.live, _composed(st).highest_levels, 2, cfg.raster)
+    if name == "dp_step":
+        return tdp.make_dp_train_step(ttrainer.TrainConfig(raster=cfg.raster),
+                                      device=device)
     if name == "hvs_step":
         return tloops.make_hvs_step(cfg, 3.0, masking=True, device=device)
     if name == "scratch_step":
@@ -497,6 +537,17 @@ def _call(name, fn, st, cam, gt):
         return fn(st, cam, gt)
     if name == "hvs_view":
         return fn(st, cam, gt, 3.0)
+    if name == "dp_step":
+        from fovsplat_torch.parallel import data_parallel as tdp
+        from fovsplat_torch.train import optim as topt
+        p, o, aux = fn(st.params, topt.init_state(st.params),
+                       tdp.stack_cameras([cam]), gt[None], 1)
+        return ([getattr(p, f).detach() for f in FIELDS]
+                + [o.mu[f] for f in FIELDS] + [o.nu[f] for f in FIELDS]
+                + [o.count, aux["loss"], aux["overflow"]])
+    if name in ("teacher_render", "ps1_render", "layer_ours",
+                "layer_naive"):
+        return fn(cam)
     return fn(st, cam)
 
 
@@ -515,21 +566,22 @@ def _leaves(out):
 @pytest.mark.parametrize("name", MAKERS)
 def test_cpu_makers_return_eager_functions(name):
     """On the CPU the makers of the HVS step, the eval and HVS views, the
-    score view, the scratch step and the significance view return their
-    eager functions (no graph). The view makers' default (device None)
-    gives a graphed callable that runs a state on the CPU through the
-    same eager function: equal outputs, no capture."""
+    score view, the scratch step, the significance view, distill's
+    teacher render, the quality and layer renders and the DP step return
+    their eager functions (no graph). The view makers' default (device
+    None) gives a graphed callable that runs a state on the CPU through
+    the same eager function: equal outputs, no capture."""
     _, tst, _, _ = _train_setup(n=200, capacity=224)
     cam = proxy.proxy_camera(W, H, device="cpu")
     gt = torch.from_numpy(np.random.default_rng(4).uniform(
         0, 1, (H, W, 3)).astype(np.float32))
     cfg = tloops.LoopConfig(raster=trast.RasterizeConfig(
         pair_capacity=1 << 13))
-    fn = _maker(name, cfg, "cpu")
+    fn = _maker(name, cfg, "cpu", tst)
     assert not hasattr(fn, "graph")
     want = _leaves(_call(name, fn, tst, cam, gt))
     assert want and all(bool(torch.isfinite(t.float()).all()) for t in want)
-    if name in ("hvs_step", "scratch_step"):
+    if name in EAGER_ONLY:
         return
     graphed = _maker(name, cfg, None)
     assert graphed.eager is not None and graphed.graph.captures == 0
@@ -538,3 +590,176 @@ def test_cpu_makers_return_eager_functions(name):
         torch.equal(a, b) for a, b in zip(got, want))
     assert graphed.graph.captures == 0 and graphed.graph.replays == 0
 
+
+
+@pytest.mark.parametrize("name", ["ssim", "lpips"])
+def test_graphed_metrics_run_cpu_tensors_eagerly(name, tmp_path):
+    """The SSIM metric and LPIPS, graphed on the card, run CPU tensors
+    through their eager functions: the same value, no capture, no
+    replay; LPIPS's z-score constants now come with its weights."""
+    from fovsplat_torch.eval import lpips_torch
+    from fovsplat_torch.eval import metrics as tmetrics
+    from fovsplat_torch.train import losses as tlosses
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.uniform(0, 1, (H, W, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(0, 1, (H, W, 3)).astype(np.float32))
+    if name == "ssim":
+        fn, want = tmetrics._ssim, float(tlosses.ssim(a, b))
+        got = tmetrics.ssim(a, b)
+    else:
+        from chip_smoke import synthetic_vgg_weights
+        path = tmp_path / "vgg.npz"
+        np.savez(path, **synthetic_vgg_weights())
+        net = lpips_torch.LPIPS(str(path))
+        fn = net
+        want, got = float(net.eager(a, b)), float(net(a, b))
+        w = net._weights(torch.device("cpu"))
+        assert torch.equal(w["shift"].reshape(-1),
+                           torch.from_numpy(lpips_torch._SHIFT))
+        assert torch.equal(w["scale"].reshape(-1),
+                           torch.from_numpy(lpips_torch._SCALE))
+    assert got == want and np.isfinite(got)
+    assert fn.graph.captures == 0 and fn.graph.replays == 0
+
+
+# ------------------------------------------------------------ VQ
+
+def _assign_reference(data, codebook, rows, step):
+    """The assignment that vq._assign's fixed-size form replaces: the
+    near-tie rows found with torch.nonzero and decided in a python loop
+    over their count, `rows` rows a chunk and `step` near-tie rows a
+    float64 batch."""
+    from fovsplat_torch.models import vq as tvq
+    k = codebook.shape[0]
+    cb2 = torch.sum(codebook * codebook, 1)[None, :]
+    ids, counts = [], []
+    for s in range(0, data.shape[0], rows):
+        a = data[s:s + rows]
+        a2 = torch.sum(a * a, 1, keepdim=True)
+        d2 = a2 - 2.0 * a @ codebook.T + cb2
+        two, idx = torch.topk(d2, min(2, k), dim=1, largest=False)
+        best = torch.argmin(d2, dim=1)
+        near = torch.nonzero((two[:, 1] - two[:, 0]) <= tvq.TIE_RTOL * (
+            a2[:, 0] + cb2[0, idx[:, 0]]))[:, 0]
+        counts.append(near.numel())
+        for t in range(0, near.numel(), step):
+            sel = near[t:t + step]
+            diff = a[sel, None, :].double() - codebook[None].double()
+            best[sel] = torch.argmin((diff * diff).sum(-1), dim=1)
+        ids.append(best)
+    return torch.cat(ids), counts
+
+
+def _tie_rows(n=700, d=48, seed=3):
+    """Rows and a 64-codeword codebook: 24 codewords, their 24 twins a
+    few ulps away (as k-means' draws with replacement make them) and 16
+    singletons. A row near a twinned codeword is a near tie, a row near
+    a singleton is not; both fall in every 64-row chunk."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(0, 1, (40, d)).astype(np.float32)
+    cb = np.concatenate([base, base[:24] * np.float32(1 + 2e-7)])
+    rows = (base[rng.integers(0, 40, n)]
+            + rng.normal(0, 0.05, (n, d))).astype(np.float32)
+    return torch.from_numpy(rows), torch.from_numpy(cb)
+
+
+@pytest.mark.parametrize("capacity", [64, 8])
+def test_fixed_size_assign_matches_the_nonzero_form(capacity, monkeypatch):
+    """vq._assign with a fixed number of near-tie slots a chunk gives the
+    nonzero-and-loop form's ids bit for bit when the slots hold the
+    chunk's near ties, and counts the most ties a chunk held either way.
+    With 8 slots every chunk overflows: _assign reports more than 8, and
+    vq.assign grows the slots to the next power of two that holds them
+    and reruns, with the same ids and the regrowth recorded."""
+    from fovsplat_torch.models import vq as tvq
+    monkeypatch.setattr(tvq, "ASSIGN_ELEMENTS", 64 * 64)   # 64-row chunks
+    data, cb = _tie_rows()
+    want, counts = _assign_reference(data, cb, 64, 64 * 64 // (64 * 48))
+    most = max(counts)
+    assert 8 < most < 64 and min(counts) > 0
+    ids, got_most = tvq._assign(data, cb, capacity)
+    assert int(got_most) == most
+    if capacity >= most:
+        assert ids.dtype == want.dtype and torch.equal(ids, want)
+    else:
+        assert not torch.equal(ids, want)
+    ties = tvq.Ties(capacity=capacity)
+    assert torch.equal(tvq.assign(data, cb, ties), want)
+    assert ties.most == most
+    if capacity < most:
+        assert ties.regrown == 1 and ties.capacity == 1 << (
+            most - 1).bit_length()
+    else:
+        assert ties.regrown == 0 and ties.capacity == capacity
+
+
+def test_fixed_size_ema_sums_and_counts_match_the_forms_they_replace():
+    """The EMA update's sums over k per-codeword lengths equal
+    reduce_by_sorted_gid_plain's (unique_consecutive) bit for bit,
+    codewords without a row included (zero), and the integer index_add_
+    counts equal bincount's."""
+    from fovsplat_torch.models import vq as tvq
+    from fovsplat_torch.ops.kernels.segment_reduce import (
+        reduce_by_sorted_gid_plain)
+    rng = np.random.default_rng(12)
+    k = 40
+    ids = torch.from_numpy(rng.choice(np.arange(0, k, 3), 500))
+    rows = torch.from_numpy(rng.normal(0, 1, (500, 48)).astype(np.float32))
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    want = reduce_by_sorted_gid_plain(sorted_ids, rows[perm].T, k).T
+    got = tvq._codeword_sums(ids, rows, k)
+    assert got.shape == want.shape and torch.equal(got, want)
+    empty = torch.ones(k, dtype=torch.bool)
+    empty[ids] = False
+    assert int(empty.sum()) > 20 and not got[empty].any()
+    counts = tvq._codeword_counts(ids, k)
+    assert torch.equal(counts, torch.bincount(ids, minlength=k))
+
+
+def test_ema_kmeans_reruns_an_overflowed_step_exactly():
+    """ema_kmeans on rows full of near ties with one slot a chunk: every
+    step overflows once, grows the slots and reruns; the codebook equals
+    the run whose slots held the ties from the start, bit for bit."""
+    from fovsplat_torch.models import vq as tvq
+    data, _ = _tie_rows(n=400)
+    init, starts = tvq.draws(400, 64, 3, 200,
+                             torch.Generator().manual_seed(3))
+    init[1::2] = init[::2]        # drawn with replacement: exact ties
+    runs = []
+    for cap in (1, 512):
+        ties = tvq.Ties(capacity=cap)
+        runs.append((tvq.ema_kmeans(data, 64, 3, batch=200, init_idx=init,
+                                    starts=starts, ties=ties), ties))
+    (small, t1), (big, t2) = runs
+    assert t1.regrown >= 1 and t2.regrown == 0 and t1.most == t2.most > 1
+    assert torch.equal(small, big)
+
+
+# ------------------------------------------------------------ the DP step
+
+@pytest.fixture
+def gloo_group(tmp_path):
+    """A gloo group of one rank in this process (a file store: no
+    socket), destroyed after the test."""
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("given", ["default", "group"])
+def test_dp_step_refuses_a_graph_on_gloo(gloo_group, given):
+    """make_dp_train_step(graph=True) on a gloo group raises
+    CaptureUnsupported (a gloo collective cannot be captured) instead of
+    running eagerly; graph=False gives the eager step."""
+    from fovsplat_torch.parallel import data_parallel as tdp
+    from fovsplat_torch.train import trainer as ttrainer
+    cfg = ttrainer.TrainConfig()
+    group = None if given == "default" else gloo_group
+    with pytest.raises(tdp.CaptureUnsupported, match="gloo"):
+        tdp.make_dp_train_step(cfg, group, device="cpu", graph=True)
+    step = tdp.make_dp_train_step(cfg, group, device="cpu", graph=False)
+    assert callable(step) and not hasattr(step, "graph")
