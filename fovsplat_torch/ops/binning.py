@@ -28,6 +28,7 @@ from fovsplat_torch.ops.kernels import expand_ps1 as ep1
 from fovsplat_torch.ops.kernels.compact_table import compact_table
 from fovsplat_torch.ops.kernels.expand_ps1 import expand_ps1, ps1_table
 from fovsplat_torch.ops.projection import TILE
+from fovsplat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,15 +166,19 @@ def bin_fused_ps1(cols, valid, depth, grid_x: int, grid_y: int,
     invalid rows."""
     num_tiles = grid_x * grid_y
     cap_out = pair_capacity if compact_capacity is None else compact_capacity
-    table, cum, total = (ps1_table(cols, valid, depth) if prebuilt is None
-                         else prebuilt)
-    ex = expand_ps1(table, cum, grid_x, pair_capacity, cap_out, use_obb,
-                    quantize=not train)
-    candidates, kept = total[0], ex.kept[0]
-    overflow = (torch.clamp(candidates - pair_capacity, min=0)
-                + torch.clamp(kept - cap_out, min=0))
-    key, dbits = fused_key32(ex.tile, ex.depth,
-                             torch.clamp(kept, max=cap_out), num_tiles)
+    if prebuilt is None:
+        with span("table"):
+            table, cum, total = ps1_table(cols, valid, depth)
+    else:
+        table, cum, total = prebuilt
+    with span("expand"):
+        ex = expand_ps1(table, cum, grid_x, pair_capacity, cap_out, use_obb,
+                        quantize=not train)
+        candidates, kept = total[0], ex.kept[0]
+        overflow = (torch.clamp(candidates - pair_capacity, min=0)
+                    + torch.clamp(kept - cap_out, min=0))
+        key, dbits = fused_key32(ex.tile, ex.depth,
+                                 torch.clamp(kept, max=cap_out), num_tiles)
     pairs, seg_start = sort_pairs(key, dbits, ex.attrs, num_tiles,
                                   exact=train or sort_exact)
     return pairs, Binned(seg_start=seg_start, num_pairs=seg_start[-1].clone(),

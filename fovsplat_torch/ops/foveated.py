@@ -12,6 +12,12 @@ rasterize_fov_soa renders one frame in five stages:
   5. kernel 3, the dual-transmittance blend (ops/kernels/blend_fov), then
      the background, the smoothstep merge and tiles_to_image (torch).
 
+Their profiling spans (utils/profiling.span), which a CUDA graph's stage
+map reads: levels (stage 1 and the chain masks), table (2, and kernel 9),
+expand (3 with the overflow and the fused key), sort (torch.sort and
+searchsorted), gather (the rows' index_select), blend (kernel 3) and
+compose (the merge, the background and tiles_to_image).
+
 With config.compact_table, kernel 9 (ops/kernels/compact_table) packs
 the valid columns of the table before stage 3. A shared-colour model
 (pack_fov_model(shared_colors=True), the SM-FR baseline) has one colour
@@ -39,6 +45,7 @@ from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels.build_table import build_table
 from fovsplat_torch.ops.kernels.compact_table import compact_table
 from fovsplat_torch.ops.kernels.expand_fov import expand_fov
+from fovsplat_torch.utils.profiling import span
 from fovsplat_torch.ops.projection import TILE
 from fovsplat_torch.ops.rasterize import RasterizeConfig, _grid
 
@@ -201,16 +208,19 @@ def seg_bounds32(num_tiles: int, device=None) -> torch.Tensor:
 def sort_pairs(key, dbits, attrs, num_tiles: int, exact: bool):
     """Stable sort of the pair rows by key (and by the exact depth bits
     when `exact`). Returns (sorted attrs (13, CAP), seg_start (T+1,) i32)."""
-    if exact:
-        # dbits >= 0 on every lane, so one i64 key orders (key, dbits).
-        _, perm = torch.sort((key.long() << 32) | dbits.long(), stable=True)
-        sorted_key = key[perm]
-    else:
-        sorted_key, perm = torch.sort(key, stable=True)
-    seg_start = torch.searchsorted(
-        sorted_key, seg_bounds32(num_tiles, key.device),
-        side="left").to(torch.int32)
-    return attrs.index_select(1, perm), seg_start
+    with span("sort"):
+        if exact:
+            # dbits >= 0 on every lane, so one i64 key orders (key, dbits).
+            _, perm = torch.sort((key.long() << 32) | dbits.long(),
+                                 stable=True)
+            sorted_key = key[perm]
+        else:
+            sorted_key, perm = torch.sort(key, stable=True)
+        seg_start = torch.searchsorted(
+            sorted_key, seg_bounds32(num_tiles, key.device),
+            side="left").to(torch.int32)
+    with span("gather"):
+        return attrs.index_select(1, perm), seg_start
 
 
 def chain_masks(levels, grad_x, grad_y, tile_blend):
@@ -218,17 +228,19 @@ def chain_masks(levels, grad_x, grad_y, tile_blend):
     (renderCUDA_blending's L1_done init and L2_done): on blending tiles
     chain 1 runs where est <= floor(level) + 1 and chain 2 everywhere; on
     plain tiles chain 1 runs everywhere and chain 2 nowhere."""
-    pix = torch.arange(PIX, device=levels.device)
-    lx = (pix % TILE).float()
-    ly = torch.floor(pix.float() / TILE)
-    est = (levels[:, None]
-           + (lx[None, :] * grad_x[:, None] + ly[None, :] * grad_y[:, None])
-           / TILE)
-    l1_active = torch.where(tile_blend[:, None],
-                            est <= (levels.to(torch.int32) + 1)[:, None].float(),
-                            torch.ones_like(est, dtype=torch.bool))
-    l2_active = tile_blend[:, None].expand(est.shape).contiguous()
-    return est, l1_active.contiguous(), l2_active
+    with span("levels"):
+        pix = torch.arange(PIX, device=levels.device)
+        lx = (pix % TILE).float()
+        ly = torch.floor(pix.float() / TILE)
+        est = (levels[:, None]
+               + (lx[None, :] * grad_x[:, None]
+                  + ly[None, :] * grad_y[:, None]) / TILE)
+        l1_active = torch.where(
+            tile_blend[:, None],
+            est <= (levels.to(torch.int32) + 1)[:, None].float(),
+            torch.ones_like(est, dtype=torch.bool))
+        l2_active = tile_blend[:, None].expand(est.shape).contiguous()
+        return est, l1_active.contiguous(), l2_active
 
 
 def _render_table(table, cum, total, levels, grad_x, grad_y, tile_blend,
@@ -242,24 +254,29 @@ def _render_table(table, cum, total, levels, grad_x, grad_y, tile_blend,
     num_tiles = gx * gy
     cap_out = config.kept_capacity()
     if config.compact_table:
-        table, cum, _, total = compact_table(table, bt.ROW_VALID, 0.5,
-                                             bt.ROW_TNUM)
-    ex = expand_fov(table, cum, levels, L, gx, config.pair_capacity,
-                    cap_out, config.use_obb)
-    candidates, kept = total[0], ex.kept[0]
-    overflow = (torch.clamp(candidates - config.pair_capacity, min=0)
-                + torch.clamp(kept - cap_out, min=0))
-    key, dbits = fused_key32(ex.tile, ex.depth,
-                             torch.clamp(kept, max=cap_out), num_tiles)
+        with span("table"):
+            table, cum, _, total = compact_table(table, bt.ROW_VALID, 0.5,
+                                                 bt.ROW_TNUM)
+    with span("expand"):
+        ex = expand_fov(table, cum, levels, L, gx, config.pair_capacity,
+                        cap_out, config.use_obb)
+        candidates, kept = total[0], ex.kept[0]
+        overflow = (torch.clamp(candidates - config.pair_capacity, min=0)
+                    + torch.clamp(kept - cap_out, min=0))
+        key, dbits = fused_key32(ex.tile, ex.depth,
+                                 torch.clamp(kept, max=cap_out), num_tiles)
     pairs, seg_start = sort_pairs(key, dbits, ex.attrs, num_tiles,
                                   config.sort_exact_depth)
 
     est, l1_active, l2_active = chain_masks(levels, grad_x, grad_y,
                                             tile_blend)
-    c1, t1, c2, t2 = blend_fov(pairs, seg_start, l1_active, l2_active, gx,
-                               config.power_cutoff, config.chunk)
-    return {"render": _merge(c1, t1, c2, t2, levels, est, tile_blend,
-                             camera, bg_color, fov_cfg),
+    with span("blend"):
+        c1, t1, c2, t2 = blend_fov(pairs, seg_start, l1_active, l2_active,
+                                   gx, config.power_cutoff, config.chunk)
+    with span("compose"):
+        image = _merge(c1, t1, c2, t2, levels, est, tile_blend, camera,
+                       bg_color, fov_cfg)
+    return {"render": image,
             "tile_levels": levels, "tile_blend": tile_blend,
             "num_pairs": seg_start[-1], "overflow": overflow,
             "candidates": candidates}
@@ -384,15 +401,16 @@ def _render_xla(means3d, scales, rotations, opacities, colors, hl, camera,
 def _tile_levels(gaze, camera, alpha, blending: bool, config, fov_cfg):
     """Per-tile levels, gradients, blend flags and per-level clip boxes."""
     gx, gy = _grid(camera)
-    levels = foveation.compute_tile_levels(gaze, camera.width, camera.height,
-                                           alpha, fov_cfg)
-    grad_x, grad_y, _, tile_blend = foveation.compute_tile_level_infos(
-        levels, camera.width, camera.height, fov_cfg)
-    if not blending:
-        tile_blend = torch.zeros_like(tile_blend)
-    bbox = level_bboxes(levels, gx, gy, fov_cfg.fov_num,
-                        config.clip_level_rects)
-    return levels, grad_x, grad_y, tile_blend, bbox
+    with span("levels"):
+        levels = foveation.compute_tile_levels(
+            gaze, camera.width, camera.height, alpha, fov_cfg)
+        grad_x, grad_y, _, tile_blend = foveation.compute_tile_level_infos(
+            levels, camera.width, camera.height, fov_cfg)
+        if not blending:
+            tile_blend = torch.zeros_like(tile_blend)
+        bbox = level_bboxes(levels, gx, gy, fov_cfg.fov_num,
+                            config.clip_level_rects)
+        return levels, grad_x, grad_y, tile_blend, bbox
 
 
 def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
@@ -414,8 +432,9 @@ def rasterize_fov_soa(model: FovModelSoA, camera, gaze, alpha,
                          f"fov_cfg.fov_num is {L}")
     levels, grad_x, grad_y, tile_blend, bbox = _tile_levels(
         gaze, camera, alpha, blending, config, fov_cfg)
-    table, cum, total = build_table(model, camera, bbox, sh_degree,
-                                    config.scale_modifier)
+    with span("table"):
+        table, cum, total = build_table(model, camera, bbox, sh_degree,
+                                        config.scale_modifier)
     return _render_table(table, cum, total, levels, grad_x, grad_y,
                          tile_blend, camera, L, bg_color, config, fov_cfg)
 
@@ -461,13 +480,14 @@ def rasterize_fov(means3d, scales, rotations, opacities, shs_dcs, shs_rest,
                                colors.float(), hl, camera, levels, grad_x,
                                grad_y, tile_blend, bbox, L, bg_color, config,
                                fov_cfg, live_mask)
-        pc = projection.preprocess_cols(means3d, scales, rotations, camera,
-                                        scale_modifier=config.scale_modifier,
-                                        live_mask=live_mask)
-        t1cols, valid = clipped_geometry(pc, hl, bbox, L)
-        table, cum, total = bt.assemble_table(
-            t1cols, level_cols(opacities.float(), colors.float()), valid,
-            pc.depth)
+        with span("table"):
+            pc = projection.preprocess_cols(
+                means3d, scales, rotations, camera,
+                scale_modifier=config.scale_modifier, live_mask=live_mask)
+            t1cols, valid = clipped_geometry(pc, hl, bbox, L)
+            table, cum, total = bt.assemble_table(
+                t1cols, level_cols(opacities.float(), colors.float()),
+                valid, pc.depth)
         return _render_table(table, cum, total, levels, grad_x, grad_y,
                              tile_blend, camera, L, bg_color, config,
                              fov_cfg)

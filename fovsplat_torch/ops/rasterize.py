@@ -45,6 +45,7 @@ from fovsplat_torch.ops.kernels.build_table import build_table_ps1
 from fovsplat_torch.ops.kernels.segment_reduce import (
     reduce_by_sorted_gid, reduce_by_sorted_gid_plain)
 from fovsplat_torch.ops.projection import TILE
+from fovsplat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,9 +256,11 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
         tile_color, final_T, n_contrib, bn, radii = _kernel_route(
             means3d, scales, rotations, opacities, camera, colors, cfg,
             live_mask, mean2d_offset)
-    image, T_img = _images(tile_color, final_T, gx, gy, camera, bg_color)
-    nc_img = tiles_to_image(n_contrib[..., None], gx, gy, camera.width,
-                            camera.height)[..., 0]
+    with span("compose"):
+        image, T_img = _images(tile_color, final_T, gx, gy, camera,
+                               bg_color)
+        nc_img = tiles_to_image(n_contrib[..., None], gx, gy, camera.width,
+                                camera.height)[..., 0]
     return {"render": image, "final_T": T_img, "n_contrib": nc_img,
             "radii": radii, "binned": bn}
 
@@ -282,9 +285,10 @@ def _kernel_route(means3d, scales, rotations, opacities, camera, colors,
             prep.valid, prep.depth.detach(), gx, gy, cfg.pair_capacity,
             cfg.kept_capacity(), cfg.use_obb, train=False,
             sort_exact=cfg.sort_exact_depth)
-        tile_color, final_T, n_contrib = blend_forward_q(
-            pairs, bn.seg_start[:-1], bn.seg_start[1:], gx, cfg.power_cutoff,
-            cfg.chunk)
+        with span("blend"):
+            tile_color, final_T, n_contrib = blend_forward_q(
+                pairs, bn.seg_start[:-1], bn.seg_start[1:], gx,
+                cfg.power_cutoff, cfg.chunk)
     else:
         pairs, pair_gauss, seg_start, num_pairs, overflow, candidates = \
             PairBuilder.apply(prep.valid, prep.depth.detach(), gx, gy,
@@ -294,8 +298,10 @@ def _kernel_route(means3d, scales, rotations, opacities, camera, colors,
         bn = binning.Binned(seg_start=seg_start, num_pairs=num_pairs,
                             overflow=overflow, candidates=candidates,
                             pair_gauss=pair_gauss)
-        tile_color, final_T, n_contrib = blend(pairs, seg_start, gx,
-                                               cfg.power_cutoff, cfg.chunk)
+        with span("blend"):
+            tile_color, final_T, n_contrib = blend(pairs, seg_start, gx,
+                                                   cfg.power_cutoff,
+                                                   cfg.chunk)
     radii = torch.where(prep.valid, prep.radius,
                         torch.zeros_like(prep.radius)).to(torch.int32)
     return tile_color, final_T, n_contrib, bn, radii
@@ -340,17 +346,21 @@ def rasterize_ps1_soa(model: Ps1ModelSoA, camera, bg_color=None,
     from fovsplat_torch.ops import binning   # see PairBuilder
     gx, gy = _grid(camera)
     cfg = config
-    table, cum, total = build_table_ps1(model, camera, sh_degree,
-                                        cfg.scale_modifier)
-    if cfg.compact_table:
-        table, cum, total, _ = binning.compact_prebuilt(table)
+    with span("table"):
+        table, cum, total = build_table_ps1(model, camera, sh_degree,
+                                            cfg.scale_modifier)
+        if cfg.compact_table:
+            table, cum, total, _ = binning.compact_prebuilt(table)
     pairs, bn = binning.bin_fused_ps1(
         None, None, None, gx, gy, cfg.pair_capacity, cfg.kept_capacity(),
         cfg.use_obb, train=False, sort_exact=cfg.sort_exact_depth,
         prebuilt=(table, cum, total))
-    tile_color, final_T, _ = blend_forward_q(
-        pairs, bn.seg_start[:-1], bn.seg_start[1:], gx, cfg.power_cutoff,
-        cfg.chunk)
-    image, T_img = _images(tile_color, final_T, gx, gy, camera, bg_color)
+    with span("blend"):
+        tile_color, final_T, _ = blend_forward_q(
+            pairs, bn.seg_start[:-1], bn.seg_start[1:], gx,
+            cfg.power_cutoff, cfg.chunk)
+    with span("compose"):
+        image, T_img = _images(tile_color, final_T, gx, gy, camera,
+                               bg_color)
     return {"render": image, "final_T": T_img, "num_pairs": bn.num_pairs,
             "overflow": bn.overflow, "candidates": bn.candidates}

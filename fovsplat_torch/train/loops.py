@@ -26,6 +26,9 @@ host memory (loops.py:342-346). The control flow (the seeded view stack,
 the gates, the scale-weight schedule, the per-cut re-gating) is the JAX
 package's step for step. A loop runs on the device of the state it is
 given. finetune serves a live viewer (eval/network_gui) when given one.
+A step's stages run in profiling spans (utils/profiling.span), which a
+CUDA graph's stage map reads: render (holding the frame's own spans),
+loss, backward (autograd and the dead-gradient mask) and adam.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from fovsplat_torch.perception import metameric
 from fovsplat_torch.train import losses, optim
 from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
+from fovsplat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +140,14 @@ def _loss_grads(state: S.TrainerState, camera, cfg: LoopConfig, loss_of):
     gradients: returns (loss, grads {field: tensor}, n_bad, output)."""
     fields = state.params.fields()
     with torch.enable_grad():
-        out = render_state(state, camera, cfg)
-        loss = loss_of(out)
-        g = torch.autograd.grad(loss, list(fields.values()))
-    grads, n_bad = _mask_dead_grads(dict(zip(fields, g)), state.live)
+        with span("render"):
+            out = render_state(state, camera, cfg)
+        with span("loss"):
+            loss = loss_of(out)
+        with span("backward"):
+            g = torch.autograd.grad(loss, list(fields.values()))
+    with span("backward"):
+        grads, n_bad = _mask_dead_grads(dict(zip(fields, g)), state.live)
     return loss.detach(), grads, n_bad, out
 
 
@@ -169,10 +177,11 @@ def photometric_step(state: S.TrainerState, camera, gt, it, scale_weight,
     `scale_weight` are python numbers or 0-d tensors there."""
     loss, grads, n_bad, out = photometric_grads(
         state, camera, gt, cfg, use_scale_decay, scale_weight)
-    lrs = optim.learning_rates(state.params, it, cfg.optim,
-                               cfg.spatial_lr_scale)
-    params, opt = optim.apply_updates(state.params, grads, state.opt, lrs,
-                                      cfg.optim)
+    with span("adam"):
+        lrs = optim.learning_rates(state.params, it, cfg.optim,
+                                   cfg.spatial_lr_scale)
+        params, opt = optim.apply_updates(state.params, grads, state.opt,
+                                          lrs, cfg.optim)
     bn = out["binned"]
     return (dataclasses.replace(state, params=params, opt=opt),
             {"loss": loss, "overflow": bn.overflow, "nonfinite": n_bad,
@@ -316,7 +325,7 @@ def hvs_grads(state: S.TrainerState, camera, gt, cfg: LoopConfig,
     """Uniform HVS loss and masked gradients of one view (the objective of
     loops.py:163-174): the ground truth's statistics are taken once,
     without a gradient. Returns (loss, grads, n_bad, render output)."""
-    with torch.no_grad():
+    with torch.no_grad(), span("loss"):
         gt_stats = metameric.statsmaps(
             metameric.resize_for_pyramid(gt, cfg.hvs_levels), pooling_size,
             cfg.hvs_levels, cfg.hvs_orientations)
@@ -343,11 +352,12 @@ def hvs_step(state: S.TrainerState, camera, gt, it, cfg: LoopConfig,
     tensors bit for bit and their Adam moments are zeroed."""
     loss, grads, n_bad, out = hvs_grads(state, camera, gt, cfg,
                                         pooling_size, loss_type)
-    lrs = optim.learning_rates(state.params, it, cfg.optim,
-                               cfg.spatial_lr_scale)
-    params, opt = optim.apply_updates(
-        state.params, grads, state.opt, lrs, cfg.optim,
-        freeze_mask=_MASKING_FREEZE if masking else None)
+    with span("adam"):
+        lrs = optim.learning_rates(state.params, it, cfg.optim,
+                                   cfg.spatial_lr_scale)
+        params, opt = optim.apply_updates(
+            state.params, grads, state.opt, lrs, cfg.optim,
+            freeze_mask=_MASKING_FREEZE if masking else None)
     bn = out["binned"]
     return (dataclasses.replace(state, params=params, opt=opt),
             {"loss": loss, "overflow": bn.overflow, "nonfinite": n_bad,

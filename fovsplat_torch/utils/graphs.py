@@ -43,6 +43,24 @@ Launch counters: each kernel wrapper counts its launches in Python
 capture's change of every counter is taken back (the captured kernels
 did not run then) and added again on every replay; the warm-up's
 launches did run, and stay counted.
+
+Stage map and counts (utils/profiling): the capture runs inside
+profiling.capturing, so every profiling.span inside the captured
+function marks a stage boundary in nodes of the graph being captured.
+Once the function returns, the graph's nodes are read in order. The
+Graph's `record`, a profiling.GraphRecord of its key, then holds
+`stages` (label, first operation, operations, their types), `nodes`
+(the device operations a replay launches: kernels, copies and sets),
+`bytes_in` (the static inputs that load copies into) and `bytes_out`
+(the outputs that fresh_outputs clones), computed once from the static
+shapes, and `serial`, its number. The process keeps every record after
+its Graph is gone (profiling.RECORDS). Reading the nodes adds nothing
+to the graph.
+
+Spans: a Graph's own work runs in profiling.span ranges
+fovsplat.graph.capture (warm-up and capture), fovsplat.graph.copy-in
+(load), fovsplat.graph.replay#<serial> (the graph's launch) and
+fovsplat.graph.clone (fresh_outputs). Off, each costs one check.
 """
 
 from __future__ import annotations
@@ -54,6 +72,7 @@ from torch.utils import _pytree
 
 from fovsplat_torch.data.cameras import camera_tensors, camera_with_tensors
 from fovsplat_torch.ops.kernels import launch_counters
+from fovsplat_torch.utils import profiling
 
 WARMUPS = 1
 # The type of a 0-d static input that holds a python number.
@@ -79,8 +98,9 @@ def _counts(counters):
 class Graph:
     """One CUDA graph at a time. Attributes: key (the captured key),
     captures, replays, capture_seconds (the last capture's wall time,
-    warm-up included) and launches_per_replay ({counter name: launches
-    the graph holds})."""
+    warm-up included), launches_per_replay ({counter name: launches
+    the graph holds}) and record (the captured key's
+    profiling.GraphRecord, or None; the module docstring)."""
 
     def __init__(self):
         self.key = None
@@ -88,6 +108,7 @@ class Graph:
         self.replays = 0
         self.capture_seconds = 0.0
         self.launches_per_replay = {}
+        self.record = None
         self._counters = []     # (wrapper, attribute, launches a replay)
         self._graph = None
         self._inputs = ()
@@ -109,7 +130,7 @@ class Graph:
 
     def load(self, args):
         """Copy the arguments into the static inputs."""
-        with torch.no_grad():
+        with profiling.span("graph.copy-in"), torch.no_grad():
             for dst, src in zip(self._inputs, args):
                 if torch.is_tensor(src):
                     dst.copy_(src)
@@ -119,23 +140,30 @@ class Graph:
     def replay(self):
         """Replay the graph on the current stream, count its launches and
         return fresh_outputs()."""
-        self._graph.replay()
+        with profiling.span("graph.replay", self.record.serial):
+            self._graph.replay()
         self.replays += 1
+        self.record.replays += 1
         for obj, attr, n in self._counters:
             setattr(obj, attr, getattr(obj, attr) + n)
         return self.fresh_outputs()
 
     def fresh_outputs(self):
         """Clones of the static outputs, in the structure fn returned."""
-        with torch.no_grad():
+        with profiling.span("graph.clone"), torch.no_grad():
             return _pytree.tree_unflatten(
                 [t.clone() if torch.is_tensor(t) else t
                  for t in self._outputs], self._spec)
 
     def _capture(self, sig, fn, args, prepare):
+        with profiling.span("graph.capture"):
+            self._capture_key(sig, fn, args, prepare)
+
+    def _capture_key(self, sig, fn, args, prepare):
         # Drop the old graph first, so that its pool is freed.
         self.key, self._graph, self._inputs, self._outputs = None, None, (), []
         self.launches_per_replay, self._counters = {}, []
+        self.record = None
         devs = {a.device for a in args if torch.is_tensor(a)}
         if len(devs) != 1:
             raise ValueError(f"a CUDA graph takes tensors on one device; got "
@@ -166,7 +194,10 @@ class Graph:
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph):
-                    out = fn(*inputs)
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    with profiling.capturing(stream) as marks:
+                        out = fn(*inputs)
+                        stage_map = marks.finish()
             finally:
                 after = _counts(counters)
                 for name, (obj, attr) in counters.items():
@@ -177,6 +208,8 @@ class Graph:
                                     if after[k] != before[k]}
         self._counters = [(*counters[k], n)
                           for k, n in self.launches_per_replay.items()]
+        self.record = profiling.record_graph(sig, stage_map, inputs,
+                                             self._outputs)
         self.captures += 1
         self.capture_seconds = time.perf_counter() - t0
         self.key = sig

@@ -1726,3 +1726,132 @@ def test_graphed_dp_step_matches_eager_on_nccl(cuda):
             k: per.get(k, 0) for k in counters}
     finally:
         dist.destroy_process_group()
+
+
+# The stage map of a graph (utils/profiling): the device operations of
+# three profiled replays matched to the stages their capture recorded.
+
+def _own_kernel_names():
+    import re
+    from pathlib import Path
+    import fovsplat_torch
+    names = set()
+    for src in (Path(fovsplat_torch.__file__).parent / "csrc").glob("*.cu*"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            src.read_text()))
+    return re.compile(r"\b(%s)\s*[(<]" % "|".join(sorted(names)))
+
+
+def _staged_call(dev, path):
+    """(call(), its Graph) of the "ours" frame, the PS1 frame or a
+    photometric step."""
+    if path == "step":
+        n, w, h = 5000, 160, 112
+        gt = torch.from_numpy(np.random.default_rng(1).uniform(
+            0, 1, (h, w, 3)).astype(np.float32)).to(dev)
+        cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
+        cam = proxy.proxy_camera(w, h, device=dev)
+        st = _train_state(dev, n, 3)
+        step = loops.make_photometric_step(cfg)
+        return (lambda: step(st, cam, gt, 1)), step.graph
+    frame = _graphed_frame(dev, path)
+    cam = proxy.proxy_camera(W, H, device=dev)
+    g = torch.tensor((0.5, 0.5), device=dev)
+    return (lambda: frame(cam, g)), frame.graph
+
+
+class _CountedEntry:
+    """A kernel library's entry point that, while its stream captures a
+    graph, notes the kernel nodes each call added."""
+
+    def __init__(self, fn, calls):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_calls", calls)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+    def __call__(self, *args):
+        from fovsplat_torch.utils import profiling
+        if not torch.cuda.is_current_stream_capturing():
+            return self._fn(*args)
+        stream = torch.cuda.current_stream().cuda_stream
+        before = profiling._read_nodes(stream, 0)[0]
+        out = self._fn(*args)
+        after = profiling._read_nodes(stream, 0)[0]
+        if after > before:
+            types = profiling._read_nodes(stream, after)[1]
+            self._calls.append(sum(t == 0 for t in types[before:]))
+        return out
+
+
+class _CountedLib:
+    def __init__(self, lib, calls):
+        self._lib, self._calls = lib, calls
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name.startswith("fs_") and name != "fs_error_string":
+            return _CountedEntry(fn, self._calls)
+        return fn
+
+
+@pytest.mark.parametrize("path", ["ours", "ps1", "step"])
+def test_stage_map_splits_three_replays(cuda, path, monkeypatch):
+    """Three profiled replays all match their capture's stage map; kernel
+    3 lies in blend, kernel 6 in backward, the radix sort in a sort
+    stage; the stages add up to the replay's device time within 1%; the
+    kernel nodes that the entry calls of csrc/ libraries added during the
+    capture are those the trace names after csrc/, and the calls that
+    added them equal launches_per_replay."""
+    from torch.profiler import ProfilerActivity, profile
+    from fovsplat_torch.ops.kernels import _build
+    from fovsplat_torch.utils import profiling
+    call, graph = _staged_call(cuda, path)
+    calls = []
+    load = _build.load
+    with monkeypatch.context() as m:
+        m.setattr(_build, "load", lambda name: load(name) if name ==
+                  "capture_nodes" else _CountedLib(load(name), calls))
+        call()                                  # warm-up and capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    report = profiling.window_report(events)
+    rec = graph.record
+    g = report["graphs"][str(rec.serial)]
+    assert g["replays"] == 3 and g["unmatched"] == 0, report
+    assert g["nodes"] == rec.nodes > 0
+    per = graph.launches_per_replay
+    assert len(calls) == sum(v for k, v in per.items()
+                             if k != "blend_fov_tile0")
+    own = _own_kernel_names()
+    dev = sorted((e for e in events if e.device_type.name == "CUDA"
+                  and not e.is_user_annotation),
+                 key=lambda e: e.time_range.start)
+    want = {"ours": ("blend", "blend_fov_kernel"),
+            "ps1": ("blend", "blend_fwd_kernel"),
+            "step": ("backward", "blend_bwd_kernel")}[path]
+    for serial, ops in profiling.replay_stages(events):
+        assert serial == str(rec.serial) and ops is not None
+        labels = {}
+        for label, e in ops:
+            labels.setdefault(label, []).append(e.name)
+        assert any(want[1] in n for n in labels[want[0]])
+        assert any("RadixSort" in n for lb, names in labels.items()
+                   if lb.split("/")[-1] == "sort" for n in names)
+        assert sum(1 for _, e in ops if own.search(e.name)) == sum(calls)
+        # Every device operation inside the replay's span of the device.
+        t0 = min(e.time_range.start for _, e in ops)
+        t1 = max(e.time_range.end for _, e in ops)
+        inside = sum(e.time_range.end - e.time_range.start for e in dev
+                     if t0 <= e.time_range.start < t1)
+        mine = sum(e.time_range.end - e.time_range.start for _, e in ops)
+        assert abs(inside - mine) <= 0.01 * inside
+    assert abs(sum(g["stage_s"].values()) - g["device_s"]) <= \
+        1e-9 + 1e-6 * g["device_s"]
