@@ -349,6 +349,9 @@ FRAME_ATOL = 1e-4              # card frame vs CPU frame
 TRAIN_PAIR_CAPACITY = (1 << 22) + N_FULL
 TRAIN_COMPACT_CAPACITY = 3_145_728
 BWD_RTOL = 1e-4                # kernel 6 vs plain, of each row's max
+PROJECT_RTOL = 1e-6            # kernel 10's forward, of each row's max
+PROJECT_BWD_RTOL = 1e-5        # kernel 10's backward vs autograd, of
+                               # each gradient column's max
 REDUCE_RTOL = 1e-5             # kernel 7 vs plain
 LOSS_RTOL = 1e-5               # card step vs CPU step
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4   # scaled gradients, card vs CPU
@@ -894,10 +897,11 @@ def check_ps1_exact(table, cum, gx, T, pair_capacity, cap_out, quantize,
 
 
 def check_train_kernels(st, cam, gt, results):
-    """Kernels 4-7 against their plain versions on the train step's own
-    inputs at full width: the 19 columns of the state, the sorted pairs,
-    the cotangent of the photometric loss of the forward's image, and
-    the gid-sorted stream of the backward's rows."""
+    """Kernels 4-7 and 10 against their plain versions on the train step's
+    own inputs at full width: the 19 columns of the state, the sorted
+    pairs, the cotangent of the photometric loss of the forward's image,
+    the gid-sorted stream of the backward's rows, and its sums as kernel
+    10's cotangent."""
     import numpy as np
     import torch
     from fovsplat_torch.ops import blend, foveated as fov
@@ -1018,6 +1022,113 @@ def check_train_kernels(st, cam, gt, results):
                                        seg[-1], n)
     results["reduce_by_sorted_gid"] = check_reduce(
         gid, vals, n, f"train stream, N={n}, lanes={cap}")
+
+    # --- kernel 10, its backward on kernel 7's sums: the nine columns'
+    # cotangent
+    from fovsplat_torch.ops.kernels import segment_reduce as sr
+    check_project_sh(st, cam, sr.reduce_by_sorted_gid(gid, vals, n), results)
+
+
+def check_project_sh(st, cam, g, results):
+    """Kernel 10 against its plain twin on the train step's inputs at full
+    width: the forward's constant rows, valid and radius bit for bit and
+    its nine differentiable rows within PROJECT_RTOL of each row's
+    largest value; the backward on the cotangent g (9, N) against
+    autograd of the twin, within PROJECT_BWD_RTOL of each gradient
+    column's largest value over the rows where autograd is finite; two
+    launches of each bit-identical. Fills the kernels line's rows
+    project_sh_forward and project_sh_backward of `results`."""
+    import torch
+    from fovsplat_torch.ops.kernels import project_sh as psh
+    p, n = st.params, st.capacity
+    args = dict(means3d=p.xyz.detach(), scales=p.get_scaling().detach(),
+                rotations=p.get_rotation().detach(),
+                opacities=p.get_opacity().detach(),
+                shs=(p.features_dc.detach(), p.features_rest.detach()),
+                live_mask=st.live)
+    with torch.no_grad():
+        k = psh.project_sh_forward(camera=cam, **args)
+        q = psh.project_sh_plain(camera=cam, **args)
+        again = psh.project_sh_forward(camera=cam, **args)
+
+    def same_bits(a, b):
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b))
+                    and torch.equal(a[~nan], b[~nan]))
+    exact = (all(same_bits(k.aux[r], q.aux[r])
+                 for r in range(len(psh.AUX_ROWS)))
+             and bool(torch.equal(k.valid, q.valid))
+             and same_bits(k.radius, q.radius))
+    ok = torch.isfinite(q.diff).all(0)
+    f_rel = float(((k.diff - q.diff)[:, ok].abs().amax(1)
+                   / q.diff[:, ok].abs().amax(1).clamp(min=1e-30)).max())
+    f_twice = same_outputs((k.diff, k.aux, k.valid), (again.diff, again.aux,
+                                                      again.valid))
+
+    names = ["means3d", "scales", "rotations", "opacities"]
+    leaves = {f: args[f].clone().requires_grad_(True) for f in names}
+    sh_leaves = [t.clone().requires_grad_(True) for t in args["shs"]]
+    run = {**args, **leaves, "shs": tuple(sh_leaves)}
+    inputs = [*leaves.values(), *sh_leaves]
+    ref = torch.autograd.grad(psh.project_sh_plain(camera=cam, **run).diff,
+                              inputs, g)
+    got = [torch.autograd.grad(psh.project_sh(camera=cam, **run).diff,
+                               inputs, g) for _ in range(2)]
+    b_rel = 0.0
+    for a, b in zip(got[0], ref):
+        a2, b2 = a.reshape(n, -1), b.reshape(n, -1)
+        fin = torch.isfinite(b2).all(1)
+        col_max = b2[fin].abs().amax(0).clamp(min=1e-30)
+        b_rel = max(b_rel, float(((a2[fin] - b2[fin]).abs() / col_max)
+                                 .max()))
+    b_twice = same_outputs(got[0], got[1])
+    b_finite = all(bool(torch.isfinite(a).all()) for a in got[0])
+    rows_live = int((g != 0).any(0).sum())
+    if not (exact and f_rel <= PROJECT_RTOL and f_twice and b_twice
+            and b_rel <= PROJECT_BWD_RTOL and b_finite):
+        raise AssertionError(f"project_sh: exact {exact}, forward {f_rel}, "
+                             f"backward {b_rel}, finite {b_finite}, "
+                             f"twice {f_twice} {b_twice}")
+
+    def plain_both():
+        torch.autograd.grad(psh.project_sh_plain(camera=cam, **run).diff,
+                            inputs, g)
+    # Bytes by need at K = 16: the forward reads the means, scales,
+    # rotations, opacity, live flag and 48 SH floats and writes 19 rows,
+    # valid, depth and radius; the backward reads the same inputs and the
+    # nine cotangent rows and writes 58 gradient floats (the opacity's is
+    # its cotangent row). The operations (~600-1,000 a Gaussian) take far
+    # less than the bytes.
+    fb = bound(n * (12 + 12 + 16 + 4 + 1 + 192 + 19 * 4 + 1 + 8), 0.0)
+    bb = bound(n * (12 + 12 + 16 + 192 + 36 + 12 + 12 + 16 + 192), 0.0)
+    shape = (f"N={n}, {cam.width}x{cam.height}, K = 16 as (N, 1, 3) and "
+             f"(N, 15, 3)")
+    fwd = {**kernel_times(lambda: psh.project_sh_forward(
+        camera=cam, **args)), "bound_ms": fb[0], "bound_by": fb[1],
+        "plain_ms": cuda_ms(lambda: psh.project_sh_plain(camera=cam, **args),
+                            3)}
+    bwd = {**kernel_times(lambda: psh.project_sh_backward(
+        g, args["means3d"], args["scales"], args["rotations"], cam,
+        shs=args["shs"])), "bound_ms": bb[0], "bound_by": bb[1],
+        "plain_fwd_bwd_ms": cuda_ms(plain_both, 3)}
+    # The kernels line's rows: the largest error, as a share of the
+    # row's (forward) or gradient column's (backward) largest value.
+    results["project_sh_forward"] = {**fwd, "max_abs_err": f_rel,
+                                     "shape": shape}
+    results["project_sh_backward"] = {**bwd, "max_abs_err": b_rel,
+                                      "plain_ms": bwd["plain_fwd_bwd_ms"],
+                                      "shape": shape}
+    emit({"phase": "check", "kernel": "project_sh", "n": n,
+          "shape": shape,
+          "forward_exact_rows": exact,
+          "forward_max_rel_err_of_row_max": f_rel,
+          "forward_bit_identical_twice": f_twice,
+          "backward_max_rel_err_of_column_max": b_rel,
+          "backward_finite": b_finite,
+          "backward_bit_identical_twice": b_twice,
+          "rows_with_cotangent": rows_live,
+          "tol": [PROJECT_RTOL, PROJECT_BWD_RTOL],
+          "forward": fwd, "backward": bwd})
 
 
 def check_reduce(gid, vals, n, tag):
@@ -1494,7 +1605,8 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
             or not finite or row["frame"]["overflow"] != 0):
         raise AssertionError("the model-building chain failed a check")
     for k in ("expand_ps1", "blend_forward", "blend_backward",
-              "reduce_by_sorted_gid", "blend_stats"):
+              "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
+              "project_sh_backward"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the chain")
     return launches, model, {"ps1": ps1, "train_views": train_views,
@@ -1719,17 +1831,19 @@ def bad_rows(rows):
 
 
 def scratch_launches(iterations, views, lg_prunes, degrees, warmups):
-    """The launches of kernels 4-8 a train_scratch run implies: one
-    expansion, forward and backward blend and gid reduce a step, and per
-    view of each LG prune one expansion, stats blend and reduce (the
-    count_opacity contributions). On the card each of the step's
-    `degrees` graphs (one an SH degree) and each LG prune's view graph
-    add `warmups` runs (utils/graphs.WARMUPS) when captured."""
+    """The launches of kernels 4-8 and 10 a train_scratch run implies: one
+    projection forward and backward, expansion, forward and backward
+    blend and gid reduce a step, and per view of each LG prune one
+    expansion, stats blend and reduce (the count_opacity contributions).
+    On the card each of the step's `degrees` graphs (one an SH degree)
+    and each LG prune's view graph add `warmups` runs
+    (utils/graphs.WARMUPS) when captured."""
     steps = iterations + warmups * degrees
     lg = (views + warmups) * lg_prunes
     return {"expand_ps1": steps + lg, "blend_forward": steps,
             "blend_backward": steps,
-            "reduce_by_sorted_gid": steps + lg, "blend_stats": lg}
+            "reduce_by_sorted_gid": steps + lg, "blend_stats": lg,
+            "project_sh_forward": steps, "project_sh_backward": steps}
 
 
 def scratch_config(**kw):
@@ -2243,7 +2357,8 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
             or not finite or row["frame"]["overflow"] != 0):
         raise AssertionError("the pipeline phase failed a check")
     for k in ("expand_ps1", "blend_forward", "blend_backward",
-              "reduce_by_sorted_gid", "blend_stats"):
+              "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
+              "project_sh_backward"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the pipeline")
     return launches, graphed
@@ -2541,7 +2656,7 @@ def ps1_vs_cpu_and_f32():
         f32 = rast.rasterize(
             t(sc["means"]), t(sc["scales"]), t(sc["rotations"]),
             t(sc["opacity"]), proxy.proxy_camera(320, 224, device="cuda"),
-            shs=torch.cat([t(sc["shs_dcs"][:, 0:1]), t(sc["shs_rest"])], 1),
+            shs=(t(sc["shs_dcs"][:, 0:1]), t(sc["shs_rest"])),
             bg_color=[0.1, 0.2, 0.3], config=cfg)["render"].cpu()
     mse = float(((outs[0][0] - f32).double() ** 2).mean())
     psnr = -10.0 * math.log10(max(mse, 1e-30))
@@ -5214,6 +5329,7 @@ def main():
     from fovsplat_torch.ops.kernels import compact_table as ct
     from fovsplat_torch.ops.kernels import expand_fov as ef
     from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    from fovsplat_torch.ops.kernels import project_sh as psh
     from fovsplat_torch.ops.kernels import segment_reduce as sr
     from fovsplat_torch.ops.rasterize import RasterizeConfig
 
@@ -5243,7 +5359,9 @@ def main():
     train_kernels = {"expand_ps1": ep1.expand_ps1,
                      "blend_forward": bfw.blend_forward,
                      "blend_backward": bfw.blend_backward,
-                     "reduce_by_sorted_gid": sr.reduce_by_sorted_gid}
+                     "reduce_by_sorted_gid": sr.reduce_by_sorted_gid,
+                     "project_sh_forward": psh.project_sh_forward,
+                     "project_sh_backward": psh.project_sh_backward}
     all_kernels = {**frame_kernels, **train_kernels,
                    "blend_stats": bs.blend_stats}
 
@@ -5479,7 +5597,11 @@ def main():
            "compact_table": ("fovsplat_torch/csrc/compact_table.cu",
                              "fovsplat/ops/pallas/compact_table.py:218"),
            "blend_fov_tile0": ("fovsplat_torch/csrc/blend_fov.cu",
-                               "fovsplat/ops/pallas/blend_fov.py:463")}
+                               "fovsplat/ops/pallas/blend_fov.py:463"),
+           "project_sh_forward": ("fovsplat_torch/csrc/project_sh.cu",
+                                  "none (jnp / jax.grad)"),
+           "project_sh_backward": ("fovsplat_torch/csrc/project_sh.cu",
+                                   "none (jnp / jax.grad)")}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]
@@ -5496,7 +5618,8 @@ def main():
                      "library_ms": r.get("library_ms"),
                      "shape": r["shape"]})
         if k in ("expand_ps1", "blend_forward", "blend_backward",
-                 "reduce_by_sorted_gid", "blend_stats"):
+                 "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
+                 "project_sh_backward"):
             rows[-1]["launches_scratch"] = scratch_l[k]
             rows[-1]["launches_pipeline"] = pipeline_l[k]
             rows[-1]["launches_graphed_scratch"] = scratch_g.get(k, 0)

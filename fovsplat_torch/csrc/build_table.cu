@@ -27,10 +27,11 @@
 // Gaussian in registers and reads each input row once, coalesced (N-last
 // layout: thread i reads column i).
 //
-// The arithmetic mirrors fovsplat_torch/ops/projection.py operation for
-// operation; with -fmad=false (see _build.py) the integer rect columns
-// match the plain version exactly. Deviation from the TPU kernel: the
-// OBB extents are zeroed from the PRE-clip tile count (as
+// The projection is project_sh.cuh's ewa and columns (kernel 10's): they
+// mirror fovsplat_torch/ops/projection.py operation for operation, NaN
+// rules included; with -fmad=false (see _build.py) the integer rect
+// columns match the plain version exactly. Deviation from the TPU
+// kernel: the OBB extents are zeroed from the PRE-clip tile count (as
 // projection.preprocess_cols and the XLA binning do), not the post-clip
 // one (build_table.py:259).
 
@@ -38,34 +39,12 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "project_sh.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr float NEAR_CULL_Z = 0.2f;
-constexpr float LOWPASS = 0.3f;
-constexpr float SH_C0 = 0.28209479177387814f;
-constexpr float SH_C1 = 0.4886025119029199f;
-constexpr float SH_C2_0 = 1.0925484305920792f;
-constexpr float SH_C2_1 = -1.0925484305920792f;
-constexpr float SH_C2_2 = 0.31539156525252005f;
-constexpr float SH_C2_3 = -1.0925484305920792f;
-constexpr float SH_C2_4 = 0.5462742152960396f;
-constexpr float SH_C3_0 = -0.5900435899266435f;
-constexpr float SH_C3_1 = 2.890611442640554f;
-constexpr float SH_C3_2 = -0.4570457994644658f;
-constexpr float SH_C3_3 = 0.3731763325901154f;
-constexpr float SH_C3_4 = -0.4570457994644658f;
-constexpr float SH_C3_5 = 1.445305721320277f;
-constexpr float SH_C3_6 = -0.5900435899266435f;
-
-// Camera constants (ops/kernels/build_table.py camera_consts).
-constexpr int C_WV = 0;     // world_view rows 0..2, row-major 3 x 4
-constexpr int C_FP0 = 12;   // full_proj row 0
-constexpr int C_FP1 = 16;   // full_proj row 1
-constexpr int C_FP3 = 20;   // full_proj row 3
-constexpr int C_CAM = 24;   // camera centre xyz
-constexpr int C_FOC = 27;   // focal_x, focal_y, tan_fovx, tan_fovy
+using namespace psh;   // the projection and its constants, shared with
+                       // kernel 10 (project_sh.cu)
 
 // fov table rows (ops/kernels/build_table.py ROW_*).
 enum Row {
@@ -78,118 +57,20 @@ enum Ps1Row {
   P_LEN1, P_LEN2, P_CA, P_CB, P_CC, P_OP, P_R, P_G, P_B, P_DEPTH
 };
 
-// clip(int32(x), 0, hi) with truncation toward zero; the float clamp keeps
-// the conversion defined for huge or NaN x (fmaxf drops a NaN).
-__device__ inline int trunc_clip(float x, int hi) {
-  const int v = static_cast<int>(fminf(fmaxf(x, -1.0f), hi + 1.0f));
-  return min(max(v, 0), hi);
-}
-
-struct Proj {
-  float depth, px, py, cxx, cxy, cyy, det_inv, lambda1, lambda2;
-  int rx0, ry0, rx1, ry1, tiles0;
-  bool valid0;
-};
-
-// preprocess_cols for Gaussian i, up to the unclipped tile rect.
-__device__ inline Proj project(const float* __restrict__ xyz,
+// preprocess_cols for Gaussian i, up to the unclipped tile rect: valid
+// and tnum before any level clip.
+__device__ inline Cols project(const float* __restrict__ xyz,
                                const float* __restrict__ scales,
                                const float* __restrict__ rot,
                                const float* __restrict__ cam, int i,
                                int grid_x, int grid_y, int width, int height,
                                float scale_modifier) {
-  Proj o;
-  const float x = xyz[3 * i], y = xyz[3 * i + 1], z = xyz[3 * i + 2];
-  const float* wv = cam + C_WV;
-
-  // --- view / projection ---
-  const float depth = wv[8] * x + wv[9] * y + wv[10] * z + wv[11];
-  const float hx = cam[C_FP0] * x + cam[C_FP0 + 1] * y +
-                   cam[C_FP0 + 2] * z + cam[C_FP0 + 3];
-  const float hy = cam[C_FP1] * x + cam[C_FP1 + 1] * y +
-                   cam[C_FP1 + 2] * z + cam[C_FP1 + 3];
-  const float hw = cam[C_FP3] * x + cam[C_FP3 + 1] * y +
-                   cam[C_FP3 + 2] * z + cam[C_FP3 + 3];
-  const bool in_front = depth > NEAR_CULL_Z;
-  const float hw_safe = in_front ? hw + 1e-7f : 1.0f;
-  const float p_w = 1.0f / hw_safe;
-  const float p_x = hx * p_w;
-  const float p_y = hy * p_w;
-
-  // --- cov3d (_cov3d_cols) ---
-  const float qr = rot[4 * i], qx = rot[4 * i + 1], qy = rot[4 * i + 2],
-              qz = rot[4 * i + 3];
-  const float r00 = 1.0f - 2.0f * (qy * qy + qz * qz);
-  const float r01 = 2.0f * (qx * qy - qr * qz);
-  const float r02 = 2.0f * (qx * qz + qr * qy);
-  const float r10 = 2.0f * (qx * qy + qr * qz);
-  const float r11 = 1.0f - 2.0f * (qx * qx + qz * qz);
-  const float r12 = 2.0f * (qy * qz - qr * qx);
-  const float r20 = 2.0f * (qx * qz - qr * qy);
-  const float r21 = 2.0f * (qy * qz + qr * qx);
-  const float r22 = 1.0f - 2.0f * (qx * qx + qy * qy);
-  float s0 = scales[3 * i] * scale_modifier;
-  float s1 = scales[3 * i + 1] * scale_modifier;
-  float s2 = scales[3 * i + 2] * scale_modifier;
-  s0 = s0 * s0;
-  s1 = s1 * s1;
-  s2 = s2 * s2;
-  const float sxx = r00 * r00 * s0 + r01 * r01 * s1 + r02 * r02 * s2;
-  const float sxy = r00 * r10 * s0 + r01 * r11 * s1 + r02 * r12 * s2;
-  const float sxz = r00 * r20 * s0 + r01 * r21 * s1 + r02 * r22 * s2;
-  const float syy = r10 * r10 * s0 + r11 * r11 * s1 + r12 * r12 * s2;
-  const float syz = r10 * r20 * s0 + r11 * r21 * s1 + r12 * r22 * s2;
-  const float szz = r20 * r20 * s0 + r21 * r21 * s1 + r22 * r22 * s2;
-
-  // --- EWA cov2d (_cov2d_from_cols) ---
-  const float tX = wv[0] * x + wv[1] * y + wv[2] * z + wv[3];
-  const float tY = wv[4] * x + wv[5] * y + wv[6] * z + wv[7];
-  const float tz = depth > NEAR_CULL_Z ? depth : 1.0f;
-  const float focal_x = cam[C_FOC], focal_y = cam[C_FOC + 1];
-  const float limx = 1.3f * cam[C_FOC + 2];
-  const float limy = 1.3f * cam[C_FOC + 3];
-  const float tx = fminf(fmaxf(tX / tz, -limx), limx) * tz;
-  const float ty = fminf(fmaxf(tY / tz, -limy), limy) * tz;
-  const float inv_z = 1.0f / tz;
-  const float inv_z2 = inv_z * inv_z;
-  const float j00 = focal_x * inv_z, j02 = -focal_x * tx * inv_z2;
-  const float j11 = focal_y * inv_z, j12 = -focal_y * ty * inv_z2;
-  const float a0 = j00 * wv[0] + j02 * wv[8];
-  const float a1 = j00 * wv[1] + j02 * wv[9];
-  const float a2 = j00 * wv[2] + j02 * wv[10];
-  const float b0 = j11 * wv[4] + j12 * wv[8];
-  const float b1 = j11 * wv[5] + j12 * wv[9];
-  const float b2 = j11 * wv[6] + j12 * wv[10];
-  const float sa0 = sxx * a0 + sxy * a1 + sxz * a2;
-  const float sa1 = sxy * a0 + syy * a1 + syz * a2;
-  const float sa2 = sxz * a0 + syz * a1 + szz * a2;
-  const float sb0 = sxx * b0 + sxy * b1 + sxz * b2;
-  const float sb1 = sxy * b0 + syy * b1 + syz * b2;
-  const float sb2 = sxz * b0 + syz * b1 + szz * b2;
-  o.cxx = a0 * sa0 + a1 * sa1 + a2 * sa2 + LOWPASS;
-  o.cxy = b0 * sa0 + b1 * sa1 + b2 * sa2;
-  o.cyy = b0 * sb0 + b1 * sb1 + b2 * sb2;
-
-  const float det = o.cxx * o.cyy - o.cxy * o.cxy;
-  const bool det_ok = det != 0.0f;
-  const float safe_det = det_ok ? det : 1.0f;
-  o.det_inv = 1.0f / safe_det;
-  const float mid = 0.5f * (o.cxx + o.cyy);
-  const float disc = sqrtf(fmaxf(mid * mid - safe_det, 0.1f));
-  o.lambda1 = mid + disc;
-  o.lambda2 = mid - disc;
-  const float radius = ceilf(3.0f * sqrtf(fmaxf(o.lambda1, o.lambda2)));
-
-  o.depth = depth;
-  o.px = ((p_x + 1.0f) * width - 1.0f) * 0.5f;
-  o.py = ((p_y + 1.0f) * height - 1.0f) * 0.5f;
-  o.rx0 = trunc_clip((o.px - radius) / TILE, grid_x);
-  o.ry0 = trunc_clip((o.py - radius) / TILE, grid_y);
-  o.rx1 = trunc_clip((o.px + radius + TILE - 1.0f) / TILE, grid_x);
-  o.ry1 = trunc_clip((o.py + radius + TILE - 1.0f) / TILE, grid_y);
-  o.tiles0 = (o.rx1 - o.rx0) * (o.ry1 - o.ry0);
-  o.valid0 = in_front && det_ok && o.tiles0 > 0;
-  return o;
+  const float m[3] = {xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2]};
+  const float s[3] = {scales[3 * i], scales[3 * i + 1], scales[3 * i + 2]};
+  const float q[4] = {rot[4 * i], rot[4 * i + 1], rot[4 * i + 2],
+                      rot[4 * i + 3]};
+  return columns(ewa(cam, m, s, q, scale_modifier), true, grid_x, grid_y,
+                 width, height);
 }
 
 // The degree-`sh_degree` SH sum + 0.5 of channel c, k = 0 included (the
@@ -252,11 +133,11 @@ build_table_kernel(const float* __restrict__ xyz,
   const int i = blockIdx.x * fs::SCAN_BLOCK + threadIdx.x;
   int tnum_out = 0;
   if (i < n) {
-    const Proj q = project(xyz, scales, rot, cam, i, grid_x, grid_y, width,
+    const Cols q = project(xyz, scales, rot, cam, i, grid_x, grid_y, width,
                            height, scale_modifier);
-    const bool multi = q.valid0 && q.tiles0 > 1;   // pre-clip, see header
 
-    // --- per-level rect clip (fov_soa_cols); hl < 0 marks a dead row ---
+    // --- per-level rect clip (fov_soa_cols); hl < 0 marks a dead row.
+    // The OBB extents keep the pre-clip tile count (see header) ---
     const float hl = hl_in[i];
     const int hli = min(max(static_cast<int>(hl), 0), L - 1);
     const int rx0 = max(q.rx0, bbox[hli]);
@@ -264,17 +145,9 @@ build_table_kernel(const float* __restrict__ xyz,
     int rx1 = min(q.rx1, bbox[2 * L + hli]);
     const int ry1 = min(q.ry1, bbox[3 * L + hli]);
     const int tnum = max(rx1 - rx0, 0) * max(ry1 - ry0, 0);
-    const bool valid = q.valid0 && tnum > 0 && hl >= 0.0f;
+    const bool valid = q.valid && tnum > 0 && hl >= 0.0f;
     rx1 = max(rx1, rx0);
     tnum_out = valid ? tnum : 0;
-
-    // --- OBB axes ---
-    const float e1 = q.cxx - q.lambda1;
-    const float e2 = q.cxx - q.lambda2;
-    const float n1 = rsqrtf(fmaxf(q.cxy * q.cxy + e1 * e1, 1e-20f));
-    const float n2 = rsqrtf(fmaxf(q.cxy * q.cxy + e2 * e2, 1e-20f));
-    const float len1 = multi ? 3.0f * sqrtf(fmaxf(q.lambda1, 0.0f)) : 0.0f;
-    const float len2 = multi ? 3.0f * sqrtf(fmaxf(q.lambda2, 0.0f)) : 0.0f;
 
     float rest_c[3];
     sh_sum(rest_t, n, k_rest, i, sh_degree, cam, xyz, rest_c);
@@ -289,15 +162,15 @@ build_table_kernel(const float* __restrict__ xyz,
     put(R_TNUM, static_cast<float>(tnum_out));
     put(R_MX, valid ? q.px : 0.0f);
     put(R_MY, valid ? q.py : 0.0f);
-    put(R_V1X, valid ? -q.cxy * n1 : 0.0f);
-    put(R_V1Y, valid ? e1 * n1 : 0.0f);
-    put(R_V2X, valid ? -q.cxy * n2 : 0.0f);
-    put(R_V2Y, valid ? e2 * n2 : 0.0f);
-    put(R_LEN1, valid ? len1 : 0.0f);
-    put(R_LEN2, valid ? len2 : 0.0f);
-    put(R_CA, valid ? q.cyy * q.det_inv : 1.0f);
-    put(R_CB, valid ? -q.cxy * q.det_inv : 0.0f);
-    put(R_CC, valid ? q.cxx * q.det_inv : 1.0f);
+    put(R_V1X, valid ? q.v1x : 0.0f);
+    put(R_V1Y, valid ? q.v1y : 0.0f);
+    put(R_V2X, valid ? q.v2x : 0.0f);
+    put(R_V2Y, valid ? q.v2y : 0.0f);
+    put(R_LEN1, valid ? q.len1 : 0.0f);
+    put(R_LEN2, valid ? q.len2 : 0.0f);
+    put(R_CA, valid ? q.ca : 1.0f);
+    put(R_CB, valid ? q.cb : 0.0f);
+    put(R_CC, valid ? q.cc : 1.0f);
     put(R_HL, valid ? hl : -2.0f);
     put(R_DEPTH, valid ? q.depth : 1.0f);
     put(R_VALID, valid ? 1.0f : 0.0f);
@@ -336,17 +209,10 @@ build_table_ps1_kernel(const float* __restrict__ xyz,
   const int i = blockIdx.x * fs::SCAN_BLOCK + threadIdx.x;
   int tnum_out = 0;
   if (i < n) {
-    const Proj q = project(xyz, scales, rot, cam, i, grid_x, grid_y, width,
+    const Cols q = project(xyz, scales, rot, cam, i, grid_x, grid_y, width,
                            height, scale_modifier);
-    const bool valid = q.valid0;
-    tnum_out = valid ? q.tiles0 : 0;
-    const bool multi = valid && q.tiles0 > 1;
-    const float e1 = q.cxx - q.lambda1;
-    const float e2 = q.cxx - q.lambda2;
-    const float n1 = rsqrtf(fmaxf(q.cxy * q.cxy + e1 * e1, 1e-20f));
-    const float n2 = rsqrtf(fmaxf(q.cxy * q.cxy + e2 * e2, 1e-20f));
-    const float len1 = multi ? 3.0f * sqrtf(fmaxf(q.lambda1, 0.0f)) : 0.0f;
-    const float len2 = multi ? 3.0f * sqrtf(fmaxf(q.lambda2, 0.0f)) : 0.0f;
+    const bool valid = q.valid;
+    tnum_out = q.tnum;
     float col[3];
     sh_sum(sh_t, n, k_sh, i, sh_degree, cam, xyz, col);
 
@@ -356,19 +222,19 @@ build_table_ps1_kernel(const float* __restrict__ xyz,
     };
     put(P_RX0, static_cast<float>(q.rx0), 0.0f);
     put(P_RY0, static_cast<float>(q.ry0), 0.0f);
-    put(P_RW, static_cast<float>(max(q.rx1 - q.rx0, 1)), 1.0f);
+    put(P_RW, static_cast<float>(q.rw), 1.0f);
     put(P_TNUM, static_cast<float>(tnum_out), 0.0f);
     put(P_MX, q.px, 0.0f);
     put(P_MY, q.py, 0.0f);
-    put(P_V1X, -q.cxy * n1, 0.0f);
-    put(P_V1Y, e1 * n1, 0.0f);
-    put(P_V2X, -q.cxy * n2, 0.0f);
-    put(P_V2Y, e2 * n2, 0.0f);
-    put(P_LEN1, len1, 0.0f);
-    put(P_LEN2, len2, 0.0f);
-    put(P_CA, q.cyy * q.det_inv, 1.0f);
-    put(P_CB, -q.cxy * q.det_inv, 0.0f);
-    put(P_CC, q.cxx * q.det_inv, 1.0f);
+    put(P_V1X, q.v1x, 0.0f);
+    put(P_V1Y, q.v1y, 0.0f);
+    put(P_V2X, q.v2x, 0.0f);
+    put(P_V2Y, q.v2y, 0.0f);
+    put(P_LEN1, q.len1, 0.0f);
+    put(P_LEN2, q.len2, 0.0f);
+    put(P_CA, q.ca, 1.0f);
+    put(P_CB, q.cb, 0.0f);
+    put(P_CC, q.cc, 1.0f);
     put(P_OP, __bfloat162float(opac[i]), 0.0f);
     put(P_R, fmaxf(col[0], 0.0f), 0.0f);
     put(P_G, fmaxf(col[1], 0.0f), 0.0f);

@@ -68,7 +68,8 @@ def layer_render_naive(params, live, highest_levels, layer: int,
             return rast.rasterize(params.xyz, params.get_scaling(),
                                   params.get_rotation(),
                                   params.get_opacity(), camera,
-                                  shs=params.get_features(), config=cfg,
+                                  shs=(params.features_dc,
+                                       params.features_rest), config=cfg,
                                   live_mask=keep)["render"]
 
     return _graphed(render, dev)

@@ -88,7 +88,8 @@ def make_ps1_render(state, cfg: rast.RasterizeConfig, sh_degree: int = 3,
         with torch.no_grad():
             return rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
                                   p.get_opacity(), camera,
-                                  shs=p.get_features(), sh_degree=sh_degree,
+                                  shs=(p.features_dc, p.features_rest),
+                                  sh_degree=sh_degree,
                                   bg_color=bg, config=cfg,
                                   live_mask=state.live)["render"]
 

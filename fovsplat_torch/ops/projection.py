@@ -15,6 +15,12 @@ contraction) gives the same rect bounds bit for bit:
   - tile rect: int truncation toward zero, then clip to the grid
   - OBB axes are zeroed unless the (pre-clip) rect covers more than one
     tile
+
+On the card, rasterize's kernel route runs this projection and the SH
+colour as kernel 10 (csrc/project_sh.cu, ops/kernels/project_sh), forward
+and backward; preprocess_cols and sh.sh_to_rgb are its plain twin there,
+and CPU tensors run them. The frame and stats paths, the XLA route and
+eval/mmfr call preprocess_cols directly.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ rasterize with its fused train and forward-only branches,
 rasterize.py:157-274, 335-407, and Ps1ModelSoA, pack_ps1_model,
 rasterize_ps1_soa, rasterize.py:412-495).
 
-rasterize runs projection.preprocess_cols, the SH colours, the pair
+rasterize runs the per-Gaussian projection and SH colour
+(ops/kernels/project_sh: on the card kernel 10, csrc/project_sh.cu,
+forward and backward; projection.preprocess_cols, sh.sh_to_rgb and
+train_columns are its plain twin, which CPU tensors run), the pair
 builder (an autograd.Function: kernel 4 and the exact tile sort forward,
 the gid sort and kernel 7 backward) and the blend (kernels 5 and 6). Its
 gradient reaches the means, scales, rotations, opacities and colours (or
@@ -42,6 +45,8 @@ from fovsplat_torch.ops import projection, sh
 from fovsplat_torch.ops.blend import tiles_to_image
 from fovsplat_torch.ops.kernels.blend_fwd import blend, blend_forward_q
 from fovsplat_torch.ops.kernels.build_table import build_table_ps1
+from fovsplat_torch.ops.kernels.project_sh import (project_sh, sh_tensor,
+                                                   train_order)
 from fovsplat_torch.ops.kernels.segment_reduce import (
     reduce_by_sorted_gid, reduce_by_sorted_gid_plain)
 from fovsplat_torch.ops.projection import TILE
@@ -115,10 +120,6 @@ def train_columns(prep, opacities, colors):
             prep.cc, opacities, colors[:, 0], colors[:, 1], colors[:, 2]]
 
 
-# Columns of train_columns that carry a gradient, in pair-row order.
-_DIFF_COLS = (4, 5, 12, 13, 14, 15, 16, 17, 18)
-
-
 def gid_sorted_stream(d_pairs, gid, num_pairs, n: int):
     """The gid-sorted cotangent stream kernel 7 reduces
     (rasterize.py:381-387): lanes past num_pairs, and lanes whose nine
@@ -134,20 +135,23 @@ def gid_sorted_stream(d_pairs, gid, num_pairs, n: int):
 
 class PairBuilder(torch.autograd.Function):
     """The fused train pair builder (rasterize.py:335-407). Forward:
-    kernel 4 and the exact tile sort over the 19 train_columns. Backward:
-    a generalised gather's transpose. The per-pair cotangent rows are
-    sorted by Gaussian id (gid_sorted_stream) and kernel 7 sums each
-    Gaussian's run: deterministic, no atomics."""
+    kernel 4 and the exact tile sort over the 19 train columns of a
+    project_sh.Projected (aux, diff). Backward: a generalised gather's
+    transpose. The per-pair cotangent rows are sorted by Gaussian id
+    (gid_sorted_stream) and kernel 7 sums each Gaussian's run:
+    deterministic, no atomics. The sums (9, N) are the gradient of diff
+    as they are."""
 
     @staticmethod
     def forward(ctx, valid, depth, grid_x, grid_y, pair_capacity,
-                compact_capacity, use_obb, *cols):
+                compact_capacity, use_obb, aux, diff):
         # Imported here: binning imports ops.foveated, which imports this
         # module.
         from fovsplat_torch.ops import binning
-        pairs, bn = binning.bin_fused_ps1(list(cols), valid, depth, grid_x,
-                                          grid_y, pair_capacity,
-                                          compact_capacity, use_obb)
+        pairs, bn = binning.bin_fused_ps1(train_order(aux, diff), valid,
+                                          depth, grid_x, grid_y,
+                                          pair_capacity, compact_capacity,
+                                          use_obb)
         ctx.save_for_backward(bn.pair_gauss, bn.num_pairs)
         ctx.n = valid.shape[0]
         ctx.mark_non_differentiable(bn.pair_gauss, bn.seg_start,
@@ -162,10 +166,7 @@ class PairBuilder(torch.autograd.Function):
         out = reduce_by_sorted_gid(*gid_sorted_stream(d_pairs, gid,
                                                       num_pairs, ctx.n),
                                    ctx.n)
-        d_cols = [None] * 19
-        for row, c in enumerate(_DIFF_COLS):
-            d_cols[c] = out[row]
-        return (None,) * 7 + tuple(d_cols)
+        return (None,) * 8 + (out,)
 
 
 class GatherPairs(torch.autograd.Function):
@@ -219,7 +220,9 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
 
     means3d (N, 3); scales (N, 3) activated; rotations (N, 4) unit
     quaternions; opacities (N,) activated; colors (N, 3) precomputed RGB,
-    or None to evaluate shs (N, K, 3); bg_color (3,) or None (black);
+    or None to evaluate shs: the pair (sh_a (N, K1, 3), sh_b (N, K2, 3)
+    or None), as the model's (features_dc, features_rest), which the
+    kernel route reads in place; bg_color (3,) or None (black);
     tile_mask_fn(gaussian, tile) -> bool: a per-pair cull, XLA route
     only (binning.bin_gaussians); live_mask (N,) bool or None;
     mean2d_offset (N, 2) or None, added to
@@ -241,9 +244,10 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
         raise ValueError(f"backend {cfg.backend!r}: 'kernels' or 'xla'")
     if tile_mask_fn is not None and cfg.backend != "xla":
         raise ValueError("tile_mask_fn needs backend='xla'")
-    if colors is None:
-        colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
     if cfg.backend == "xla":
+        if colors is None:
+            colors = sh.sh_to_rgb(sh_degree, sh_tensor(shs), means3d,
+                                  camera.cam_center)
         prep, bn, rows = _xla_pairs(means3d, scales, rotations, opacities,
                                     camera, colors, cfg, tile_mask_fn,
                                     live_mask, mean2d_offset)
@@ -254,8 +258,8 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
         radii = prep.radius
     else:
         tile_color, final_T, n_contrib, bn, radii = _kernel_route(
-            means3d, scales, rotations, opacities, camera, colors, cfg,
-            live_mask, mean2d_offset)
+            means3d, scales, rotations, opacities, camera, colors, shs,
+            sh_degree, cfg, live_mask, mean2d_offset)
     with span("compose"):
         image, T_img = _images(tile_color, final_T, gx, gy, camera,
                                bg_color)
@@ -266,23 +270,21 @@ def rasterize(means3d, scales, rotations, opacities, camera, colors=None,
 
 
 def _kernel_route(means3d, scales, rotations, opacities, camera, colors,
-                  cfg, live_mask, mean2d_offset):
+                  shs, sh_degree, cfg, live_mask, mean2d_offset):
     """rasterize's fused train route, or its inference route with
     cfg.fwd_only. Returns (tile colour, final T, n_contrib, Binned, radii
     (N,) i32)."""
     from fovsplat_torch.ops import binning   # see PairBuilder
     gx, gy = _grid(camera)
-    prep = projection.preprocess_cols(means3d, scales, rotations, camera,
-                                      scale_modifier=cfg.scale_modifier,
-                                      live_mask=live_mask)
-    if mean2d_offset is not None:
-        prep = dataclasses.replace(prep, mx=prep.mx + mean2d_offset[:, 0],
-                                   my=prep.my + mean2d_offset[:, 1])
+    prep = project_sh(means3d, scales, rotations, opacities, camera,
+                      colors=colors, shs=shs, sh_degree=sh_degree,
+                      scale_modifier=cfg.scale_modifier, live_mask=live_mask,
+                      mean2d_offset=mean2d_offset)
     if cfg.fwd_only:
         # The inference route (rasterize.py:234-254, 270-274).
         pairs, bn = binning.bin_fused_ps1(
-            [c.detach() for c in train_columns(prep, opacities, colors)],
-            prep.valid, prep.depth.detach(), gx, gy, cfg.pair_capacity,
+            train_order(prep.aux.detach(), prep.diff.detach()), prep.valid,
+            prep.depth.detach(), gx, gy, cfg.pair_capacity,
             cfg.kept_capacity(), cfg.use_obb, train=False,
             sort_exact=cfg.sort_exact_depth)
         with span("blend"):
@@ -293,8 +295,7 @@ def _kernel_route(means3d, scales, rotations, opacities, camera, colors,
         pairs, pair_gauss, seg_start, num_pairs, overflow, candidates = \
             PairBuilder.apply(prep.valid, prep.depth.detach(), gx, gy,
                               cfg.pair_capacity, cfg.kept_capacity(),
-                              cfg.use_obb,
-                              *train_columns(prep, opacities, colors))
+                              cfg.use_obb, prep.aux, prep.diff)
         bn = binning.Binned(seg_start=seg_start, num_pairs=num_pairs,
                             overflow=overflow, candidates=candidates,
                             pair_gauss=pair_gauss)

@@ -70,7 +70,8 @@ def render_state(state: S.TrainerState, camera, cfg: LoopConfig,
                  bg_color=None):
     p = state.params
     return rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
-                          p.get_opacity(), camera, shs=p.get_features(),
+                          p.get_opacity(), camera,
+                          shs=(p.features_dc, p.features_rest),
                           sh_degree=cfg.sh_degree, bg_color=bg_color,
                           config=cfg.raster, live_mask=state.live)
 
@@ -93,7 +94,14 @@ def _gs_counts(binned, capacity: int):
 def _mask_dead_grads(grads: dict, live):
     """Zero dead-row and non-finite gradients; returns (grads, n_bad), where
     n_bad counts LIVE rows whose gradient had a non-finite component (a
-    kernel bug must surface, not be absorbed: the step reports it)."""
+    kernel bug must surface, not be absorbed: the step reports it).
+
+    On the card n_bad counts only rows that received a cotangent: kernel
+    10's backward (ops/kernels/project_sh) gives a row whose nine
+    cotangents are zero zero gradients without recomputing it, where
+    autograd of its plain twin, on the CPU, gives NaN to such a row when
+    an intermediate is not finite (a Gaussian at the camera centre, a
+    covariance that overflows). The masked gradients agree."""
     bad = torch.zeros_like(live)
     out = {}
     for f, g in grads.items():

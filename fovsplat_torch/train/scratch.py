@@ -66,7 +66,8 @@ def scratch_step(state: S.TrainerState, dstats: D.DensifyStats, camera,
     with torch.enable_grad():
         out = rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
                              p.get_opacity(), camera,
-                             shs=p.get_features(), sh_degree=sh_degree,
+                             shs=(p.features_dc, p.features_rest),
+                             sh_degree=sh_degree,
                              config=cfg.raster, live_mask=state.live,
                              mean2d_offset=offset)
         loss = losses.photometric_loss(out["render"], gt, cfg.lambda_dssim)

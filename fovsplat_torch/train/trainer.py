@@ -36,7 +36,8 @@ def render_params(params: GaussianParams, camera, cfg: TrainConfig,
                   bg_color=None):
     return rast.rasterize(
         params.xyz, params.get_scaling(), params.get_rotation(),
-        params.get_opacity(), camera, shs=params.get_features(),
+        params.get_opacity(), camera,
+        shs=(params.features_dc, params.features_rest),
         sh_degree=cfg.sh_degree, bg_color=bg_color, config=cfg.raster)
 
 

@@ -25,6 +25,7 @@ from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels import compact_table as ct
 from fovsplat_torch.ops.kernels import expand_fov as ef
 from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+from fovsplat_torch.ops.kernels import project_sh as psh
 from fovsplat_torch.ops.kernels import segment_reduce as sr
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from fovsplat_torch.train import loops
@@ -257,7 +258,8 @@ def test_train_step_matches_cpu_and_counts_launches(cuda):
     gt = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
     cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
     kernels = (ep1.expand_ps1, bfw.blend_forward, bfw.blend_backward,
-               sr.reduce_by_sorted_gid)
+               sr.reduce_by_sorted_gid, psh.project_sh_forward,
+               psh.project_sh_backward)
     res = []
     for d in (cuda, torch.device("cpu")):
         st = _train_state(d, n, 3)
@@ -268,7 +270,7 @@ def test_train_step_matches_cpu_and_counts_launches(cuda):
         res.append((loss, grads, n_bad, out,
                     [k.launches - b for k, b in zip(kernels, before)]))
     (lc, gc, bc, oc, nc), (lh, gh, bh, oh, nh) = res
-    assert nc == [1, 1, 1, 1] and nh == [0, 0, 0, 0]
+    assert nc == [1] * 6 and nh == [0] * 6
     assert int(bc) == int(bh) == 0
     assert int(oc["binned"].overflow) == int(oh["binned"].overflow) == 0
     assert int(oc["binned"].num_pairs) == int(oh["binned"].num_pairs) > 1000
@@ -277,6 +279,179 @@ def test_train_step_matches_cpu_and_counts_launches(cuda):
         scale = float(g.abs().max())
         torch.testing.assert_close(gc[f].cpu() / scale, g / scale,
                                    rtol=2e-3, atol=2e-4, msg=f)
+
+
+def test_train_step_n_bad_counts_rows_with_cotangent(cuda):
+    """_mask_dead_grads' n_bad, card against CPU, on a state with two live
+    rows that reach no pixel and whose autograd gradient reads a NaN: one
+    at the camera centre (a NaN view direction), one whose covariance
+    overflows. The CPU counts both; kernel 10's backward gives a row
+    without cotangent zero gradients, so the card counts neither. Every
+    masked gradient still matches, those two rows zero on both."""
+    n, w, h = 5000, 160, 112
+    gt = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
+    raw = proxy.train_arrays(proxy.bicycle_proxy(n=n, seed=3))
+    raw["xyz"][0] = proxy.proxy_camera(w, h, device="cpu").cam_center.numpy()
+    raw["scaling"][1] = np.log(1e20)
+    res = []
+    for d in (cuda, torch.device("cpu")):
+        st = S.from_params(convert.params_from_numpy(**raw, device=d),
+                           n + 64)
+        assert bool(st.live[:2].all())
+        loss, grads, n_bad, out = loops.photometric_grads(
+            st, proxy.proxy_camera(w, h, device=d),
+            torch.from_numpy(gt).to(d), cfg)
+        assert not bool(out["radii"][:2].any())
+        res.append((loss, grads, int(n_bad)))
+    (lc, gc, bc), (lh, gh, bh) = res
+    assert bh == 2 and bc == 0
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-5, atol=0)
+    for f, g in gh.items():
+        assert not bool(g[:2].any()) and not bool(gc[f][:2].any()), f
+        scale = float(g.abs().max())
+        torch.testing.assert_close(gc[f].cpu() / scale, g / scale,
+                                   rtol=2e-3, atol=2e-4, msg=f)
+
+
+# Rows of project_case's cloud: behind the camera, at its centre, not
+# live, zero scales (a zero determinant), huge finite scales, scales whose
+# covariance overflows to inf and NaN.
+BEHIND, CENTRE, DEAD, ZERO_DET, HUGE, OVERFLOW = range(6)
+
+
+def project_case(dev, colors: bool, n=6000, w=W, h=H, seed=4):
+    """Kernel 10's inputs on the proxy camera: the proxy cloud with the
+    edge rows above, its activated parameters, 16 SH coefficients or
+    given colours, the live mask and a pixel offset; and nine cotangent
+    rows, zero on every fifth row, the centre and the overflow rows (the
+    rows whose autograd gradient reads a NaN)."""
+    st = _train_state(torch.device("cpu"), n, seed)
+    p = st.params
+    n = st.capacity
+    c = proxy.proxy_camera(w, h, device="cpu").cam_center
+    xyz = p.xyz.detach().clone()
+    xyz[BEHIND] = c + 0.5 * c
+    xyz[CENTRE] = c
+    xyz[HUGE] = 0.0        # the point the camera looks at
+    scales = p.get_scaling().detach().clone()
+    scales[ZERO_DET] = 0.0
+    scales[HUGE] = 1e4
+    scales[OVERFLOW] = 1e20
+    live = st.live.clone()
+    live[DEAD] = False
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(size=(9, n)).astype(np.float32))
+    g[:, ::5] = 0.0
+    g[:, [CENTRE, OVERFLOW]] = 0.0
+    args = dict(
+        means3d=xyz, scales=scales, rotations=p.get_rotation().detach(),
+        opacities=p.get_opacity().detach(),
+        colors=(torch.from_numpy(rng.uniform(0, 1, (n, 3))
+                                 .astype(np.float32)) if colors else None),
+        live_mask=live,
+        mean2d_offset=torch.from_numpy(
+            rng.normal(0, 0.1, (n, 2)).astype(np.float32)))
+    args = {k: None if v is None else v.to(dev) for k, v in args.items()}
+    args["shs"] = None if colors else (p.get_features().detach().to(dev),
+                                       None)
+    return args, proxy.proxy_camera(w, h, device=dev), g.to(dev)
+
+
+def _same_bits(a, b):
+    """Equal element for element, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("colors", [False, True])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_project_sh_forward_matches_plain(cuda, degree, colors):
+    """Kernel 10's forward against its plain twin on the card: the rect,
+    tile count, OBB columns, valid and radius bit for bit; the
+    differentiable columns within 1e-6 relative."""
+    args, cam, _ = project_case(cuda, colors)
+    with torch.no_grad():
+        k = psh.project_sh_forward(camera=cam, sh_degree=degree, **args)
+        p = psh.project_sh_plain(camera=cam, sh_degree=degree, **args)
+    for r, name in enumerate(psh.AUX_ROWS):
+        assert _same_bits(k.aux[r], p.aux[r]), name
+    assert torch.equal(k.valid, p.valid)
+    assert _same_bits(k.radius, p.radius) and _same_bits(k.depth, p.depth)
+    for r, name in enumerate(psh.DIFF_ROWS):
+        torch.testing.assert_close(k.diff[r], p.diff[r], rtol=1e-6, atol=0,
+                                   equal_nan=True, msg=name)
+    v = p.valid.cpu()
+    assert not bool(v[[BEHIND, CENTRE, DEAD, ZERO_DET, OVERFLOW]].any())
+    assert int(v.sum()) > 1000 and bool(v[HUGE])
+    if not colors:
+        # The SH as the model stores them, (N, 1, 3) and (N, 15, 3) (the
+        # staging's 16-byte words cross rows), and for degree <= 2 nine
+        # stored coefficients, rows 108 B apart (moved word by word).
+        sh_ = args["shs"][0]
+        forms = [(sh_[:, :1].contiguous(), sh_[:, 1:].contiguous())]
+        if degree <= 2:
+            forms.append((sh_[:, :9].contiguous(), None))
+        for form in forms:
+            with torch.no_grad():
+                other = psh.project_sh_forward(
+                    camera=cam, sh_degree=degree, **{**args, "shs": form})
+            assert _same_bits(other.diff, k.diff)
+
+
+@pytest.mark.parametrize("colors", [False, True])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_project_sh_backward_matches_autograd(cuda, degree, colors):
+    """Kernel 10's backward against torch.autograd.grad of its plain twin
+    on the card, for each of the five inputs and the pixel offset: within
+    1e-5 of each gradient column's largest value where autograd is
+    finite; finite everywhere; zero on rows without a cotangent and on
+    coefficients above the degree; two calls bit-identical."""
+    args, cam, g = project_case(cuda, colors)
+    names = ["means3d", "scales", "rotations", "opacities",
+             "colors" if colors else "shs", "mean2d_offset"]
+    ins = {f: (args[f][0] if f == "shs" else args[f]).clone()
+           .requires_grad_(True) for f in names}
+    run = {**args, **ins}
+    if not colors:
+        run["shs"] = (ins["shs"], None)
+    ref = torch.autograd.grad(
+        psh.project_sh_plain(camera=cam, sh_degree=degree, **run).diff,
+        list(ins.values()), g)
+    got = [torch.autograd.grad(
+        psh.project_sh(camera=cam, sh_degree=degree, **run).diff,
+        list(ins.values()), g) for _ in range(2)]
+    zero = (g == 0).all(0)
+    for name, a, b, again in zip(names, got[0], ref, got[1]):
+        assert torch.equal(a, again), name
+        assert bool(torch.isfinite(a).all()), name
+        assert bool((a[zero] == 0).all()), name
+        a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        ok = torch.isfinite(b2).all(1)
+        scale = b2[ok].abs().amax(0)
+        assert bool(((a2[ok] - b2[ok]).abs() <= 1e-5 * scale).all()), name
+    if not colors:
+        nc = (degree + 1) ** 2
+        assert not bool(got[0][4][:, nc:].any())
+        assert bool(got[0][4][:, :nc].any())
+    if not colors:
+        # The model's (N, 1, 3) and (N, 15, 3) pair, and for degree <= 2
+        # nine stored coefficients: the other staging paths, both ways.
+        sh_ = args["shs"][0]
+        forms = [[sh_[:, :1], sh_[:, 1:]]]
+        if degree <= 2:
+            forms.append([sh_[:, :9]])
+        for form in forms:
+            leaves = [f.clone().requires_grad_(True) for f in form]
+            shs = (leaves[0], leaves[1] if len(leaves) > 1 else None)
+            other = torch.autograd.grad(
+                psh.project_sh(camera=cam, sh_degree=degree,
+                               **{**args, **ins, "shs": shs}).diff,
+                [*(ins[f] for f in names if f != "shs"), *leaves], g)
+            for name, a in zip([f for f in names if f != "shs"], other):
+                assert torch.equal(a, got[0][names.index(name)]), name
+            d_sh = torch.cat(other[len(names) - 1:], 1)
+            assert torch.equal(d_sh, got[0][4][:, :d_sh.shape[1]])
 
 
 def test_blend_stats_matches_plain(cuda):

@@ -239,7 +239,7 @@ def test_rasterize_fwd_only_matches_xla(ps1_case):
     c = ps1_case
     means, scales, quats, ops_, dc, rest = (t(a) for a in c["arrays"])
     out = trast.rasterize(means, scales, quats, ops_, tcam(c["cam"]),
-                          shs=torch.cat([dc, rest], 1), bg_color=BG,
+                          shs=(dc, rest), bg_color=BG,
                           config=RasterizeConfig(pair_capacity=1 << 13,
                                                  fwd_only=True))
     assert int(out["binned"].overflow) == 0
