@@ -80,12 +80,16 @@ into build/kernels first. Phases, one JSON line each on stdout:
      counters set to 0 before and read after; at the centre gaze the
      shared and broadcast packings render bit-identical images;
  12. the MM-FR frame over the 9 gazes at full width: the four level
-     models of bench.py:255-268, per-level capacities sized from probe
-     runs as bench.py:299-331 does, overflow 0 on every pass, kernels 4q
-     and 5q launched in the frame graph's replays; then kernel
-     5q on the four level passes at the centre gaze against its plain
-     version (within T_EPS) and bit-identical over two launches, timed
-     per launch, and a profiler window over 3 centre-gaze frames;
+     models in the packed SH form at the published counts
+     (1,161,358 / 465,471 / 252,678 / 202,263 rows, SH degree 3;
+     eval/mmfr.pack_level_models), per-level capacities sized from probe
+     runs as bench.py:299-331 does, overflow 0 on every pass, kernels
+     1p, 4q and 5q launched in the frame graph's replays; then kernel 1p
+     with each pass's owned-tile box and kernel 5q on the four level
+     passes at the centre gaze against their plain versions (1p's
+     integer rows exact, 5q within T_EPS) and bit-identical over two
+     launches, timed per launch, and a profiler window over 3
+     centre-gaze frames;
  13. the train path: the photometric train step at full width (a CUDA
      graph), 3 warm-up and 10 timed steps (CUDA events), with every
      launch counter set to 0 just before and read just after; kernels 4-7
@@ -252,8 +256,9 @@ into build/kernels first. Phases, one JSON line each on stdout:
  34. mm_models: generate_mm_models from the chain phase's PS1 state with
      its live ladder as layer_counts (3 finetune iterations a level),
      live counts against their targets, every step finite with overflow
-     0; a 9-gaze MM-FR frame of mm_render_models, its times and the
-     launches of kernels 4q and 5q;
+     0; a 9-gaze MM-FR frame of mm_render_models (the packed SH form of
+     the live rows), its times and the launches of kernels 1p, 4q and
+     5q;
  35. cli_vq: `python -m fovsplat_torch.cli vq` on the pipeline phase's
      output; its JSON on a line of its own;
  36. xla_route: the port's XLA oracle route (config.backend "xla", plain
@@ -533,28 +538,45 @@ def ps1_pairs(model, cam):
     return pairs, bn.seg_start[:-1], bn.seg_start[1:]
 
 
+MMFR_PNUM = [N_FULL, 465_471, 252_678, 202_263]   # ours-Q/bicycle.txt
+
+
 def mmfr_models(device):
-    """The four MM-FR level models of bench.py:255-268."""
-    from fovsplat_torch import convert
+    """The four MM-FR level models in the packed SH form at the published
+    counts MMFR_PNUM (eval/mmfr.pack_level_models of the proxy)."""
+    import torch
     from fovsplat_torch.data import proxy
-    sc = proxy.bicycle_proxy(n=N_FULL, seed=0)
-    return convert.mmfr_models_from_numpy(
+    from fovsplat_torch.eval import mmfr
+    sc = {k: torch.as_tensor(v, device=device)
+          for k, v in proxy.bicycle_proxy(n=N_FULL, seed=0).items()}
+    return mmfr.pack_level_models(
         sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
-        sc["shs_dcs"], sc["highest_levels"], device=device)
+        sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"], MMFR_PNUM)
 
 
-def mmfr_level_pairs(models, cfgs, cam, gaze):
-    """Kernel 5q's inputs in each MM-FR level pass at `gaze`, as
-    render_mmfr builds them: [(pairs, seg_start, seg_end)], the segments
-    of the tiles a pass does not own emptied."""
+def mmfr_ownership(cam, gaze, levels_n):
+    """Each MM-FR pass's (box, mask) at `gaze` (eval/mmfr.tile_ownership)."""
     import torch
     from fovsplat_torch.eval import mmfr
     from fovsplat_torch.ops import foveation
     levels = foveation.compute_tile_levels(
         torch.tensor(gaze, dtype=torch.float32, device=cam.device),
         cam.width, cam.height, ALPHA)
-    return [mmfr.level_pairs(m, cam, levels.to(torch.int32), li, cfg)[:3]
-            for li, (m, cfg) in enumerate(zip(models, cfgs))]
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    boxes, masks = mmfr.tile_ownership(levels.to(torch.int32), gx, gy,
+                                       levels_n)
+    return list(zip(boxes, masks))
+
+
+def mmfr_level_pairs(models, cfgs, cam, gaze):
+    """Kernel 5q's inputs in each MM-FR level pass at `gaze`, as
+    render_mmfr_sh builds them (rasterize.ps1_pairs over the owned
+    tiles): [(pairs, seg_start, seg_end)], the segments of the tiles a
+    pass does not own emptied."""
+    from fovsplat_torch.ops import rasterize as rast
+    own = mmfr_ownership(cam, gaze, len(models))
+    return [rast.ps1_pairs(m, cam, 3, cfg, o)[:3]
+            for m, cfg, o in zip(models, cfgs, own)]
 
 
 def bound(nbytes, flops):
@@ -2756,10 +2778,12 @@ def run_smfr(cam, kernels):
 
 def run_mmfr(cam, kernels, results):
     """The MM-FR baseline over the 9 gazes at full width: the four level
-    models of bench.py:255-268, per-level capacities sized as
-    bench.py:299-331 does (the largest kept and candidate counts over the
-    9 gazes at probe capacities, rounded up), overflow 0 on every pass.
-    Then kernel 5q on the level passes (check_mmfr_blend)."""
+    models in the packed SH form (mmfr_models), per-level capacities
+    sized as bench.py:299-331 does (the largest kept and candidate counts
+    over the 9 gazes at probe capacities, rounded up), overflow 0 on
+    every pass. Then kernel 1p with the owned-tile boxes
+    (check_mmfr_table) and kernel 5q on the level passes
+    (check_mmfr_blend)."""
     from fovsplat_torch.eval import fps
     from fovsplat_torch.ops.rasterize import RasterizeConfig
     import torch
@@ -2799,20 +2823,82 @@ def run_mmfr(cam, kernels, results):
             raise AssertionError(f"MM-FR pass overflow: {r}")
     emit({"phase": "mmfr_frame", "n": N_FULL, "width": W_FULL,
           "height": H_FULL, "alpha": ALPHA, "warmups": 3, "reps": 20,
-          "level_points": [int((m["opacity"] > 0).sum()) for m in models],
+          "level_points": [int(m.xyz.shape[0]) for m in models],
           "probe_need_candidates_kept": need, "level_caps": caps,
           "per_gaze": rows, "avg_ms": res["avg_ms"],
           "avg_fps": res["avg_fps"], "launches": launches,
           "launches_graphed": graphed})
-    for k in ("expand_ps1", "blend_forward_q"):
+    for k in ("build_table_ps1", "expand_ps1", "blend_forward_q"):
         if launches[k] <= 0 or graphed.get(k, 0) <= 0:
             raise AssertionError(f"{k} never launched in the MM-FR frame's "
                                  f"graph")
+    results["build_table_ps1_mmfr"] = check_mmfr_table(models, cam)
     results["blend_forward_q_mmfr"] = check_mmfr_blend(models, cfgs, cam)
     gaze = torch.tensor((0.5, 0.5), dtype=torch.float32, device=cam.device)
     emit({"phase": "profile", "path": "MM-FR frame, centre gaze",
           **profile_window(lambda: render(cam, gaze), 3)})
     return launches, graphed, render
+
+
+def check_mmfr_table(models, cam):
+    """Kernel 1p with each MM-FR pass's owned-tile box at the centre gaze:
+    the integer rows and the cumsum equal to its plain twin's, the float
+    rows within TABLE_RTOL, bit-identical over two launches; times,
+    plain time and bound per launch (the four passes' mean), for the
+    kernels line."""
+    import torch
+    from fovsplat_torch.ops.kernels import build_table as bt
+    from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    own = mmfr_ownership(cam, (0.5, 0.5), len(models))
+    int_rows = [ep1.ROW_RX0, ep1.ROW_RY0, ep1.ROW_RW, ep1.ROW_TNUM]
+    rels, twice, cands, errs, valid = [], [], [], [], []
+    for m, (box, _) in zip(models, own):
+        ko = bt.build_table_ps1(m, cam, box=box)
+        po = bt.build_table_ps1_plain(m, cam, box=box)
+        valid.append(int((po[0][ep1.ROW_TNUM] > 0).sum()))
+        if not (all(torch.equal(ko[0][r], po[0][r]) for r in int_rows)
+                and torch.equal(ko[1], po[1]) and torch.equal(ko[2], po[2])):
+            raise AssertionError("build_table_ps1 with a box: integer rows "
+                                 "differ from the plain twin's")
+        fl = [r for r in range(ko[0].shape[0]) if r not in int_rows]
+        err = (ko[0][fl] - po[0][fl]).abs()
+        errs.append(float(err.max()))
+        rels.append(float((err / po[0][fl].abs().clamp(min=1.0)).max()))
+        twice.append(same_outputs(ko, bt.build_table_ps1(m, cam, box=box)))
+        cands.append(int(ko[2]))
+    emit({"phase": "check", "kernel": "build_table_ps1_mmfr",
+          "gaze": (0.5, 0.5), "rows": [int(m.xyz.shape[0]) for m in models],
+          "boxes": [b.tolist() for b, _ in own], "candidates": cands,
+          "valid_rows": valid,
+          "float_rel_err": rels, "tol": TABLE_RTOL,
+          "bit_identical_twice": twice})
+    if not (all(r <= TABLE_RTOL for r in rels) and all(twice)):
+        raise AssertionError(f"build_table_ps1 with a box: {rels}, "
+                             f"bit-identical twice {twice}")
+
+    def all_levels(fn):
+        for m, (box, _) in zip(models, own):
+            fn(m, cam, box=box)
+    n = len(models)
+    times = kernel_times(lambda: all_levels(bt.build_table_ps1))
+    rows = sum(int(m.xyz.shape[0]) for m in models)
+    # By need, as 1p on PS1: 40 B of geometry and 2 B of bf16 opacity
+    # in, the 20-row table and cum out, ~395 FLOP a row; the 96 B of
+    # bf16 SH and ~135 FLOP of colour only for a row valid after the
+    # clip and cull (the kernel reads and evaluates every row's).
+    b_ms, b_by = bound((rows * (40 + 2) + sum(valid) * 2 * 48
+                        + rows * 4 * (ep1.NUM_ROWS + 1)) / n,
+                       (395.0 * rows + 135.0 * sum(valid)) / n)
+    return dict(
+        max_abs_err=max(errs), ms=times["ms"] / n,
+        device_ms=times["device_ms"] / n,
+        device_events=times["device_events"],
+        device_split={k: v / n for k, v in times["device_split"].items()},
+        device_ms_from=times["device_ms_from"],
+        launches_per_call=times["launches_per_call"],
+        plain_ms=cuda_ms(lambda: all_levels(bt.build_table_ps1_plain), 3) / n,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"4 level models, {rows} rows, {W_FULL}x{H_FULL}, centre gaze")
 
 
 def check_mmfr_blend(models, cfgs, cam):
@@ -4384,9 +4470,9 @@ def run_mm_models(chain, cfg, kernels, device):
            if not (int(a["overflow"]) == 0 and int(a["nonfinite"]) == 0
                    and math.isfinite(float(a["loss"])))]
     cam = views[0].camera
-    dicts = multimodel.mm_render_models(models, cam)
+    packed = multimodel.mm_render_models(models)
     render = fps.make_mmfr_render(
-        dicts, RasterizeConfig(pair_capacity=CHAIN_PAIR_CAPACITY,
+        packed, RasterizeConfig(pair_capacity=CHAIN_PAIR_CAPACITY,
                                compact_capacity=CHAIN_COMPACT_CAPACITY),
         alpha=ALPHA)
     for kf in kernels.values():
@@ -4411,11 +4497,13 @@ def run_mm_models(chain, cfg, kernels, device):
             len(auxs) != 3 * MM_FINETUNE_ITERS:
         raise AssertionError("the mm_models phase failed a check")
     if not (gen_l["blend_stats"] > 0 and gen_l["blend_backward"] > 0
-            and frame_l["expand_ps1"] > 0 and frame_l["blend_forward_q"] > 0):
-        raise AssertionError(f"mm_models: kernels 4-8 on the generation, 4q "
-                             f"and 5q on the frame: {gen_l} {frame_l}")
+            and frame_l["build_table_ps1"] > 0 and frame_l["expand_ps1"] > 0
+            and frame_l["blend_forward_q"] > 0):
+        raise AssertionError(f"mm_models: kernels 4-8 on the generation, "
+                             f"1p, 4q and 5q on the frame: {gen_l} {frame_l}")
     return gen_l, {"expand_ps1_q": frame_l["expand_ps1"],
-                   "blend_forward_q_mmfr": frame_l["blend_forward_q"]}
+                   "blend_forward_q_mmfr": frame_l["blend_forward_q"],
+                   "build_table_ps1_mmfr": frame_l["build_table_ps1"]}
 
 
 def run_cli_vq(scene_root, model_dir):
@@ -5463,6 +5551,8 @@ def main():
     ml, mg, mmfr_render = run_mmfr(cam, all_kernels, results)
     launches["blend_forward_q_mmfr"] = ml["blend_forward_q"]
     graphed_l["blend_forward_q_mmfr"] = mg["blend_forward_q"]
+    launches["build_table_ps1_mmfr"] = ml["build_table_ps1"]
+    graphed_l["build_table_ps1_mmfr"] = mg["build_table_ps1"]
 
     # --- the train path: the photometric step at full width ---
     tcfg = train_config()
@@ -5588,6 +5678,8 @@ def main():
                            "fovsplat/ops/pallas/blend_stats.py:234"),
            "build_table_ps1": ("fovsplat_torch/csrc/build_table.cu",
                                "fovsplat/ops/pallas/build_table.py:418"),
+           "build_table_ps1_mmfr": ("fovsplat_torch/csrc/build_table.cu",
+                                    "none (mmfr.py:100-160, torch glue)"),
            "expand_ps1_q": ("fovsplat_torch/csrc/expand_ps1.cu",
                             "fovsplat/ops/pallas/expand_fov.py:819"),
            "blend_forward_q": ("fovsplat_torch/csrc/blend_fwd.cu",

@@ -187,8 +187,9 @@ def _run(args):
     from fovsplat_torch.eval import fps as fps_mod
     model = _composed(args.model, state, dev)
     if args.mode == "mmfr":
+        from fovsplat_torch.eval import mmfr as mmfr_mod
         render = fps_mod.make_mmfr_render(
-            fps_mod.mmfr_models_from_composed(model), rcfg, alpha=args.alpha)
+            mmfr_mod.composed_level_models(model), rcfg, alpha=args.alpha)
     else:
         render = fps_mod.make_fov_render(model, rcfg, alpha=args.alpha,
                                          mode=args.mode)

@@ -18,7 +18,11 @@
 //     fovsplat_torch/ops/kernels/expand_ps1.py ps1_table): no level clip
 //     and no hl gate, the SH's k = 0 slot holds the DC, one opacity; the
 //     columns are sanitised as ps1_table does, so kernel 4 reads the
-//     table unchanged.
+//     table unchanged. Given an owned-tile box (an MM-FR level pass,
+//     eval/mmfr.py), the rect is clipped to it as fov mode clips to a
+//     level's box, and a row whose opacity is below 1/255 is culled
+//     (renderCUDA_mmfr's dead-opacity test); a template argument, so the
+//     frame without a box runs the code it ran before.
 //
 // Bound: bytes. Per Gaussian, fov mode at degree 3 and L = 4 reads 44 B of
 // geometry and 128 B of bf16 colour rows and writes (18 + 4L) x 4 + 4 =
@@ -194,14 +198,17 @@ build_table_kernel(const float* __restrict__ xyz,
   if (threadIdx.x == 0) block_sums[blockIdx.x] = block_total;
 }
 
-// Ps1 mode: no level clip, no hl gate; the ps1_table layout.
+// Ps1 mode: no level clip, no hl gate; the ps1_table layout. BOX: the
+// rect clipped to box (x0, y0, x1, y1) and the dead-opacity cull.
+template <bool BOX>
 __global__ void __launch_bounds__(fs::SCAN_BLOCK)
 build_table_ps1_kernel(const float* __restrict__ xyz,
                        const float* __restrict__ scales,
                        const float* __restrict__ rot,
                        const __nv_bfloat16* __restrict__ sh_t,
                        const __nv_bfloat16* __restrict__ opac,
-                       const float* __restrict__ cam, int n, int k_sh,
+                       const float* __restrict__ cam,
+                       const int* __restrict__ box, int n, int k_sh,
                        int grid_x, int grid_y, int width, int height,
                        float scale_modifier, int sh_degree,
                        float* __restrict__ table, int* __restrict__ cum,
@@ -209,8 +216,20 @@ build_table_ps1_kernel(const float* __restrict__ xyz,
   const int i = blockIdx.x * fs::SCAN_BLOCK + threadIdx.x;
   int tnum_out = 0;
   if (i < n) {
-    const Cols q = project(xyz, scales, rot, cam, i, grid_x, grid_y, width,
-                           height, scale_modifier);
+    Cols q = project(xyz, scales, rot, cam, i, grid_x, grid_y, width,
+                     height, scale_modifier);
+    if (BOX) {
+      // As fov mode's level clip; the OBB extents keep the pre-clip count.
+      q.rx0 = max(q.rx0, box[0]);
+      q.ry0 = max(q.ry0, box[1]);
+      q.rx1 = min(q.rx1, box[2]);
+      q.ry1 = min(q.ry1, box[3]);
+      const int tnum = max(q.rx1 - q.rx0, 0) * max(q.ry1 - q.ry0, 0);
+      q.valid = q.valid && tnum > 0 &&
+                __bfloat162float(opac[i]) >= 1.0f / 255.0f;
+      q.tnum = q.valid ? tnum : 0;
+      q.rw = max(q.rx1 - q.rx0, 1);
+    }
     const bool valid = q.valid;
     tnum_out = q.tnum;
     float col[3];
@@ -272,19 +291,28 @@ FS_EXPORT int fs_build_table(const float* xyz, const float* scales,
   return fs::scan_carry(cum, block_sums, nb, n, total, s);
 }
 
+// box: (4,) i32 on the device, or null for the frame without one.
 FS_EXPORT int fs_build_table_ps1(const float* xyz, const float* scales,
                                  const float* rot, const void* sh_t,
-                                 const void* opac, const float* cam, int n,
-                                 int k_sh, int grid_x, int grid_y, int width,
-                                 int height, float scale_modifier,
-                                 int sh_degree, float* table, int* cum,
-                                 int* block_sums, int* total, void* stream) {
+                                 const void* opac, const float* cam,
+                                 const int* box, int n, int k_sh, int grid_x,
+                                 int grid_y, int width, int height,
+                                 float scale_modifier, int sh_degree,
+                                 float* table, int* cum, int* block_sums,
+                                 int* total, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = fs::scan_blocks(n);
-  build_table_ps1_kernel<<<nb, fs::SCAN_BLOCK, 0, s>>>(
-      xyz, scales, rot, static_cast<const __nv_bfloat16*>(sh_t),
-      static_cast<const __nv_bfloat16*>(opac), cam, n, k_sh, grid_x, grid_y,
-      width, height, scale_modifier, sh_degree, table, cum, block_sums);
+  const auto* sh = static_cast<const __nv_bfloat16*>(sh_t);
+  const auto* op = static_cast<const __nv_bfloat16*>(opac);
+  if (box != nullptr) {
+    build_table_ps1_kernel<true><<<nb, fs::SCAN_BLOCK, 0, s>>>(
+        xyz, scales, rot, sh, op, cam, box, n, k_sh, grid_x, grid_y, width,
+        height, scale_modifier, sh_degree, table, cum, block_sums);
+  } else {
+    build_table_ps1_kernel<false><<<nb, fs::SCAN_BLOCK, 0, s>>>(
+        xyz, scales, rot, sh, op, cam, box, n, k_sh, grid_x, grid_y, width,
+        height, scale_modifier, sh_degree, table, cum, block_sums);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return fs::scan_carry(cum, block_sums, nb, n, total, s);

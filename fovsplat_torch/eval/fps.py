@@ -24,7 +24,6 @@ import torch
 
 from fovsplat_torch.eval import mmfr as emm
 from fovsplat_torch.ops import foveated as fov
-from fovsplat_torch.ops import sh as sh_mod
 from fovsplat_torch.ops.foveation import FoveationConfig
 from fovsplat_torch.utils.graphs import graphed_frame
 
@@ -62,42 +61,20 @@ def make_fov_render(model, config, fov_cfg=None, alpha: float = 0.05,
 def make_mmfr_render(models, config, fov_cfg=None, alpha: float = 0.05):
     """render(camera, gaze) -> {"render", "overflow", "num_pairs",
     "passes"} for the MM-FR baseline (fps.py:96): four single-level
-    models, one pass per level restricted to that level's tiles
-    (eval/mmfr.render_mmfr). config: one RasterizeConfig or one per level.
-    overflow and num_pairs sum the passes; "passes" lists each pass's
-    diagnostics. A CUDA graph for models on the card (graphed_frame)."""
+    models in the packed SH form, rasterize.Ps1ModelSoA each
+    (eval/mmfr.pack_level_models), one pass per level restricted to that
+    level's tiles (eval/mmfr.render_mmfr_sh: the PS1 frame's kernels a
+    pass, colour from the SH every frame). config: one RasterizeConfig
+    or one per level. overflow and num_pairs sum the passes; "passes"
+    lists each pass's diagnostics. A CUDA graph for models on the card
+    (graphed_frame): levels, passes and sum in one."""
     fov_cfg = fov_cfg or FoveationConfig()
 
     def render(camera, gaze):
-        img, diags = emm.render_mmfr(models, camera, gaze, alpha, config,
-                                     fov_cfg=fov_cfg, return_diag=True)
-        return {"render": img,
-                "overflow": sum(d["overflow"] for d in diags),
-                "num_pairs": sum(d["num_pairs"] for d in diags),
-                "passes": diags}
-    return (render if models[0]["xyz"].device.type == "cpu"
+        return emm.render_mmfr_sh(models, camera, gaze, alpha, config,
+                                  fov_cfg=fov_cfg)
+    return (render if models[0].xyz.device.type == "cpu"
             else graphed_frame(render))
-
-
-def mmfr_models_from_composed(composed):
-    """Four single-level model dicts from a composed "ours" model
-    (fps.py:117): level li keeps the live Gaussians with highest_level >=
-    li, with their level-li opacity and the DC-only colour max(SH_C0 dc +
-    0.5, 0); the rest get opacity 0."""
-    p = composed.params
-    L = composed.opacities.shape[1]
-    models = []
-    for li in range(L):
-        keep = composed.live & (composed.highest_levels >= li)
-        models.append({
-            "xyz": p.xyz.detach(), "scaling": p.get_scaling().detach(),
-            "rotation": p.get_rotation().detach(),
-            "opacity": torch.where(keep, composed.opacities[:, li],
-                                   torch.zeros_like(composed.opacities[:,
-                                                                       li])),
-            "colors": torch.clamp(sh_mod.SH_C0 * composed.shs_dcs[:, li, :]
-                                  + 0.5, min=0.0)})
-    return models
 
 
 def fps_benchmark(render_fn, cameras, gazes=GAZES, warmups: int | None = None,

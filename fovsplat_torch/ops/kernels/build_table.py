@@ -24,6 +24,7 @@ and the XLA binning do.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -153,16 +154,37 @@ def build_table(model, camera, bbox, sh_degree: int = 3,
 build_table.launches = 0
 
 
+def clip_to_box(pc, box, opac):
+    """The columns of a PS1 table with an owned-tile box (an MM-FR level
+    pass, eval/mmfr.py): each rect clipped to box (4,) i32 (x0, y0, x1,
+    y1), as fov mode clips to a level's box, and the rows with no tile
+    left or an opacity `opac` below 1/255 invalid. The OBB extents keep
+    the pre-clip tile count."""
+    rx0 = torch.maximum(pc.rx0, box[0])
+    ry0 = torch.maximum(pc.ry0, box[1])
+    rx1 = torch.minimum(pc.rx1, box[2])
+    ry1 = torch.minimum(pc.ry1, box[3])
+    tnum = torch.clamp(rx1 - rx0, min=0) * torch.clamp(ry1 - ry0, min=0)
+    valid = pc.valid & (tnum > 0) & (opac >= 1.0 / 255.0)
+    return dataclasses.replace(pc, rx0=rx0, ry0=ry0, rx1=rx1, ry1=ry1,
+                               valid=valid,
+                               tnum=torch.where(valid, tnum,
+                                                torch.zeros_like(tnum)))
+
+
 def build_table_ps1_plain(model, camera, sh_degree: int = 3,
-                          scale_modifier: float = 1.0):
-    """Kernel 1's ps1 mode in plain PyTorch: preprocess_cols, the SH sum
-    with the DC, then ps1_table. Returns (table (20, N) f32, cum (N,) i32,
-    total (1,) i32)."""
+                          scale_modifier: float = 1.0, box=None):
+    """Kernel 1's ps1 mode in plain PyTorch: preprocess_cols, the box clip
+    (clip_to_box) when `box` is given, the SH sum with the DC, then
+    ps1_table. Returns (table (20, N) f32, cum (N,) i32, total (1,)
+    i32)."""
     from fovsplat_torch.ops.kernels.expand_ps1 import ps1_table
     from fovsplat_torch.ops.rasterize import train_columns
     pc = projection.preprocess_cols(model.xyz, model.scales,
                                     model.rotations, camera,
                                     scale_modifier=scale_modifier)
+    if box is not None:
+        pc = clip_to_box(pc, box, model.opac.float())
     c = camera.cam_center
     dx = model.xyz[:, 0] - c[0]
     dy = model.xyz[:, 1] - c[1]
@@ -176,13 +198,15 @@ def build_table_ps1_plain(model, camera, sh_degree: int = 3,
 
 
 def build_table_ps1(model, camera, sh_degree: int = 3,
-                    scale_modifier: float = 1.0):
+                    scale_modifier: float = 1.0, box=None):
     """Kernel 1's ps1 mode on a CUDA model, its plain version on a CPU
-    model. model: rasterize.Ps1ModelSoA. Returns (table (20, N) f32 in
-    the ps1_table layout, cum (N,) i32 exclusive, total (1,) i32)."""
+    model. model: rasterize.Ps1ModelSoA; box: None, or an owned-tile box
+    (4,) i32 (x0, y0, x1, y1) on the model's device (clip_to_box).
+    Returns (table (20, N) f32 in the ps1_table layout, cum (N,) i32
+    exclusive, total (1,) i32)."""
     if model.xyz.device.type == "cpu":
         return build_table_ps1_plain(model, camera, sh_degree,
-                                     scale_modifier)
+                                     scale_modifier, box)
     dev = model.xyz.device
     if dev.type != "cuda":
         raise ValueError(f"build_table_ps1: model on {dev}; the kernel "
@@ -195,7 +219,8 @@ def build_table_ps1(model, camera, sh_degree: int = 3,
         ("scales", model.scales, torch.float32, (n, 3)),
         ("rotations", model.rotations, torch.float32, (n, 4)),
         ("sh_t", model.sh_t, torch.bfloat16, (3, k_sh, n)),
-        ("opac", model.opac, torch.bfloat16, (n,))))
+        ("opac", model.opac, torch.bfloat16, (n,)))
+        + ((("box", box, torch.int32, (4,)),) if box is not None else ()))
     if n < 1 or k_sh < (sh_degree + 1) ** 2:
         raise ValueError(f"build_table_ps1: n={n}, sh_t rows {k_sh} for "
                          f"SH degree {sh_degree}")
@@ -213,11 +238,12 @@ def build_table_ps1(model, camera, sh_degree: int = 3,
     lib = _build.load("build_table")
     fn = lib.fs_build_table_ps1
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 6 + [I] * 6 + [F, I] + [P] * 5
+    fn.argtypes = [P] * 7 + [I] * 6 + [F, I] + [P] * 5
     fn.restype = I
     err = fn(model.xyz.data_ptr(), model.scales.data_ptr(),
              model.rotations.data_ptr(), model.sh_t.data_ptr(),
-             model.opac.data_ptr(), cam.data_ptr(), n, k_sh, gx, gy,
+             model.opac.data_ptr(), cam.data_ptr(),
+             None if box is None else box.data_ptr(), n, k_sh, gx, gy,
              camera.width, camera.height, float(scale_modifier), sh_degree,
              table.data_ptr(), cum.data_ptr(), block_sums.data_ptr(),
              total.data_ptr(), _build.stream_ptr(dev))

@@ -16,7 +16,8 @@ as in the reference. With config.fwd_only it takes the inference route
 instead: kernel 4's quantized rows, the fused-key sort and the
 forward-only blend (kernel 5q), not differentiable. rasterize_ps1_soa
 renders a packed model through kernel 1's ps1 mode, optionally kernel 9,
-then the same inference route.
+then the same inference route (ps1_pairs, which an MM-FR level pass
+also runs over the tiles it owns).
 
 With config.backend = "xla", rasterize takes the JAX package's XLA route
 (rasterize.py:201-206, 255-262, 319-324) in plain PyTorch and launches no
@@ -334,32 +335,51 @@ def pack_ps1_model(means3d, scales, rotations, opacities, features_dc,
                        opac=opacities.reshape(-1).to(bf).contiguous())
 
 
-def rasterize_ps1_soa(model: Ps1ModelSoA, camera, bg_color=None,
-                      sh_degree: int = 3,
-                      config: RasterizeConfig = RasterizeConfig()):
-    """The PS1 inference frame over a packed model (rasterize.py:451):
-    kernel 1's ps1 mode, kernel 9 with config.compact_table, kernel 4's
-    quantized rows and the fused-key sort (exact two-key with
-    sort_exact_depth), kernel 5q, tiles_to_image and the background.
+def ps1_pairs(model: Ps1ModelSoA, camera, sh_degree: int = 3,
+              config: RasterizeConfig = RasterizeConfig(), owned=None):
+    """The pairs kernel 5q blends in the PS1 frame: kernel 1's ps1 mode,
+    kernel 9 with config.compact_table, kernel 4's quantized rows and the
+    fused-key sort (exact two-key with sort_exact_depth).
 
-    Returns a dict: render (H, W, 3), final_T (H, W), num_pairs, overflow
-    and candidates (0-d i32 tensors on the device, not synchronised)."""
+    owned: None (every tile), or an MM-FR pass's ownership (box (4,) i32,
+    mask (T,) bool): kernel 1p clips each rect to the box and culls the
+    dead rows (build_table.clip_to_box), and the segment of every tile
+    outside the mask is emptied, as the reference's per-pass tile_skips
+    do. Returns (pairs (5, CAP), seg_start (T,), seg_end (T,), Binned)."""
     from fovsplat_torch.ops import binning   # see PairBuilder
     gx, gy = _grid(camera)
     cfg = config
+    box, mask = (None, None) if owned is None else owned
     with span("table"):
         table, cum, total = build_table_ps1(model, camera, sh_degree,
-                                            cfg.scale_modifier)
+                                            cfg.scale_modifier, box)
         if cfg.compact_table:
             table, cum, total, _ = binning.compact_prebuilt(table)
     pairs, bn = binning.bin_fused_ps1(
         None, None, None, gx, gy, cfg.pair_capacity, cfg.kept_capacity(),
         cfg.use_obb, train=False, sort_exact=cfg.sort_exact_depth,
         prebuilt=(table, cum, total))
+    ss, se = bn.seg_start[:-1], bn.seg_start[1:]
+    if mask is not None:
+        se = torch.where(mask, se, ss)
+    return pairs, ss, se, bn
+
+
+def rasterize_ps1_soa(model: Ps1ModelSoA, camera, bg_color=None,
+                      sh_degree: int = 3,
+                      config: RasterizeConfig = RasterizeConfig()):
+    """The PS1 inference frame over a packed model (rasterize.py:451):
+    ps1_pairs over every tile, kernel 5q, tiles_to_image and the
+    background.
+
+    Returns a dict: render (H, W, 3), final_T (H, W), num_pairs, overflow
+    and candidates (0-d i32 tensors on the device, not synchronised)."""
+    gx, gy = _grid(camera)
+    pairs, ss, se, bn = ps1_pairs(model, camera, sh_degree, config)
     with span("blend"):
-        tile_color, final_T, _ = blend_forward_q(
-            pairs, bn.seg_start[:-1], bn.seg_start[1:], gx,
-            cfg.power_cutoff, cfg.chunk)
+        tile_color, final_T, _ = blend_forward_q(pairs, ss, se, gx,
+                                                 config.power_cutoff,
+                                                 config.chunk)
     with span("compose"):
         image, T_img = _images(tile_color, final_T, gx, gy, camera,
                                bg_color)

@@ -6,9 +6,10 @@ Read the "ours" model's per-layer point counts, then for each coarser
 level prune the PS1 model down to that level's count with LightGaussian's
 v-importance score (scratch.lightgaussian_prune: the count_opacity score
 pass, kernels 4, 7 and 8 on the card) and fine-tune photometrically
-(loops.finetune, kernels 4-7). mm_render_models turns the states into
-the dicts eval/mmfr.render_mmfr takes (four rasterizer passes a frame,
-the baseline's cost profile).
+(loops.finetune, kernels 4-7). mm_render_models packs the states'
+live rows in the SH form that eval/fps.make_mmfr_render takes (four PS1
+passes a frame, the baseline's cost profile, colour from the SH every
+frame).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Callable
 import torch
 
 from fovsplat_torch.models import state as S
-from fovsplat_torch.ops import sh as sh_mod
+from fovsplat_torch.ops.rasterize import pack_ps1_model
 from fovsplat_torch.train import loops, scratch
 
 
@@ -43,18 +44,15 @@ def generate_mm_models(ps1: S.TrainerState, train_views,
 
 
 @torch.no_grad()
-def mm_render_models(models: list[S.TrainerState], camera,
-                     sh_degree: int = 3) -> list[dict]:
-    """The states as eval/mmfr.render_mmfr's dicts: activated xyz,
-    scaling, rotation, opacity (zero on dead rows) and the view's colours
-    (N, 3)."""
+def mm_render_models(models: list[S.TrainerState]) -> list:
+    """The states as the packed SH form of eval/mmfr.render_mmfr_sh: each
+    state's live rows as a rasterize.Ps1ModelSoA (activated geometry and
+    opacity, the whole SH; SH and opacity in bf16)."""
     out = []
     for st in models:
-        p = st.params
-        colors = sh_mod.sh_to_rgb(sh_degree, p.get_features(), p.xyz,
-                                  camera.cam_center)
-        out.append({"xyz": p.xyz.detach(), "scaling": p.get_scaling(),
-                    "rotation": p.get_rotation(),
-                    "opacity": p.get_opacity() * st.live,
-                    "colors": colors})
+        p, live = st.params, st.live
+        out.append(pack_ps1_model(
+            p.xyz[live], p.get_scaling()[live], p.get_rotation()[live],
+            p.get_opacity()[live], p.features_dc[live],
+            p.features_rest[live]))
     return out

@@ -6,6 +6,8 @@ Integer outputs and kept counts must match exactly; tolerances as in
 chip_smoke.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -637,6 +639,105 @@ def test_inference_frames_match_cpu_and_count_launches(cuda):
     assert all(x > 0 for x in lc) and all(x == 0 for x in lh)
     for a, b in zip(ic, ih):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+# The MM-FR level models in the packed SH form: the ladder of
+# ours-Q/bicycle.txt scaled to N rows.
+MMFR_PNUM = [N, N * 465_471 // 1_161_358, N * 252_678 // 1_161_358,
+             N * 202_263 // 1_161_358]
+
+
+def _mmfr_sh_models(dev):
+    sc = {k: torch.as_tensor(v, device=dev)
+          for k, v in proxy.bicycle_proxy(n=N, seed=2).items()}
+    return mmfr.pack_level_models(
+        sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
+        sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"], MMFR_PNUM)
+
+
+@pytest.mark.parametrize("gaze", [(0.5, 0.5), (0.2, 0.8)])
+def test_build_table_ps1_box_matches_plain(cuda, gaze):
+    """Kernel 1p with each MM-FR pass's owned-tile box against its plain
+    twin (integer rows and cum exact, floats 1e-5 relative), rows of
+    opacity below 1/255 culled; without a box, the rows the box leaves
+    whole are the same columns."""
+    models = _mmfr_sh_models(cuda)
+    m0 = models[0]
+    op = m0.opac.clone()
+    op[::11] = 0.003
+    models[0] = dataclasses.replace(m0, opac=op)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    levels = foveation.compute_tile_levels(
+        torch.tensor(gaze, device=cuda), W, H, 0.3)
+    boxes, _ = mmfr.tile_ownership(levels.to(torch.int32), gx, gy, 4)
+    kept = 0
+    for m, box in zip(models, boxes):
+        tk, ck, totk = bt.build_table_ps1(m, cam, box=box)
+        tp, cp, totp = bt.build_table_ps1_plain(m, cam, box=box)
+        assert torch.equal(ck, cp) and torch.equal(totk, totp)
+        for r in (ep1.ROW_RX0, ep1.ROW_RY0, ep1.ROW_RW, ep1.ROW_TNUM):
+            assert torch.equal(tk[r], tp[r]), r
+        torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+        t0 = bt.build_table_ps1(m, cam)[0]
+        whole = ((t0[ep1.ROW_RX0] >= box[0]) & (t0[ep1.ROW_RY0] >= box[1])
+                 & (t0[ep1.ROW_RX0] + t0[ep1.ROW_RW] <= box[2])
+                 & (t0[ep1.ROW_TNUM] > 0)
+                 & (m.opac.float() >= 1.0 / 255.0))
+        whole &= (t0[ep1.ROW_RY0] + t0[ep1.ROW_TNUM] / t0[ep1.ROW_RW]
+                  <= box[3])
+        assert torch.equal(tk[:, whole], t0[:, whole])
+        kept += int((tk[ep1.ROW_TNUM] > 0).sum())
+    assert kept > 1000
+
+
+def test_mmfr_sh_frame_graphs_and_splits(cuda):
+    """The MM-FR frame of the packed SH form as one CUDA graph: equal to
+    its eager function bit for bit at two gazes, one capture; each replay
+    launches kernels 1p, 4q and 5q four times, once a pass; a profiled
+    replay matches its stage map (levels, pass0-3 with their table,
+    expand, sort, gather and blend, sum), with no device operation
+    outside a stage."""
+    from torch.profiler import ProfilerActivity, profile
+    from fovsplat_torch.eval import fps
+    from fovsplat_torch.utils import profiling
+    cfg = RasterizeConfig(pair_capacity=1 << 20)
+    frame = fps.make_mmfr_render(_mmfr_sh_models(cuda), cfg, alpha=0.3)
+    cam = proxy.proxy_camera(W, H, device=cuda)
+    counters = _set_counters()
+    for gz in ((0.4, 0.6), (0.2, 0.2)):
+        g = torch.tensor(gz, device=cuda)
+        a, b = frame(cam, g), frame.eager(cam, g)
+        for k in ("render", "num_pairs", "overflow"):
+            assert torch.equal(a[k], b[k]), (gz, k)
+        assert [int(d["num_pairs"]) for d in a["passes"]] == \
+            [int(d["num_pairs"]) for d in b["passes"]]
+        assert int(a["overflow"]) == 0
+        assert sum(int(d["num_pairs"]) > 0 for d in a["passes"]) >= 3
+    assert frame.graph.captures == 1
+    per = frame.graph.launches_per_replay
+    assert per == {"build_table_ps1": 4, "expand_ps1": 4,
+                   "blend_forward_q": 4}
+    _set_counters()
+    g = torch.tensor((0.5, 0.5), device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            frame(cam, g)
+        torch.cuda.synchronize()
+    assert {k: getattr(o, a) for k, (o, a) in counters.items()} == {
+        k: 3 * per.get(k, 0) for k in counters}
+    report = profiling.window_report(list(prof.events()))
+    rec = frame.graph.record
+    rg = report["graphs"][str(rec.serial)]
+    assert rg["replays"] == 3 and rg["unmatched"] == 0, report
+    want = {"levels", "sum"} | {f"pass{li}/{st}" for li in range(4)
+                                for st in ("table", "expand", "sort",
+                                           "gather", "blend")}
+    assert want <= set(rg["stage_s"]), sorted(rg["stage_s"])
+    assert "other" not in rg["stage_s"]
+    assert {lb for lb, *_ in rec.stages} <= want | {
+        f"pass{li}" for li in range(4)}
 
 
 def _ps1_edge_table(dev, case, gx=20, gy=14, n=3000, seed=9):
@@ -1420,11 +1521,9 @@ def _graphed_frame(dev, path):
         model = _ps1_model(dev)
         return graphs.graphed_frame(
             lambda c, _gaze: rast.rasterize_ps1_soa(model, c, config=cfg))
-    sc = proxy.bicycle_proxy(n=N, seed=2)
     if path == "mmfr":
-        return fps.make_mmfr_render(convert.mmfr_models_from_numpy(
-            sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
-            sc["shs_dcs"], sc["highest_levels"], device=dev), cfg)
+        return fps.make_mmfr_render(_mmfr_sh_models(dev), cfg)
+    sc = proxy.bicycle_proxy(n=N, seed=2)
     return fps.make_fov_render(convert.fov_model_from_numpy(
         sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
         sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"], device=dev,
@@ -1486,7 +1585,8 @@ def test_launch_counters_count_replays(cuda, path):
     want = {"ours": {"build_table", "expand_fov", "blend_fov"},
             "ps1_compact": {"build_table_ps1", "compact_table",
                             "expand_ps1", "blend_forward_q"},
-            "mmfr": {"expand_ps1", "blend_forward_q"}}[path]
+            "mmfr": {"build_table_ps1", "expand_ps1",
+                     "blend_forward_q"}}[path]
     assert set(per) == want
 
 
@@ -2030,3 +2130,4 @@ def test_stage_map_splits_three_replays(cuda, path, monkeypatch):
         assert abs(inside - mine) <= 0.01 * inside
     assert abs(sum(g["stage_s"].values()) - g["device_s"]) <= \
         1e-9 + 1e-6 * g["device_s"]
+

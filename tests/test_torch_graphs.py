@@ -28,7 +28,7 @@ from fovsplat.ops import rasterize as jrast
 from fovsplat.train import loops as jloops
 from fovsplat_torch import convert
 from fovsplat_torch.data import proxy
-from fovsplat_torch.eval import fps
+from fovsplat_torch.eval import fps, mmfr
 from fovsplat_torch.ops import binning
 from fovsplat_torch.ops import kernels
 from fovsplat_torch.ops import rasterize as trast
@@ -219,9 +219,11 @@ def test_cpu_frame_makers_return_fresh_frames(path):
     cfg = trast.RasterizeConfig(pair_capacity=1 << 14)
     if path == "mmfr":
         _, sc = _fov_model()
-        render = fps.make_mmfr_render(convert.mmfr_models_from_numpy(
+        sc = {k: torch.as_tensor(v) for k, v in sc.items()}
+        render = fps.make_mmfr_render(mmfr.pack_level_models(
             sc["means"], sc["scales"], sc["rotations"], sc["opacities4"],
-            sc["shs_dcs"], sc["highest_levels"], device="cpu"), cfg)
+            sc["shs_dcs"], sc["shs_rest"], sc["highest_levels"],
+            [1000, 400, 217, 174]), cfg)
     else:
         model, _ = _fov_model(shared=path == "naive")
         render = fps.make_fov_render(model, cfg, mode=path)

@@ -257,8 +257,10 @@ def test_distill_matches_jax(scene):
 
 def test_generate_mm_models_matches_jax(scene):
     """Two levels: PS1 itself and a v-importance prune to 100 live rows,
-    finetuned for 2 iterations; then mm_render_models on the same states
-    in both packages within 1e-6."""
+    finetuned for 2 iterations; then mm_render_models on the same states:
+    the port's packed SH form of each state's live rows within 1e-6 of
+    the JAX package's packing (pack_ps1_model) of the same rows, as the
+    JAX mm_render_models reads them (activated, opacity times live)."""
     s = scene
     jl, tl = [], []
     jm = jmm.generate_mm_models(s["jst"], s["jviews"], [160, 100],
@@ -276,13 +278,25 @@ def test_generate_mm_models_matches_jax(scene):
             device="cpu"),
         opt=tm[0].opt, live=torch.from_numpy(np.asarray(st.live)))
         for st in jm]
-    jd = jmm.mm_render_models(jm, s["jviews"][1].camera)
-    td = tmm.mm_render_models(carried, s["tviews"][1].camera)
-    for a, b in zip(td, jd):
-        assert sorted(a) == sorted(b)
-        for key in a:
-            np.testing.assert_allclose(a[key].numpy(), np.asarray(b[key]),
-                                       rtol=1e-6, atol=1e-6, err_msg=key)
+    td = tmm.mm_render_models(carried)
+    for a, st in zip(td, jm):
+        p, live = st.params, np.asarray(st.live)
+        assert isinstance(a, trast.Ps1ModelSoA)
+        assert a.xyz.shape[0] == int(live.sum())
+        jp = jrast.pack_ps1_model(p.xyz, p.get_scaling(), p.get_rotation(),
+                                  p.get_opacity() * st.live, p.features_dc,
+                                  p.features_rest)
+        n = live.shape[0]
+        geo = np.asarray(jp.geo_t)[:, :n][:, live]
+        col = np.asarray(jp.col_t.astype(jnp.float32))[:, :n][:, live]
+        k = 3 * a.sh_t.shape[1]
+        for key, got, want in (
+                ("xyz", a.xyz.T, geo[0:3]), ("scales", a.scales.T, geo[3:6]),
+                ("rotations", a.rotations.T, geo[6:10]),
+                ("sh_t", a.sh_t.float().reshape(k, -1), col[0:k]),
+                ("opac", a.opac.float(), col[k])):
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6, err_msg=key)
 
 
 # ------------------------------------------------------------------ cli vq
