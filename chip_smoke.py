@@ -151,6 +151,11 @@ into build/kernels first. Phases, one JSON line each on stdout:
      features_rest bit-unchanged, and the frame must be finite;
  20. one masked HVS step on the card against the CPU at 20k / 320x224:
      loss within 1e-5 relative, DC and opacity gradients as in phase 15;
+     then kernels 11-12b, the uniform HVS loss, against their twin at
+     the HVS cell's 1237x822, pooling 3, L1 (check_hvs_loss: grids,
+     loss, grid cotangents and image gradient within 1e-5 of their
+     largest values, each kernel bit-identical over two calls), timed
+     beside their bounds;
  21. torch.profiler windows over one score view and one HVS step (with
      the HVS step's time without the profiler, CUDA events over 3);
  22. scene_io: a COLMAP binary scene written under build/scene_io by the
@@ -1667,6 +1672,185 @@ def hvs_vs_cpu(cfg):
         raise AssertionError("card HVS step differs from the CPU step")
 
 
+HVS_RTOL = 1e-5               # kernels 11-12b vs the twin
+HVS_ROWS = ("hvs_level_forward", "hvs_stats_loss", "hvs_stats_backward",
+            "hvs_level_backward")      # their rows of the kernels line
+
+
+def hvs_work(p, batch=1):
+    """({row: (bytes, FLOP)}, {row: extra bytes}) of kernels 11, 11b, 12
+    and 12b on plan p (ops/kernels/hvs_loss.Plan) for `batch` images and
+    their targets. Bytes by need, each counted once, in the kernel that
+    must move them: 11 reads the images and writes the grids; 11b reads
+    the grids and the final lowpass; the backward pair reads the grids
+    (12) and reads the images and writes their gradient (12b). The extra
+    bytes are the design's intermediates: 11's lowpass of each level,
+    written and read back at the next; 11b reading the last band level's
+    lowpass in place of the final one; 12's grid cotangents, written and
+    read by 12b; the lowpasses 12b reads to recompute the bands, its
+    lowpass gradients, written and read back, and the pyramid-size image
+    gradient, written and read back where the image is resized. FLOP a pixel
+    and channel: the 6 band filters 300 (h0 and l0 100 more at level 0),
+    a band's pooling 3, its four bilinear reads, std and gaps 34, their
+    cotangents 10 and transposed gathers 16; 12b recomputes the bands
+    (300), gathers (6 x 16) and folds (6 x 50)."""
+    f4, img = 4, batch * p.height * p.width * 3 * 4
+    px = [lv.h * lv.w * 3 * batch for lv in p.levels]     # pixel-channels
+    grid = [lv.gh * lv.gw * 3 * 2 * lv.nb * batch * f4 for lv in p.levels]
+    lows = sum(px) * f4
+    last = p.levels[-1]
+    final = batch * 3 * (last.h // 2) * (last.w // 2) * f4
+    resized = p.resize.h.idx is not None
+    fwd_f = 2 * sum(n * (300 + 3 * lv.nb + (100 if i == 0 else 0))
+                    for i, (n, lv) in enumerate(zip(px, p.levels)))
+    loss_f = sum(n * lv.nb * 34 for n, lv in zip(px, p.levels))
+    sbwd_f = sum(n * lv.nb * (34 + 10 + 16) for n, lv in zip(px, p.levels))
+    lbwd_f = sum(n * (300 + 6 * 16 + 6 * 50) for n in px) + px[0] * 200
+    work = {"hvs_level_forward": (2 * img + 2 * sum(grid), fwd_f),
+            "hvs_stats_loss": (2 * sum(grid) + 2 * final, loss_f),
+            "hvs_stats_backward": (2 * sum(grid), sbwd_f),
+            "hvs_level_backward": (2 * img, lbwd_f)}
+    extra = {"hvs_level_forward": 2 * lows + 2 * (lows - px[-1] * f4),
+             "hvs_stats_loss": 2 * (px[-1] * f4 - final),
+             "hvs_stats_backward": sum(grid),
+             "hvs_level_backward": (sum(grid) + 3 * lows
+                                    + (2 * batch * p.rh * p.rw * 3 * f4
+                                       if resized else 0))}
+    return work, extra
+
+
+def check_hvs_loss(results, pooling=3.0, loss_type="L1"):
+    """Kernels 11-12b against their twin (perception/metameric.py's torch
+    code on the card) at the HVS cell's shape, 1237x822 (resized to
+    1248x832) at pooling 3 with L1, on a seeded noise image and a target
+    0.1 of noise away: 11's grids of both images within HVS_RTOL of each
+    grid's largest value; 11b's loss within HVS_RTOL relative; 12's grid
+    cotangents against autograd of the twin's maps of 11's grids, within
+    HVS_RTOL of each band's largest; 12b's image gradient against the
+    twin's autograd at 11's grids (carried straight through, so each L1
+    gap takes the kernels' sign), within HVS_RTOL of each channel's
+    largest; two calls of each bit-identical. Fills the kernels line's
+    rows of the four wrappers in `results`."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.ops.kernels import hvs_loss as hvs
+    from fovsplat_torch.perception import metameric
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    a = rng.uniform(0, 1, (H_FULL, W_FULL, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(0, 1, a.shape), 0, 1).astype(np.float32)
+    x, t = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    metameric.prepare(H_FULL, W_FULL, pooling, device=dev)
+    p = hvs.plan(H_FULL, W_FULL, pooling, 5, str(dev))
+    mse = loss_type == "MSE"
+    xb, tb = x[None], t[None]
+
+    def fwd():
+        return hvs.hvs_level_forward(xb, tb, p)
+    pyr, again = fwd(), fwd()
+    f_twice = same_outputs(pyr.grids + pyr.lows, again.grids + again.lows)
+    kx, kt = hvs.kernel_grids(pyr, 0, 1), hvs.kernel_grids(pyr, 1, 1)
+    (gx, lx), (gt, lt) = (hvs.pooled_grids_plain(x, pooling),
+                          hvs.pooled_grids_plain(t, pooling))
+    f_err = max(float((k - r).abs().max() / r.abs().max())
+                for kp, rp in zip(kx + kt, gx + gt) for k, r in zip(kp, rp))
+
+    loss = hvs.hvs_stats_loss(pyr, p, 1, mse)
+    ref_loss = metameric.metameric_loss_uniform(
+        metameric.resize_for_pyramid(x), metameric.resize_for_pyramid(t),
+        pooling, loss_type=loss_type)
+    l_err = float((loss - ref_loss).abs() / ref_loss.abs())
+    l_twice = bool(torch.equal(loss, hvs.hvs_stats_loss(pyr, p, 1, mse)))
+
+    # Kernel 12 against autograd of the twin's maps of 11's grids.
+    one = torch.ones((), device=dev)
+    qs = hvs.hvs_stats_backward(pyr, p, 1, mse, one)
+    q_twice = same_outputs(qs, hvs.hvs_stats_backward(pyr, p, 1, mse, one))
+    leaves = [tuple(g.detach().clone().requires_grad_(True) for g in pair)
+              for pair in kx]
+    maps_t = hvs.maps_from_grids_plain(kt, lt, pooling, H_FULL, W_FULL)
+    ref_l = metameric.loss_from_stats(hvs.maps_from_grids_plain(
+        leaves, lx, pooling, H_FULL, W_FULL), maps_t, loss_type)
+    dg = torch.autograd.grad(ref_l, [g for pair in leaves for g in pair])
+    q_err, i = 0.0, 0
+    for lv, q in zip(p.levels, qs):
+        # The kernel's cotangents are divided by their bins' areas.
+        div = (metameric._resample_map("area", lv.h, lv.gh, str(dev))[1]
+               [:, None, None]
+               * metameric._resample_map("area", lv.w, lv.gw, str(dev))[1]
+               [:, None])
+        for band in q[0]:
+            for k in range(2):
+                ref = dg[i + k][0] / div
+                got = band[k].permute(1, 2, 0)
+                q_err = max(q_err, float((got - ref).abs().max()
+                                         / ref.abs().max().clamp(min=1e-30)))
+            i += 2
+
+    def bwd():
+        return hvs.hvs_level_backward(xb, pyr, qs, p, 1, mse, one)[0]
+    grad = bwd()
+    g_twice = bool(torch.equal(grad, bwd()))
+
+    def at_kernel_grids(xl):
+        g, last = hvs.pooled_grids_plain(xl, pooling)
+        g = [tuple(u + (k - u).detach() for u, k in zip(pair, kp))
+             for pair, kp in zip(g, kx)]
+        return metameric.loss_from_stats(hvs.maps_from_grids_plain(
+            g, last, pooling, H_FULL, W_FULL), maps_t, loss_type)
+    xl = x.clone().requires_grad_(True)
+    ref_g = torch.autograd.grad(at_kernel_grids(xl), xl)[0]
+    scale = ref_g.abs().amax(dim=(0, 1))
+    g_err = float(((grad - ref_g).abs().amax(dim=(0, 1)) / scale).max())
+    ok = (f_err <= HVS_RTOL and l_err <= HVS_RTOL and q_err <= HVS_RTOL
+          and g_err <= HVS_RTOL and f_twice and l_twice and q_twice
+          and g_twice)
+
+    def plain_fwd_bwd():
+        xl = x.clone().requires_grad_(True)
+        torch.autograd.grad(metameric.metameric_loss_uniform(
+            metameric.resize_for_pyramid(xl), metameric.resize_for_pyramid(t),
+            pooling, loss_type=loss_type), xl)
+    plain_both = cuda_ms(plain_fwd_bwd, 3)
+    work, extra = hvs_work(p)
+    shape = (f"{W_FULL}x{H_FULL} (resized to {p.rw}x{p.rh}), image and "
+             f"target, pooling {pooling}, {loss_type}")
+    calls = {"hvs_level_forward": fwd,
+             "hvs_stats_loss": lambda: hvs.hvs_stats_loss(pyr, p, 1, mse),
+             "hvs_stats_backward": lambda: hvs.hvs_stats_backward(
+                 pyr, p, 1, mse, one),
+             "hvs_level_backward": bwd}
+    plain = {"hvs_level_forward": cuda_ms(
+        lambda: (hvs.pooled_grids_plain(x, pooling),
+                 hvs.pooled_grids_plain(t, pooling)), 3),
+        "hvs_stats_loss": cuda_ms(lambda: metameric.loss_from_stats(
+            hvs.maps_from_grids_plain(gx, lx, pooling, H_FULL, W_FULL),
+            hvs.maps_from_grids_plain(gt, lt, pooling, H_FULL, W_FULL),
+            loss_type), 3),
+        "hvs_stats_backward": plain_both, "hvs_level_backward": plain_both}
+    errs = {"hvs_level_forward": f_err, "hvs_stats_loss": l_err,
+            "hvs_stats_backward": q_err, "hvs_level_backward": g_err}
+    for name, fn in calls.items():
+        bnd = bound(*work[name])
+        results[name] = {**kernel_times(fn), "bound_ms": bnd[0],
+                         "bound_by": bnd[1], "bound_bytes": work[name][0],
+                         "design_extra_bytes": extra[name],
+                         "plain_ms": plain[name],
+                         "max_abs_err": errs[name], "shape": shape}
+    emit({"phase": "check", "kernel": "hvs_loss", "shape": shape,
+          "grids_max_rel_err_of_grid_max": f_err, "loss_rel_err": l_err,
+          "grid_cotangent_max_rel_err_of_band_max": q_err,
+          "image_grad_max_rel_err_of_channel_max": g_err,
+          "bit_identical_twice": [f_twice, l_twice, q_twice, g_twice],
+          "plain_fwd_bwd_ms": plain_both, "tol": HVS_RTOL,
+          "rows": {k: results[k] for k in calls}})
+    if not ok:
+        raise AssertionError(
+            f"hvs_loss: grids {f_err}, loss {l_err}, cotangents {q_err}, "
+            f"gradient {g_err}, twice {f_twice} {l_twice} {q_twice} "
+            f"{g_twice}")
+
+
 # ----------------------------------------------------- scene, scratch, pipeline
 
 SCENE_VIEWS = 16
@@ -2380,7 +2564,7 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
         raise AssertionError("the pipeline phase failed a check")
     for k in ("expand_ps1", "blend_forward", "blend_backward",
               "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
-              "project_sh_backward"):
+              "project_sh_backward", *HVS_ROWS):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the pipeline")
     return launches, graphed
@@ -3713,9 +3897,10 @@ def run_quality(root, scene, sc, cfg, kernels, device):
     CUDA graph captured in set-up (view 0), so kernels 4 and 5 launch in
     its replays, once a view. Then each view graphed against the eager
     render bit for bit, its SSIM in the JSON equal to the eager
-    losses.ssim (the metric's graph), overflow 0 on the eager renders.
-    Returns the teacher's render and the ground truth of the first
-    view."""
+    losses.ssim (the metric's graph), overflow 0 on the eager renders;
+    kernels 11 and 11b launched for one HVS metric a view
+    (hvs_eval_launches). Returns the teacher's render and the ground
+    truth of the first view."""
     import json
     import os
     import torch
@@ -3817,7 +4002,20 @@ def run_quality(root, scene, sc, cfg, kernels, device):
                              f"view in the render graph's replays (its "
                              f"capture was in set-up), kernel 6 never: "
                              f"{launches}")
+    hvs_eval_launches("quality", launches, len(views))
     return img0, gt0, launches
+
+
+def hvs_eval_launches(phase, launches, calls):
+    """The HVS metric's launches in an eval phase of `calls` calls of
+    metrics.hvs_uniform (5 levels, no gradient): kernel 11 once a band
+    level (4), 11b's two launches, 12 and 12b never."""
+    want = {"hvs_level_forward": 4 * calls, "hvs_stats_loss": 2 * calls,
+            "hvs_stats_backward": 0, "hvs_level_backward": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{phase}: the HVS metric's launches {got}, "
+                             f"expected {want}")
 
 
 def run_lpips(img, gt):
@@ -3973,9 +4171,10 @@ def run_layers(root, model, views, cfg, kernels, device):
     3, 7, 12], the scene's 2 test views, counters set to 0 just before and
     read just after (each layer's render is a CUDA graph: one capture, so
     one warm-up run, a layer); then each layer's graph against its eager
-    render on each view bit for bit, overflow 0 on the eager renders; then
-    one layer's eval on the card against the CPU on the 20k proxy at
-    320x224."""
+    render on each view bit for bit, overflow 0 on the eager renders, the
+    HVS metric's kernels 11 and 11b launched for one metric a layer and
+    view (hvs_eval_launches); then one layer's eval on the card against the CPU
+    on the 20k proxy at 320x224."""
     import os
     import numpy as np
     import torch
@@ -4054,6 +4253,7 @@ def run_layers(root, model, views, cfg, kernels, device):
         raise AssertionError(f"layers: kernels 4 and 5 must launch once a "
                              f"layer and view, and once in each layer "
                              f"graph's warm-up: {launches}")
+    hvs_eval_launches("layers", launches, calls)
     return launches
 
 
@@ -5417,6 +5617,7 @@ def main():
     from fovsplat_torch.ops.kernels import compact_table as ct
     from fovsplat_torch.ops.kernels import expand_fov as ef
     from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    from fovsplat_torch.ops.kernels import hvs_loss as hvs
     from fovsplat_torch.ops.kernels import project_sh as psh
     from fovsplat_torch.ops.kernels import segment_reduce as sr
     from fovsplat_torch.ops.rasterize import RasterizeConfig
@@ -5450,8 +5651,9 @@ def main():
                      "reduce_by_sorted_gid": sr.reduce_by_sorted_gid,
                      "project_sh_forward": psh.project_sh_forward,
                      "project_sh_backward": psh.project_sh_backward}
+    hvs_kernels = {k: getattr(hvs, k) for k in HVS_ROWS}
     all_kernels = {**frame_kernels, **train_kernels,
-                   "blend_stats": bs.blend_stats}
+                   "blend_stats": bs.blend_stats, **hvs_kernels}
 
     results = {}
     full = check_table_and_expand(dev, results)
@@ -5596,13 +5798,22 @@ def main():
     launches["blend_stats"] = cl["blend_stats"]
     graphed_l["blend_stats"] = chain["graphed"].get("blend_stats", 0)
     hvs_vs_cpu(train_config(1 << 20, None))
+    check_hvs_loss(results)
     score = loops.make_score_fn(tcfg)
     emit({"phase": "profile", "path": "score view (max_comp_efficiency)",
           **profile_window(lambda: score(st, tcam), 3)})
+    for kf in hvs_kernels.values():
+        kf.launches = 0
     hvs_step = loops.make_hvs_step(tcfg, 3.0, masking=True)
     emit({"phase": "profile", "path": "masked HVS step, pooling 3",
           "step_ms_unprofiled": cuda_ms(lambda: hvs_step(st, tcam, gt, 1), 3),
           **profile_window(lambda: hvs_step(st, tcam, gt, 1), 3)})
+    for k, kf in hvs_kernels.items():
+        launches[k] = kf.launches
+        graphed_l[k] = replayed(hvs_step.graph).get(k, 0)
+        if graphed_l[k] <= 0:
+            raise AssertionError(f"{k} never launched in the HVS step's "
+                                 f"graph")
     del score, hvs_step
 
     # --- scene and model I/O, from-scratch training, the pipeline ---
@@ -5640,7 +5851,7 @@ def main():
 
     # --- multi-device: kernel 3 over an owner's tile range, the sharded
     # paths (one NCCL rank; 4 gloo ranks sharing the card), the dry run;
-    # the viewer, the native COLMAP parser, the profiler trace ---
+    # the viewer, the native COLMAP parser; the profiler trace last ---
     check_blend_range(full, results)
     torch.cuda.empty_cache()
     nccl_l = run_parallel_nccl(dev)
@@ -5648,7 +5859,6 @@ def main():
     run_dryrun()
     run_viewer(model, dev)
     run_native_colmap(scene_root)
-    run_trace(render, cam)
     parallel_l = {f"{ph}_{path}": l for ph, ls in (("nccl", nccl_l),
                                                     ("ranks", ranks_l))
                   for path, l in ls.items()}
@@ -5693,7 +5903,10 @@ def main():
            "project_sh_forward": ("fovsplat_torch/csrc/project_sh.cu",
                                   "none (jnp / jax.grad)"),
            "project_sh_backward": ("fovsplat_torch/csrc/project_sh.cu",
-                                   "none (jnp / jax.grad)")}
+                                   "none (jnp / jax.grad)"),
+           **{k: ("fovsplat_torch/csrc/hvs_loss.cu",
+                  "none (fovsplat/perception/metameric.py, jnp)")
+              for k in HVS_ROWS}}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]
@@ -5711,7 +5924,7 @@ def main():
                      "shape": r["shape"]})
         if k in ("expand_ps1", "blend_forward", "blend_backward",
                  "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
-                 "project_sh_backward"):
+                 "project_sh_backward", *HVS_ROWS):
             rows[-1]["launches_scratch"] = scratch_l[k]
             rows[-1]["launches_pipeline"] = pipeline_l[k]
             rows[-1]["launches_graphed_scratch"] = scratch_g.get(k, 0)
@@ -5749,6 +5962,9 @@ def main():
                        "max_abs_err": results["reduce_by_sorted_gid_argmax"][
                            "library_max_abs_err"]}],
           "card": smi})
+    # Last, after the kernels line: a replay under the profiler has died
+    # with signal 11 now and then (PERF.md section 7).
+    run_trace(render, cam)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from fovsplat_torch.ops.kernels import hvs_loss
 from fovsplat_torch.perception import foveated_loss, metameric
 from fovsplat_torch.train import losses
 from fovsplat_torch.utils import graphs
@@ -58,9 +59,8 @@ def hvs_uniform(a, b, pooling_size: float = 1.0, loss_type: str = "MSE") -> floa
     """Uniform-HVS metric (HVSLoss.calc_uniform_loss, hvs_loss_calc.py:66-70)."""
     a, b = _pair(a, b)
     with torch.no_grad():
-        return float(metameric.metameric_loss_uniform(
-            metameric.resize_for_pyramid(a), metameric.resize_for_pyramid(b),
-            pooling_size, loss_type=loss_type))
+        return float(hvs_loss.uniform_loss(a, b, pooling_size,
+                                           loss_type=loss_type))
 
 
 def hvs_fov(a, b, gaze=(0.5, 0.5), alpha: float = 0.05) -> float:

@@ -190,15 +190,11 @@ def loss_from_stats(stats_a, stats_b, loss_type: str = "L1"):
 
 
 def metameric_loss_uniform(image, target, pooling_size, n_levels: int = 5,
-                           n_orientations: int = 6, loss_type: str = "L1",
-                           target_stats=None):
-    """MetamericLossUniform.__call__. Pass precomputed `target_stats` to
-    skip the target's pyramid."""
-    a = statsmaps(image, pooling_size, n_levels, n_orientations)
-    if target_stats is None:
-        target_stats = statsmaps(target, pooling_size, n_levels,
-                                 n_orientations)
-    return loss_from_stats(a, target_stats, loss_type)
+                           n_orientations: int = 6, loss_type: str = "L1"):
+    """MetamericLossUniform.__call__."""
+    return loss_from_stats(
+        statsmaps(image, pooling_size, n_levels, n_orientations),
+        statsmaps(target, pooling_size, n_levels, n_orientations), loss_type)
 
 
 def _pyramid_size(h: int, w: int, n_levels: int):
@@ -226,7 +222,9 @@ def prepare(height: int, width: int, pooling_size, n_levels: int = 5,
     HVS step and view then copy nothing from the host (a CUDA graph's
     warm-up and capture must not). Mirrors resize_for_pyramid and
     statsmaps: the highpass band at the pyramid size, then level i at
-    size / 2^i with pooling_size / 2^i."""
+    size / 2^i with pooling_size / 2^i; at a pooling size of 1 the
+    identity's tables, which the kernels of ops/kernels/hvs_loss.py read
+    where the twin skips the pooling."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -241,8 +239,6 @@ def prepare(height: int, width: int, pooling_size, n_levels: int = 5,
         blurs.append((rh >> lv, rw >> lv, ps))
         ps = ps / 2
     for h, w, ps in blurs:
-        if ps == 1:
-            continue
         for n in (h, w):
             _resample_map("area", n, _pooled(n, ps), dev)
             _resample_map("bilinear", _pooled(n, ps), n, dev)

@@ -46,6 +46,7 @@ from fovsplat_torch.models import state as S
 from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.ops import rasterize as rast
 from fovsplat_torch.ops import stats as stats_ops
+from fovsplat_torch.ops.kernels import hvs_loss
 from fovsplat_torch.perception import metameric
 from fovsplat_torch.train import losses, optim
 from fovsplat_torch.utils import graphs
@@ -331,18 +332,13 @@ def make_photometric_step(cfg: LoopConfig, use_scale_decay: bool = False,
 def hvs_grads(state: S.TrainerState, camera, gt, cfg: LoopConfig,
               pooling_size, loss_type: str = "L1"):
     """Uniform HVS loss and masked gradients of one view (the objective of
-    loops.py:163-174): the ground truth's statistics are taken once,
-    without a gradient. Returns (loss, grads, n_bad, render output)."""
-    with torch.no_grad(), span("loss"):
-        gt_stats = metameric.statsmaps(
-            metameric.resize_for_pyramid(gt, cfg.hvs_levels), pooling_size,
-            cfg.hvs_levels, cfg.hvs_orientations)
-
+    loops.py:163-174): the ground truth's statistics are taken beside the
+    render's, without a gradient (on the card kernel 11 takes both images
+    as one batch). Returns (loss, grads, n_bad, render output)."""
     def loss_of(out):
-        img = metameric.resize_for_pyramid(out["render"], cfg.hvs_levels)
-        return metameric.metameric_loss_uniform(
-            img, None, pooling_size, cfg.hvs_levels, cfg.hvs_orientations,
-            loss_type, target_stats=gt_stats)
+        return hvs_loss.uniform_loss(out["render"], gt, pooling_size,
+                                     cfg.hvs_levels, cfg.hvs_orientations,
+                                     loss_type)
     return _loss_grads(state, camera, cfg, loss_of)
 
 
@@ -438,13 +434,10 @@ def make_eval_fns(cfg: LoopConfig, device=None):
 
     @torch.no_grad()
     def hvs_view(state, camera, gt, pooling_size):
-        img = metameric.resize_for_pyramid(torch.clamp(
-            render_state(state, camera, cfg)["render"], 0.0, 1.0),
-            cfg.hvs_levels)
-        gt_r = metameric.resize_for_pyramid(gt, cfg.hvs_levels)
-        return metameric.metameric_loss_uniform(
-            img, gt_r, pooling_size, cfg.hvs_levels, cfg.hvs_orientations,
-            "MSE")
+        img = torch.clamp(render_state(state, camera, cfg)["render"], 0.0,
+                          1.0)
+        return hvs_loss.uniform_loss(img, gt, pooling_size, cfg.hvs_levels,
+                                     cfg.hvs_orientations, "MSE")
 
     def prepare(state, camera, pooling_size):
         _prepare_hvs(cfg, camera, pooling_size, state.live.device)

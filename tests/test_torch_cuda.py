@@ -27,9 +27,11 @@ from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels import compact_table as ct
 from fovsplat_torch.ops.kernels import expand_fov as ef
 from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+from fovsplat_torch.ops.kernels import hvs_loss as hvs
 from fovsplat_torch.ops.kernels import project_sh as psh
 from fovsplat_torch.ops.kernels import segment_reduce as sr
 from fovsplat_torch.ops.rasterize import RasterizeConfig
+from fovsplat_torch.perception import metameric
 from fovsplat_torch.train import loops
 
 pytestmark = pytest.mark.cuda
@@ -1763,6 +1765,112 @@ def test_hvs_view_recaptures_on_a_pooling_change(cuda):
         assert torch.equal(hvs_view(st, cam, gt, ps),
                            hvs_view.eager(st, cam, gt, ps)), ps
     assert hvs_view.graph.captures == 3
+
+
+# Kernels 11-12b, the uniform HVS loss, against their twin: the torch code
+# of perception/metameric.py, run on the card.
+
+def _hvs_images(dev, h, w, seed):
+    """A seeded noise image and a target 0.1 of noise away from it."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(0, 1, a.shape), 0, 1).astype(np.float32)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def _hvs_loss_and_grad(fn, x):
+    xl = x.clone().requires_grad_(True)
+    loss = fn(xl)
+    return loss.detach(), torch.autograd.grad(loss, xl)[0]
+
+
+def _check_hvs_kernels(dev, h, w, pooling, loss_type):
+    """Kernel 11's grids of image and target each within 1e-5 of the
+    grid's largest value; the loss (11b) within 1e-5 relative; the image
+    gradient (12, 12b) each channel within 1e-5 of its largest value, of
+    the twin's gradient (MSE) and of the twin's gradient at the kernels'
+    forward values (L1 and MSE): its grids carried to the kernel's
+    straight through, so that each |gap| takes the kernel's sign (with
+    L1 a gap within rounding of 0 can take the other sign in the twin's
+    own forward, which moves the gradient by ~1e-3 of its largest value
+    at this width); two calls bit-identical."""
+    x, t = _hvs_images(dev, h, w, 7)
+    metameric.prepare(h, w, pooling, device=dev)
+    p = hvs.plan(h, w, pooling, 5, str(x.device))
+    pyr = hvs.hvs_level_forward(x[None], t[None], p)
+    for k, img in enumerate((x, t)):
+        ref, _ = hvs.pooled_grids_plain(img, pooling)
+        got = hvs.kernel_grids(pyr, k, 1)
+        assert len(got) == len(ref) == 25
+        for i, (pair, ref_pair) in enumerate(zip(got, ref)):
+            for a, b in zip(pair, ref_pair):
+                assert a.shape == b.shape, (k, i)
+                err = float((a - b).abs().max())
+                assert err <= 1e-5 * float(b.abs().max()), (k, i, err)
+    ref_loss, ref_grad = _hvs_loss_and_grad(
+        lambda xl: metameric.metameric_loss_uniform(
+            metameric.resize_for_pyramid(xl), metameric.resize_for_pyramid(t),
+            pooling, loss_type=loss_type), x)
+    got = [_hvs_loss_and_grad(lambda xl: hvs.uniform_loss(
+        xl, t, pooling, loss_type=loss_type), x) for _ in range(2)]
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+    loss, grad = got[0]
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0)
+    assert grad.shape == ref_grad.shape == (h, w, 3)
+
+    kx, kt = hvs.kernel_grids(pyr, 0, 1), hvs.kernel_grids(pyr, 1, 1)
+    maps_t = hvs.maps_from_grids_plain(
+        kt, hvs.pooled_grids_plain(t, pooling)[1], pooling, h, w)
+
+    def at_kernel_grids(xl):
+        gx, last = hvs.pooled_grids_plain(xl, pooling)
+        gx = [tuple(a + (k - a).detach() for a, k in zip(pair, kpair))
+              for pair, kpair in zip(gx, kx)]
+        return metameric.loss_from_stats(
+            hvs.maps_from_grids_plain(gx, last, pooling, h, w), maps_t,
+            loss_type)
+    refs = [_hvs_loss_and_grad(at_kernel_grids, x)[1]]
+    if loss_type == "MSE":
+        refs.append(ref_grad)
+    for ref in refs:
+        scale = ref.abs().amax(dim=(0, 1))
+        err = (grad - ref).abs().amax(dim=(0, 1))
+        assert bool((err <= 1e-5 * scale).all()), (err / scale).tolist()
+
+
+@pytest.mark.parametrize("loss_type", ["L1", "MSE"])
+@pytest.mark.parametrize("pooling", [3.0, 5.5])
+def test_hvs_kernels_match_twin(cuda, pooling, loss_type):
+    """Kernels 11-12b at the cell's 1237x822 (resized to 1248x832), at
+    pooling 3 (levels 2 and 3 pool up onto a larger grid) and 5.5 (the
+    area bins overlap)."""
+    _check_hvs_kernels(cuda, 822, 1237, pooling, loss_type)
+
+
+@pytest.mark.parametrize("h, w, pooling", [(96, 160, 1.0), (90, 150, 12.0),
+                                           (64, 64, 2.0)])
+def test_hvs_kernels_match_twin_small(cuda, h, w, pooling):
+    """The same at small sizes: a multiple of 32 (no resize) at pooling 1
+    (level 0 unpooled, the rest pooled up), bins larger than a block's
+    pixel chunk at pooling 12, and level 1 unpooled at pooling 2."""
+    for loss_type in ("L1", "MSE"):
+        _check_hvs_kernels(cuda, h, w, pooling, loss_type)
+
+
+def test_graphed_hvs_step_launches_hvs_kernels(cuda):
+    """A graphed HVS step launches kernels 11-12b in its replays: four band
+    levels forward and back, the two passes of 11b, and at level 0 the
+    image side and the resize's transpose (112 rows are resized)."""
+    st, cam, gt, cfg = _small_graph_inputs(cuda)
+    step = loops.make_hvs_step(cfg, 3.0, masking=True)
+    step(st, cam, gt, 1)
+    per = step.graph.launches_per_replay
+    assert {k: per.get(k, 0) for k in (
+        "hvs_level_forward", "hvs_stats_loss", "hvs_stats_backward",
+        "hvs_level_backward")} == {
+        "hvs_level_forward": 4, "hvs_stats_loss": 2,
+        "hvs_stats_backward": 4, "hvs_level_backward": 6}
 
 
 def test_graphed_scratch_step_across_sh_raise_and_densify(cuda):
