@@ -141,19 +141,6 @@ def render_mmfr(models, camera, gaze, alpha, config,
     return (total, diags) if return_diag else total
 
 
-def render_mmfr_level(m, camera, gaze, alpha, li: int, config,
-                      fov_cfg=None, bg_color=None, return_diag=False):
-    """One MM-FR level pass on its own (mmfr.py:67): its image on the
-    owned tiles and, with return_diag, its overflow, num_pairs and
-    candidates."""
-    fov_cfg = fov_cfg or FoveationConfig()
-    levels = foveation.compute_tile_levels(gaze, camera.width, camera.height,
-                                           alpha, fov_cfg)
-    contrib, diag = _level_contrib(m, camera, levels.to(torch.int32), li,
-                                   config, bg_color)
-    return (contrib, diag) if return_diag else contrib
-
-
 # --- the packed SH form ---------------------------------------------------
 
 def pack_level_models(means, scales, rotations, opacities4, shs_dcs,

@@ -27,6 +27,7 @@ from fovsplat_torch.ops.kernels import blend_fwd as tbf
 from fovsplat_torch.ops.kernels import blend_stats as tbs
 from tests.test_torch_cuda import (TIE_OPS, q_segments, quantize_rows,
                                    single_edge_case)
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 JROWS = 16   # rows of the JAX kernels' pair buffers (blend_fwd.ROW)
 

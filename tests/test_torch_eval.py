@@ -50,6 +50,7 @@ from fovsplat_torch.train import compose as tcompose
 from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.utils import config as tconfig
 from tests.test_torch_parity import bf16_exact
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 W, H, N = 160, 112, 3000

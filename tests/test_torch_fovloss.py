@@ -25,6 +25,7 @@ from fovsplat_torch.perception import foveated_loss as tfl
 from fovsplat_torch.perception import metameric as tmeta
 from fovsplat_torch.perception import pyramid as tpyr
 from fovsplat_torch.train import losses as tlosses
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 H, W = 64, 96
 GAZES = [(0.5, 0.5), (0.2, 0.8)]

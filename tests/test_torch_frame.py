@@ -17,6 +17,7 @@ from fovsplat.ops.rasterize import RasterizeConfig as JConfig
 from fovsplat_torch.ops import foveated as tfov
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from tests.test_torch_parity import ALPHA, GAZES, scene
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 BG = [0.1, 0.0, 0.2]
 CAP = 1 << 14

@@ -38,22 +38,12 @@ from fovsplat_torch.train import scratch as tscratch
 from fovsplat_torch.utils import general, graphs
 from tests.test_torch_train import FIELDS, _kept_pair_counts, _train_setup
 from tests.test_torch_prune import tcam
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 W, H = 80, 56
 SCALE_WEIGHT = 2.0
 LATER_IT = 5000          # the xyz schedule at 5000 of 30,000 steps
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread for this file, restored after: these shapes
-    gain nothing from more, and beside the other test workers the
-    thread pools' waits cost seconds a test. Each comparison here runs
-    both sides at the same thread count."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------ pair counts

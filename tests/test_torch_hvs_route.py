@@ -18,6 +18,7 @@ import torch
 from fovsplat.perception import metameric as jmeta
 from fovsplat_torch.ops.kernels import hvs_loss
 from fovsplat_torch.perception import metameric as tmeta
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 SHAPES = [(64, 96), (50, 70)]
 POOLINGS = [1.0, 3.0, 5.5]

@@ -36,6 +36,7 @@ from fovsplat_torch.ops.kernels import compact_table as tct
 from fovsplat_torch.ops.kernels import expand_ps1 as tep1
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from tests.test_torch_train import ps1_columns, t, tcam
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 W, H = 96, 64

@@ -44,6 +44,7 @@ from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.train import multimodel as tmm
 from fovsplat_torch.train import optim as toptim
 from tests.test_cli_pipeline import _build_scene
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 SH_C0 = 0.28209479177387814

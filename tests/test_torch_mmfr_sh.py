@@ -28,6 +28,7 @@ from fovsplat_torch.ops.foveation import FoveationConfig
 from fovsplat_torch.ops.kernels import build_table as bt
 from fovsplat_torch.ops.kernels import expand_ps1 as ep1
 from fovsplat_torch.ops.rasterize import RasterizeConfig, pack_ps1_model
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 W, H = 80, 56
 GX, GY = (W + 15) // 16, (H + 15) // 16
@@ -42,15 +43,6 @@ FRAME = {"alpha": ALPHA, "foveation": dataclasses.asdict(FoveationConfig()),
          "power_cutoff": -4.5, "reference_chunk": 4096,
          "lowpass": [0.3, 0.0]}
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread for this file, restored after (as in
-    tests/test_torch_graphs.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

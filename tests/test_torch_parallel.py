@@ -40,6 +40,7 @@ from fovsplat.train import optim as joptim
 from fovsplat.train import trainer as jtrainer
 from fovsplat_torch.parallel import dryrun
 from tests.test_torch_parity import ALPHA, GAZES, scene
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.torch_parallel_worker import BG
 from tests.utils import make_test_camera, synthetic_cloud
 

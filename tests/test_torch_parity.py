@@ -24,6 +24,7 @@ from fovsplat_torch.ops import foveation as tfoveation
 from fovsplat_torch.ops.kernels import blend_fov as tblend
 from fovsplat_torch.ops.kernels import build_table as tbt
 from fovsplat_torch.ops.kernels import expand_fov as texp
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 W, H = 96, 64

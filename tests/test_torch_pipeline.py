@@ -31,6 +31,7 @@ from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.train import optim as toptim
 from fovsplat_torch.train import scratch as tscratch
 from tests.test_cli_pipeline import _build_scene
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 STAGE_FILES = ("base.npz", "pruned.npz", "ps1.npz", "layer1_ps3.npz",
                "layer2_ps7.npz", "layer3_ps12.npz", "ours_composed.npz",

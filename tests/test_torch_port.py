@@ -28,6 +28,7 @@ from fovsplat_torch.ops.kernels import segment_reduce as tsr
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.train import trainer as ttrainer
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FIELDS = ("xyz", "scales", "rotations", "rest_t", "dc_t", "opac_t", "hl")

@@ -11,6 +11,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fovsplat_torch.utils import profiling
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 def test_span_is_the_shared_no_op_when_off():

@@ -37,6 +37,7 @@ from fovsplat_torch.train import compose as tcompose
 from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.train import optim as toptim
 from tests.test_torch_train import FIELDS, _kept_pair_counts, _train_setup
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 SH_C0 = 0.28209479177387814

@@ -26,6 +26,7 @@ from fovsplat_torch import native
 from fovsplat_torch.data import colmap as tcolmap
 from fovsplat_torch.eval import network_gui as tgui
 from fovsplat_torch.utils import profiling as tprof
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _free_port():

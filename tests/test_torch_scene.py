@@ -35,6 +35,7 @@ from fovsplat_torch.ops import knn as tknn
 from fovsplat_torch.ops import projection as tproj
 from fovsplat_torch.ops import sh as tsh
 from tests.test_cli_pipeline import _build_scene
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity")

@@ -35,6 +35,7 @@ from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.train import optim as toptim
 from fovsplat_torch.train import scratch as tscratch
 from tests.test_torch_train import FIELDS, tcam
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 STEP_RTOL, STEP_ATOL = 2e-3, 2e-4

@@ -26,6 +26,7 @@ from fovsplat_torch.ops.kernels import blend_stats as tbs
 from fovsplat_torch.ops.rasterize import RasterizeConfig as TConfig
 from tests.test_stats import _fetch_oracle
 from tests.test_torch_train import ps1_columns
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 

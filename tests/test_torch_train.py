@@ -41,6 +41,7 @@ from fovsplat_torch.train import losses as tlosses
 from fovsplat_torch.train import optim as toptim
 from fovsplat_torch.train import trainer as ttrainer
 from fovsplat_torch.utils import general as tgeneral
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 SH_C0 = 0.28209479177387814

@@ -17,6 +17,7 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 
 import check_window_blocks as cwb  # noqa: E402
+from tests.torch_cpu import one_torch_thread  # noqa: E402,F401
 
 
 def test_mirror_follows_common_cuh():

@@ -40,6 +40,7 @@ from fovsplat_torch.ops import rasterize as trast
 from fovsplat_torch.ops import stats as tstats
 from fovsplat_torch.train import loops as tloops
 from fovsplat_torch.utils import config as tconfig
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 from tests.utils import make_test_camera, synthetic_cloud
 
 W, H = 80, 56

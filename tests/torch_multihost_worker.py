@@ -24,7 +24,7 @@ def main():
     env = {"FOVSPLAT_COORDINATOR": f"127.0.0.1:{port}",
            "FOVSPLAT_NUM_PROCESSES": str(nproc),
            "FOVSPLAT_PROCESS_ID": str(pid)}
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)        # the rule of tests/torch_cpu.py
     from fovsplat_torch.data.cameras import look_at_camera
     from fovsplat_torch.models.gaussians import GaussianParams
     from fovsplat_torch.ops import rasterize

@@ -5,8 +5,8 @@ and the results go back as numpy arrays.
 
 Rank 0 also renders each frame on one device, in the same process as its
 sharded frame: the plain blends' float sums go through CPU matrix
-products whose rounding can follow the thread count, which differs
-between the ranks and the test process."""
+products whose rounding can follow the thread count, so both sides of
+the comparison run in one process at one count."""
 
 import dataclasses
 
@@ -140,7 +140,9 @@ def fov_runs(spec, group):
 
 def run_all(rank, dev, spec):
     """Every task of `spec` on this rank; rank 0's results are returned
-    whole, the others' too (the tests compare them)."""
+    whole, the others' too (the tests compare them). Every rank runs
+    torch on one thread, the rule of tests/torch_cpu.py."""
+    torch.set_num_threads(1)
     group = dp.make_mesh()
     return {"dp": dp_runs(spec["dp"], group),
             "tile": tile_runs(spec["tile"], group),
