@@ -1611,7 +1611,7 @@ def run_chain(n, width, height, cfg, frame_cfg, kernels, device,
         raise AssertionError("the model-building chain failed a check")
     for k in ("expand_ps1", "blend_forward", "blend_backward",
               "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
-              "project_sh_backward"):
+              "project_sh_backward", *SSIM_ROWS):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the chain")
     return launches, model, {"ps1": ps1, "train_views": train_views,
@@ -1829,6 +1829,88 @@ def check_hvs_loss(results, pooling=3.0, loss_type="L1"):
             f"{g_twice}")
 
 
+SSIM_RTOL = 1e-5              # kernels 13 and 13b vs the twin
+SSIM_ROWS = ("ssim_forward", "ssim_backward")   # their kernels line rows
+
+
+def ssim_work(batch, height, width):
+    """{row: (bytes, FLOP)} of kernels 13 and 13b on `batch` image pairs,
+    by need, FLOP counted as benchmark/reference/work.py counts
+    SSIM_PIXEL: a multiply and an add a tap, 11 taps, 2 passes, 5 blurs
+    and 20 for the map a channel (720 a pixel); 13b runs the five blurs
+    again, the map and its three coefficients (50) and their three blurs
+    (132), 1,221 a pixel. 13 reads both images; 13b reads both and
+    writes the image's gradient."""
+    px = batch * height * width
+    img = px * 3 * 4
+    return {"ssim_forward": (2 * img, px * 3 * (5 * 2 * 11 * 2 + 20)),
+            "ssim_backward": (3 * img, px * 3 * (5 * 2 * 11 * 2 + 50
+                                                 + 3 * 2 * 11 * 2))}
+
+
+def check_ssim(results):
+    """Kernels 13 and 13b against their twin (losses.ssim_plain on the
+    card) at 1237x822 on a seeded noise image and a target 0.1 of noise
+    away: 13's mean (plain and robust) within SSIM_RTOL relative; 13b's
+    gradient of the image, and of the target, against autograd of the
+    twin within SSIM_RTOL of each one's largest value; two calls of each
+    bit-identical. Fills the kernels line's rows 13 and 13b in
+    `results`."""
+    import numpy as np
+    import torch
+    from fovsplat_torch.ops.kernels import ssim as sk
+    from fovsplat_torch.train import losses
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    a = rng.uniform(0, 1, (1, H_FULL, W_FULL, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(0, 1, a.shape), 0, 1).astype(np.float32)
+    x, t = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    f_err, twice = {}, []
+    for robust in (False, True):
+        k = sk.ssim_forward(x, t, 1.5, robust)
+        twice.append(bool(torch.equal(k, sk.ssim_forward(x, t, 1.5, robust))))
+        ref = losses.ssim_plain(x, t, robust=robust)
+        f_err[f"robust={robust}"] = float((k - ref).abs() / ref.abs())
+    g = torch.full((), -0.2, device=dev)
+    da, db = sk.ssim_backward(x, t, g, 1.5, True)
+    da2, db2 = sk.ssim_backward(x, t, g, 1.5, True)
+    twice.append(bool(torch.equal(da, da2) and torch.equal(db, db2)))
+    xl, tl = x.clone().requires_grad_(True), t.clone().requires_grad_(True)
+    ra, rb = torch.autograd.grad(-0.2 * losses.ssim_plain(xl, tl), [xl, tl])
+    g_err = {name: float((k - r).abs().max() / r.abs().max())
+             for name, k, r in (("image", da, ra), ("target", db, rb))}
+    ok = (all(v <= SSIM_RTOL for v in [*f_err.values(), *g_err.values()])
+          and all(twice))
+
+    def plain_fwd_bwd():
+        xl = x.clone().requires_grad_(True)
+        torch.autograd.grad(losses.ssim_plain(xl, t), xl)
+    work = ssim_work(1, H_FULL, W_FULL)
+    shape = f"{W_FULL}x{H_FULL}, one image pair"
+    calls = {"ssim_forward": lambda: sk.ssim_forward(x, t),
+             "ssim_backward": lambda: sk.ssim_backward(x, t, g)}
+    plain = {"ssim_forward": cuda_ms(lambda: losses.ssim_plain(x, t), 3),
+             "ssim_backward": cuda_ms(plain_fwd_bwd, 3)}
+    errs = {"ssim_forward": max(f_err.values()),
+            "ssim_backward": max(g_err.values())}
+    for name, fn in calls.items():
+        bnd = bound(*work[name])
+        results[name] = {**kernel_times(fn), "bound_ms": bnd[0],
+                         "bound_by": bnd[1], "bound_bytes": work[name][0],
+                         "bound_flop": work[name][1],
+                         "plain_ms": plain[name], "max_abs_err": errs[name],
+                         "shape": shape}
+    emit({"phase": "check", "kernel": "ssim", "shape": shape,
+          "mean_rel_err": f_err, "grad_max_rel_err_of_max": g_err,
+          "bit_identical_twice": twice, "tol": SSIM_RTOL,
+          "plain_ms_note": "13b's plain_ms is the twin's forward and "
+                           "autograd backward",
+          "rows": {k: results[k] for k in calls}})
+    if not ok:
+        raise AssertionError(f"ssim: mean {f_err}, gradient {g_err}, "
+                             f"twice {twice}")
+
+
 # ----------------------------------------------------- scene, scratch, pipeline
 
 SCENE_VIEWS = 16
@@ -2015,10 +2097,11 @@ def bad_rows(rows):
 
 
 def scratch_launches(iterations, views, lg_prunes, degrees, warmups):
-    """The launches of kernels 4-8 and 10 a train_scratch run implies: one
-    projection forward and backward, expansion, forward and backward
-    blend and gid reduce a step, and per view of each LG prune one
-    expansion, stats blend and reduce (the count_opacity contributions).
+    """The launches of kernels 4-8, 10 and 13 a train_scratch run implies:
+    one projection forward and backward, expansion, forward and backward
+    blend, gid reduce and SSIM forward and backward a step, and per view
+    of each LG prune one expansion, stats blend and reduce (the
+    count_opacity contributions).
     On the card each of the step's `degrees` graphs (one an SH degree)
     and each LG prune's view graph add `warmups` runs
     (utils/graphs.WARMUPS) when captured."""
@@ -2027,7 +2110,8 @@ def scratch_launches(iterations, views, lg_prunes, degrees, warmups):
     return {"expand_ps1": steps + lg, "blend_forward": steps,
             "blend_backward": steps,
             "reduce_by_sorted_gid": steps + lg, "blend_stats": lg,
-            "project_sh_forward": steps, "project_sh_backward": steps}
+            "project_sh_forward": steps, "project_sh_backward": steps,
+            "ssim_forward": steps, "ssim_backward": steps}
 
 
 def scratch_config(**kw):
@@ -2542,7 +2626,7 @@ def run_pipeline_phase(root, scene, cfg, frame_cfg, kernels, device):
         raise AssertionError("the pipeline phase failed a check")
     for k in ("expand_ps1", "blend_forward", "blend_backward",
               "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
-              "project_sh_backward", *HVS_ROWS):
+              "project_sh_backward", *HVS_ROWS, *SSIM_ROWS):
         if launches[k] <= 0:
             raise AssertionError(f"{k} never launched in the pipeline")
     return launches, graphed
@@ -4635,11 +4719,14 @@ def run_cli_vq(scene_root, model_dir):
 def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
     """Phase xla_route: the port's two routes against each other at full
     width. The XLA route (config.backend "xla": plain PyTorch) must
-    launch no kernel: every counter is set to 0 before its calls and read
-    after. PS1 train-step render and gradients (loops.photometric_grads
-    on the train phase's state): kept pairs equal, images within 1e-4,
-    each field's gradient within 1e-4 of its largest magnitude, the XLA
-    route's gradients bit-identical twice; the "ours" frame at the centre
+    launch no kernel but the photometric loss's SSIM, kernels 13 and 13b
+    once a gradient evaluation (the backend is the rasterizer's; the loss
+    takes the card's kernels whatever it is): every counter is set to 0
+    before its calls and read after. PS1 train-step render and gradients
+    (loops.photometric_grads on the train phase's state): kept pairs
+    equal, images within 1e-4, each field's gradient within 1e-4 of its
+    largest magnitude, the XLA route's gradients bit-identical twice;
+    the "ours" frame at the centre
     gaze through rasterize_fov (exact depth sort), within 1e-4; the three
     score views through stats.blend_stats against kernel 8's, within
     1e-5 relative; render_dense against the XLA route at DENSE_SHAPE
@@ -4701,6 +4788,7 @@ def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
                             config=RasterizeConfig(pair_capacity=1 << 20,
                                                    backend="xla"))
     launches = {k: kf.launches for k, kf in kernels.items()}
+    loss_launches = {k: launches.pop(k) for k in SSIM_ROWS}
 
     def max_abs(a, b):
         return float((a.detach() - b.detach()).abs().max())
@@ -4738,13 +4826,14 @@ def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
                      "image_max_abs_err": max_abs(ox["render"],
                                                   od["render"]),
                      "ms": dense_ms},
-           "launches": launches,
+           "launches": launches, "loss_launches": loss_launches,
            "tol": {"image": XLA_ATOL, "grad": XLA_GRAD_RTOL,
                    "scores": STATS_RTOL, "dense_final_T": DENSE_T_ATOL,
                    "dense_image": DENSE_ATOL}}
     emit(row)
-    if any(launches.values()):
-        raise AssertionError(f"the XLA route launched kernels: {launches}")
+    if any(launches.values()) or loss_launches != {k: 2 for k in SSIM_ROWS}:
+        raise AssertionError(f"the XLA route launched kernels: {launches}, "
+                             f"the loss's: {loss_launches}")
     if not (kept[0] == kept[1] and row["train_render"]["overflow"] == 0
             and row["train_render"]["image_max_abs_err"] <= XLA_ATOL
             and all(v <= XLA_GRAD_RTOL for v in grad_rel.values()) and bit
@@ -5523,6 +5612,7 @@ def main():
     from fovsplat_torch.ops.kernels import hvs_loss as hvs
     from fovsplat_torch.ops.kernels import project_sh as psh
     from fovsplat_torch.ops.kernels import segment_reduce as sr
+    from fovsplat_torch.ops.kernels import ssim as ssim_k
     from fovsplat_torch.ops.rasterize import RasterizeConfig
 
     dev = torch.device("cuda")
@@ -5553,7 +5643,9 @@ def main():
                      "blend_backward": bfw.blend_backward,
                      "reduce_by_sorted_gid": sr.reduce_by_sorted_gid,
                      "project_sh_forward": psh.project_sh_forward,
-                     "project_sh_backward": psh.project_sh_backward}
+                     "project_sh_backward": psh.project_sh_backward,
+                     "ssim_forward": ssim_k.ssim_forward,
+                     "ssim_backward": ssim_k.ssim_backward}
     hvs_kernels = {k: getattr(hvs, k) for k in HVS_ROWS}
     all_kernels = {**frame_kernels, **train_kernels,
                    "blend_stats": bs.blend_stats, **hvs_kernels}
@@ -5567,6 +5659,7 @@ def main():
         20)
     st, tcam, gt = train_inputs(N_FULL, W_FULL, H_FULL, 0, dev)
     check_train_kernels(st, tcam, gt, results)
+    check_ssim(results)
 
     # --- the frame path: the full-width frame over 9 gazes ---
     model, cam = full[0], full[1]
@@ -5754,7 +5847,10 @@ def main():
                                    "none (jnp / jax.grad)"),
            **{k: ("fovsplat_torch/csrc/hvs_loss.cu",
                   "none (fovsplat/perception/metameric.py, jnp)")
-              for k in HVS_ROWS}}
+              for k in HVS_ROWS},
+           **{k: ("fovsplat_torch/csrc/ssim.cu",
+                  "none (fovsplat/train/losses.py ssim, jnp)")
+              for k in SSIM_ROWS}}
     rows = []
     for k, (source, replaces) in src.items():
         r = results[k]
@@ -5772,7 +5868,7 @@ def main():
                      "shape": r["shape"]})
         if k in ("expand_ps1", "blend_forward", "blend_backward",
                  "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
-                 "project_sh_backward", *HVS_ROWS):
+                 "project_sh_backward", *HVS_ROWS, *SSIM_ROWS):
             rows[-1]["launches_scratch"] = scratch_l[k]
             rows[-1]["launches_pipeline"] = pipeline_l[k]
             rows[-1]["launches_graphed_scratch"] = scratch_g.get(k, 0)

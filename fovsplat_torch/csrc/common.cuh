@@ -4,7 +4,8 @@
 // of expand_fov.cu and expand_ps1.cu; compact_table.cu scans packed
 // 64-bit words), the candidate search of the two candidate-parallel
 // expansions, the schedule and staging of the tile blends (blend_fov.cu,
-// blend_fwd.cu, blend_stats.cu), and the error-string export.
+// blend_fwd.cu, blend_stats.cu), the fixed-order block sum of the loss
+// kernels (hvs_loss.cu, ssim.cu), and the error-string export.
 //
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that the Python wrapper can raise on a
@@ -23,6 +24,24 @@ constexpr int SCAN_BLOCK = 256;
 // (4,537 blocks of SCAN_BLOCK) finishes in two rounds.
 constexpr int SUMS_BLOCK = 1024;
 constexpr int SUMS_ITEMS = 4;
+
+// A BLOCK-thread block's sum of v, in a fixed order: each warp's by
+// shuffles, then thread 0 adds the warps' in turn (it alone holds the sum).
+template <int BLOCK>
+__device__ inline float block_sum(float v) {
+  static_assert(BLOCK % 32 == 0 && BLOCK <= 1024, "block of whole warps");
+  __shared__ float warp_sums[BLOCK / 32];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  __syncthreads();  // warp_sums may still be read by a previous call
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < BLOCK / 32; ++i) s += warp_sums[i];
+  }
+  return s;
+}
 
 // Exclusive prefix sum of one value per thread over a BLOCK-thread block
 // (T an integer type). Returns the thread's exclusive prefix;

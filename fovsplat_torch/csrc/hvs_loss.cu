@@ -311,21 +311,6 @@ __device__ __forceinline__ float dgap(float a, float b, float w) {
   return MSE ? w * (2.f * (a - b)) : w * sgn(a - b);
 }
 
-// A block's sum of v, in a fixed order (thread 0 holds it).
-__device__ float block_sum(float v) {
-  __shared__ float warp_sums[NT / 32];
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-  __syncthreads();  // warp_sums may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NT / 32; ++i) s += warp_sums[i];
-  }
-  return s;
-}
-
 // ---------------------------------------------------------------- 11
 
 template <bool L0>
@@ -493,7 +478,7 @@ hvs_stats_loss_kernel(StatLevels L, float* __restrict__ partial) {
       acc += gap<MSE>(st.ma, st.mb) + gap<MSE>(st.sa, st.sb);
     }
   }
-  const float s = block_sum(acc);
+  const float s = fs::block_sum<NT>(acc);
   if (threadIdx.x == 0) partial[blockIdx.x] = s * v.wt;
 }
 
@@ -521,8 +506,8 @@ hvs_loss_final_kernel(const float* __restrict__ partial, int n_partial,
     const float* pa = low + static_cast<size_t>(bc) * h * w;
     t4 += gap<MSE>(down2(pa, w, r, s), down2(pa + batch * img, w, r, s));
   }
-  const float a = block_sum(acc);
-  const float b = block_sum(t4);
+  const float a = fs::block_sum<NT>(acc);
+  const float b = fs::block_sum<NT>(t4);
   if (threadIdx.x == 0) loss[0] = a + b * wt4;
 }
 

@@ -14,7 +14,7 @@ def launch_counters() -> dict:
     # package.
     from fovsplat_torch.ops.kernels import (
         blend_fov, blend_fwd, blend_stats, build_table, compact_table,
-        expand_fov, expand_ps1, hvs_loss, project_sh, segment_reduce)
+        expand_fov, expand_ps1, hvs_loss, project_sh, segment_reduce, ssim)
     wrappers = (build_table.build_table, build_table.build_table_ps1,
                 expand_fov.expand_fov, blend_fov.blend_fov,
                 expand_ps1.expand_ps1, blend_fwd.blend_forward,
@@ -23,7 +23,8 @@ def launch_counters() -> dict:
                 compact_table.compact_table, project_sh.project_sh_forward,
                 project_sh.project_sh_backward, hvs_loss.hvs_level_forward,
                 hvs_loss.hvs_stats_loss, hvs_loss.hvs_stats_backward,
-                hvs_loss.hvs_level_backward)
+                hvs_loss.hvs_level_backward, ssim.ssim_forward,
+                ssim.ssim_backward)
     counters = {w.__name__: (w, "launches") for w in wrappers}
     counters["blend_fov_tile0"] = (blend_fov.blend_fov, "launches_tile0")
     return counters

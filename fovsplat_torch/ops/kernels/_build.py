@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("build_table", "expand_fov", "blend_fov", "expand_ps1",
            "blend_fwd", "segment_reduce", "blend_stats", "compact_table",
-           "project_sh", "hvs_loss", "capture_nodes")
+           "project_sh", "hvs_loss", "ssim", "capture_nodes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

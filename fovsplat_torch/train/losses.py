@@ -8,7 +8,9 @@ C1 = 0.01^2, C2 = 0.03^2) and utils/image_utils.py:17 (PSNR). Images are
 The SSIM blur is the JAX package's separable shift-add form in f32 (the
 same tap sums in the same order), not a convolution: cuDNN would run an
 f32 convolution in TF32 unless the caller turned that off, and the loss
-must not depend on a global flag.
+must not depend on a global flag. That code is the plain twin of kernels
+13 and 13b (ops/kernels/ssim.py), which take every image pair on the
+card; CPU tensors take the twin.
 """
 
 from __future__ import annotations
@@ -64,7 +66,21 @@ def ssim(a, b, size: int = 11, sigma: float = 1.5, robust: bool = False):
     robust=True clamps the variances at 0 and the covariance by
     Cauchy-Schwarz, which bounds each pixel's SSIM to [-1, 1]; the quality
     gates of the prune and mask loops use it (fovsplat/train/losses.py:
-    66-95), the training loss does not."""
+    66-95), the training loss does not.
+
+    CPU tensors take the shift-add twin, ssim_plain; tensors on the card
+    kernels 13 and 13b (ops/kernels/ssim.ssim: float32, 3 channels, the
+    11-tap window, or it raises)."""
+    if a.device.type == "cpu":
+        return ssim_plain(a, b, size, sigma, robust)
+    from fovsplat_torch.ops.kernels import ssim as kernel
+    return kernel.ssim(a, b, size, sigma, robust)
+
+
+def ssim_plain(a, b, size: int = 11, sigma: float = 1.5,
+               robust: bool = False):
+    """ssim's plain twin on any device: the five separable shift-add
+    blurs (_depthwise_blur), the map, its mean."""
     if a.dim() == 3:
         a = a[None]
         b = b[None]

@@ -30,6 +30,7 @@ from fovsplat_torch.ops.kernels import expand_ps1 as ep1
 from fovsplat_torch.ops.kernels import hvs_loss as hvs
 from fovsplat_torch.ops.kernels import project_sh as psh
 from fovsplat_torch.ops.kernels import segment_reduce as sr
+from fovsplat_torch.ops.kernels import ssim as ssim_k
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from fovsplat_torch.perception import metameric
 from fovsplat_torch.train import loops
@@ -257,13 +258,15 @@ def test_train_kernels_match_plain(cuda):
 
 def test_train_step_matches_cpu_and_counts_launches(cuda):
     """One photometric step's loss and gradients on the card against the
-    CPU plain path, and one launch of each train kernel per step."""
+    CPU plain path, and one launch of each train kernel per step (SSIM's
+    13 and 13b included)."""
     n, w, h = 5000, 160, 112
     gt = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
     cfg = loops.LoopConfig(raster=RasterizeConfig(pair_capacity=1 << 20))
     kernels = (ep1.expand_ps1, bfw.blend_forward, bfw.blend_backward,
                sr.reduce_by_sorted_gid, psh.project_sh_forward,
-               psh.project_sh_backward)
+               psh.project_sh_backward, ssim_k.ssim_forward,
+               ssim_k.ssim_backward)
     res = []
     for d in (cuda, torch.device("cpu")):
         st = _train_state(d, n, 3)
@@ -274,7 +277,7 @@ def test_train_step_matches_cpu_and_counts_launches(cuda):
         res.append((loss, grads, n_bad, out,
                     [k.launches - b for k, b in zip(kernels, before)]))
     (lc, gc, bc, oc, nc), (lh, gh, bh, oh, nh) = res
-    assert nc == [1] * 6 and nh == [0] * 6
+    assert nc == [1] * 8 and nh == [0] * 8
     assert int(bc) == int(bh) == 0
     assert int(oc["binned"].overflow) == int(oh["binned"].overflow) == 0
     assert int(oc["binned"].num_pairs) == int(oh["binned"].num_pairs) > 1000
@@ -1873,6 +1876,100 @@ def test_graphed_hvs_step_launches_hvs_kernels(cuda):
         "hvs_stats_backward": 4, "hvs_level_backward": 6}
 
 
+# Kernels 13 and 13b (ops/kernels/ssim.py) against the twin, losses.
+# ssim_plain, run on the card.
+
+SSIM_SHAPES = [(822, 1237), (37, 53)]
+
+
+def _ssim_images(dev, batch, h, w, flat=True):
+    """Seeded noise and a target 0.1 of noise away, clipped to [0, 1];
+    with `flat`, a black corner and a white one in both and a 20 x 30
+    region at 0.3 in both (larger than the window)."""
+    rng = np.random.default_rng(batch * 1000 + h)
+    shape = (batch, h, w, 3)
+    a = rng.uniform(0, 1, shape).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(0, 1, shape), 0, 1).astype(np.float32)
+    if flat:
+        a[:, :5, :7] = b[:, :5, :7] = 0.0
+        a[:, -4:, -6:] = b[:, -4:, -6:] = 1.0
+        a[:, 8:28, 10:40] = b[:, 8:28, 10:40] = 0.3
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("h, w", SSIM_SHAPES)
+@pytest.mark.parametrize("robust", [False, True])
+def test_ssim_forward_matches_plain(cuda, robust, h, w, batch):
+    """Kernel 13's mean within 1e-5 relative of the twin on the card (flat
+    regions, values at 0 and 1, ragged tiles at 37 x 53), bit-identical
+    twice; losses.ssim on the card is kernel 13, one call a call."""
+    from fovsplat_torch.ops.kernels import ssim as sk
+    from fovsplat_torch.train import losses
+    a, b = _ssim_images(cuda, batch, h, w)
+    k = sk.ssim_forward(a, b, 1.5, robust)
+    ref = losses.ssim_plain(a, b, robust=robust)
+    assert float((k - ref).abs()) <= 1e-5 * float(ref.abs())
+    assert torch.equal(k, sk.ssim_forward(a, b, 1.5, robust))
+    before = sk.ssim_forward.launches
+    routed = losses.ssim(a[0] if batch == 1 else a, b[0] if batch == 1
+                         else b, robust=robust)
+    assert torch.equal(routed, k) and sk.ssim_forward.launches == before + 1
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("h, w", SSIM_SHAPES)
+@pytest.mark.parametrize("flat", [False, True])
+def test_ssim_backward_matches_autograd(cuda, flat, h, w, batch):
+    """Kernel 13b through losses.ssim's autograd against autograd of the
+    twin on the card: the gradient of the image, and of the target where
+    it requires one, within 1e-5 of each gradient's largest value on
+    noise; on flat regions (a 20 x 30 patch at 0.3 in both, where the
+    variances cancel in f32) no further from the twin's float64 gradient
+    than twice the twin's own f32 autograd is. Bit-identical twice."""
+    from fovsplat_torch.ops.kernels import ssim as sk
+    from fovsplat_torch.train import losses
+    a, b = _ssim_images(cuda, batch, h, w, flat)
+
+    def grads(fn, x, y, target_grad):
+        x = x.clone().requires_grad_(True)
+        y = y.clone().requires_grad_(target_grad)
+        leaves = [x, y] if target_grad else [x]
+        return torch.autograd.grad(-0.2 * fn(x, y), leaves)
+    for target_grad in (False, True):
+        before = sk.ssim_backward.launches
+        got = grads(losses.ssim, a, b, target_grad)
+        assert sk.ssim_backward.launches == before + 1
+        again = grads(losses.ssim, a, b, target_grad)
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+        ref = grads(losses.ssim_plain, a, b, target_grad)
+        exact = grads(losses.ssim_plain, a.double(), b.double(), target_grad)
+        for g, r, x in zip(got, ref, exact):
+            scale = float(x.abs().max())
+            err = float((g.double() - x).abs().max()) / scale
+            if flat:
+                twin = float((r.double() - x).abs().max()) / scale
+                assert err <= 2 * twin, (err, twin)
+            else:
+                assert float((g - r).abs().max()) <= 1e-5 * float(
+                    r.abs().max())
+
+
+def test_photometric_step_launches_ssim_kernels_once(cuda):
+    """A graphed photometric step holds one call of kernel 13 and one of
+    13b, and its replays add them to the counters."""
+    from fovsplat_torch.ops.kernels import ssim as sk
+    st, cam, gt, cfg = _small_graph_inputs(cuda)
+    step = loops.make_photometric_step(cfg)
+    step(st, cam, gt, 1)
+    per = step.graph.launches_per_replay
+    assert per.get("ssim_forward") == 1 and per.get("ssim_backward") == 1
+    f, b = sk.ssim_forward.launches, sk.ssim_backward.launches
+    step(st, cam, gt, 2)
+    assert (sk.ssim_forward.launches, sk.ssim_backward.launches) == (f + 1,
+                                                                     b + 1)
+
+
 def test_graphed_scratch_step_across_sh_raise_and_densify(cuda):
     """Six graphed scratch steps against six eager ones (scratch_step),
     the SH degree raised from 0 to 1 after step 2 and a densify event
@@ -1981,7 +2078,8 @@ def test_graphed_metrics_match_eager(cuda, name, tmp_path):
     """The SSIM metric (losses.ssim) and LPIPS as graphs against their
     eager functions with TF32 allowed globally: bit for bit on two image
     pairs, fresh outputs, inputs unchanged, one capture a shape (a second
-    shape captures again), no kernel counter moved."""
+    shape captures again); no kernel counter moved but SSIM's kernel 13,
+    once a call: three replays, a warm-up a capture, three eager calls."""
     from fovsplat_torch.eval import lpips_torch, metrics
     from fovsplat_torch.train import losses
     if name == "ssim":
@@ -2017,7 +2115,10 @@ def test_graphed_metrics_match_eager(cuda, name, tmp_path):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     assert all(torch.equal(x, y) for x, y in zip(kept, imgs))
-    assert all(getattr(o, at) == 0 for o, at in counters.values())
+    want = {k: 0 for k in counters}
+    if name == "ssim":
+        want["ssim_forward"] = 3 + 2 * metrics.graphs.WARMUPS + 3
+    assert {k: getattr(o, at) for k, (o, at) in counters.items()} == want
 
 
 def test_graphed_vq_matches_eager_and_cpu(cuda, monkeypatch):
