@@ -1353,14 +1353,14 @@ def run_score_pass(st, cam, cfg, kernels):
     fns = {m: loops.make_score_fn(cfg, m) for m in METRICS}
     for kf in kernels.values():
         kf.launches = 0
-    first = {m: fn(st, cam) for m, fn in fns.items()}
+    first = {m: fn(st, cam)[0] for m, fn in fns.items()}
     torch.cuda.synchronize()
     launches = {name: kf.launches for name, kf in kernels.items()}
     graphed = {}
     for fn in fns.values():
         for k, v in replayed(fn.graph).items():
             graphed[k] = graphed.get(k, 0) + v
-    same = {m: bool(torch.equal(first[m], fn(st, cam)))
+    same = {m: bool(torch.equal(first[m], fn(st, cam)[0]))
             for m, fn in fns.items()}
     p = st.params
     out = stats.rasterize_stats(
@@ -1403,7 +1403,7 @@ def score_vs_cpu(cfg):
                 live_mask=st.live)
             res[mode] = (o["gs_count"].cpu(), o["contribs"].cpu(),
                          int(o["binned"].overflow))
-        res.update({m: loops.make_score_fn(cfg, m)(st, cam).cpu()
+        res.update({m: loops.make_score_fn(cfg, m)(st, cam)[0].cpu()
                     for m in METRICS})
         outs.append(res)
     card, cpu = outs
@@ -4760,7 +4760,7 @@ def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
     kern, kern_ms = timed(lambda: loops.photometric_grads(st, cam, gt, cfg))
     kframe, kframe_ms = timed(lambda: fov.rasterize_fov(
         *fargs, fcam, gaze, ALPHA, config=fcfg))
-    kscores = {m: loops.make_score_fn(cfg, m)(st, cam) for m in METRICS}
+    kscores = {m: loops.make_score_fn(cfg, m)(st, cam)[0] for m in METRICS}
     for kf in kernels.values():
         kf.launches = 0
     xa, xla_ms = timed(lambda: loops.photometric_grads(st, cam, gt, xcfg))
@@ -4771,7 +4771,7 @@ def run_xla_route(st, cam, gt, cfg, sc, kernels, device):
     for m in METRICS:
         # The eager view: the plain route is not a graph's path.
         xscores[m], score_ms[m] = timed(
-            lambda m=m: loops.make_score_fn(xcfg, m).eager(st, cam))
+            lambda m=m: loops.make_score_fn(xcfg, m).eager(st, cam)[0])
     n_d, w_d, h_d = DENSE_SHAPE
     small = proxy.bicycle_proxy(n=n_d, seed=2)
     dcam = proxy.proxy_camera(w_d, h_d, device=device)

@@ -18,6 +18,7 @@ import torch
 from fovsplat_torch.models.gaussians import FIELDS, GaussianParams
 from fovsplat_torch.train import optim
 from fovsplat_torch.utils.general import inverse_sigmoid
+from fovsplat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,12 +108,14 @@ def metric_prune(state: TrainerState, scores: torch.Tensor,
     """Kill exactly floor(n_live * ratio) live rows, those of lowest score
     (metric_pruning, prune.py:101-110). Rank-based, as the JAX package's
     (fovsplat/models/state.py:101-119): a stable sort, so ties break by
-    row index, and a threshold never kills every row of a tied score."""
-    cap = state.live.shape[0]
-    k = (state.live.sum().to(torch.float32) * ratio).to(torch.int32)
-    s = torch.where(state.live, scores,
-                    torch.full_like(scores, float("inf")))
-    order = torch.argsort(s, stable=True)
-    rank = torch.empty(cap, dtype=torch.int32, device=s.device)
-    rank[order] = torch.arange(cap, dtype=torch.int32, device=s.device)
-    return prune_mask(state, state.live & (rank < k))
+    row index, and a threshold never kills every row of a tied score.
+    Runs in the profiling span "cut"."""
+    with span("cut"):
+        cap = state.live.shape[0]
+        k = (state.live.sum().to(torch.float32) * ratio).to(torch.int32)
+        s = torch.where(state.live, scores,
+                        torch.full_like(scores, float("inf")))
+        order = torch.argsort(s, stable=True)
+        rank = torch.empty(cap, dtype=torch.int32, device=s.device)
+        rank[order] = torch.arange(cap, dtype=torch.int32, device=s.device)
+        return prune_mask(state, state.live & (rank < k))

@@ -29,6 +29,13 @@ no kernel: the plain stats walk of kernel 8 with the oracle's argmax
 tie-break (the lowest Gaussian id) and the same reductions;
 rasterize_stats takes it with config.backend = "xla", over
 binning.bin_gaussians' pairs.
+
+The fused route carries each pair's Gaussian id as an f32 row, exact up
+to 2^24 (GID_EXACT): rasterize_stats refuses a state or a kept capacity
+past it before any work. Its stages run in profiling spans: project
+(activated SH colour, projection, the table's columns), the binning's
+table, expand, sort and gather, stats (kernel 8), reduce (the
+per-Gaussian sums) and compose (the image and radii).
 """
 
 from __future__ import annotations
@@ -45,10 +52,12 @@ from fovsplat_torch.ops.kernels.segment_reduce import (
 from fovsplat_torch.ops.projection import TILE
 from fovsplat_torch.ops.rasterize import (RasterizeConfig, _grid,
                                           _xla_pairs, train_columns)
+from fovsplat_torch.utils.profiling import span
 
 MODES = ("sum", "max", "loss_weighted_max_count", "count_opacity")
 
 REF_FETCH_ROUND = 256   # the reference's BLOCK_SIZE fetch-batch width
+GID_EXACT = 1 << 24     # f32 holds every integer up to 2^24
 
 
 def tile_fetch_counts(first_trig, seg_start, inside):
@@ -190,16 +199,24 @@ def rasterize_stats(means3d, scales, rotations, opacities, camera,
     loss_map (H, W) for "loss_weighted_max_count" (None: ones);
     config.backend "xla" takes the XLA route (stats.py:330-345). Returns a
     dict: render (H, W, 3), final_T (H, W), gs_count (N,) i32, contribs
-    (N,) f32, radii (N,) i32 and binned (ops/binning.Binned)."""
+    (N,) f32, radii (N,) i32 and binned (ops/binning.Binned), whose
+    overflow counts the pairs past the capacities. The fused route raises
+    ValueError for more than GID_EXACT Gaussians or kept pairs."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     gx, gy = _grid(camera)
     n = means3d.shape[0]
     cfg = config
-    if colors is None:
-        colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
-    lm = None if loss_map is None else image_to_tiles(loss_map, gx, gy)
+    if cfg.backend != "xla" and max(n, cfg.kept_capacity()) > GID_EXACT:
+        raise ValueError(
+            f"the fused stats route sorts Gaussian ids as f32, exact up to "
+            f"{GID_EXACT}; got {n} Gaussians and a kept capacity of "
+            f"{cfg.kept_capacity()}")
+    with span("project"):
+        if colors is None:
+            colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
     if cfg.backend == "xla":
+        lm = None if loss_map is None else image_to_tiles(loss_map, gx, gy)
         prep, bn, rows = _xla_pairs(means3d, scales, rotations, opacities,
                                     camera, colors, cfg, None, live_mask,
                                     None)
@@ -210,29 +227,37 @@ def rasterize_stats(means3d, scales, rotations, opacities, camera,
             cfg.chunk, cfg.power_cutoff, mode, lm, camera.width,
             camera.height)
     else:
-        prep = projection.preprocess_cols(means3d, scales, rotations, camera,
-                                          scale_modifier=cfg.scale_modifier,
-                                          live_mask=live_mask)
-        valid, radius = prep.valid, prep.radius
+        with span("project"):
+            prep = projection.preprocess_cols(
+                means3d, scales, rotations, camera,
+                scale_modifier=cfg.scale_modifier, live_mask=live_mask)
+            valid, radius = prep.valid, prep.radius
+            cols = train_columns(prep, opacities, colors)
         pairs, bn = binning.bin_fused_ps1(
-            train_columns(prep, opacities, colors), prep.valid, prep.depth,
-            gx, gy, cfg.pair_capacity, cfg.kept_capacity(), cfg.use_obb)
-        tile_color, final_T, pair_stats, best_lane, best_w, first_trig = \
-            blend_stats_kernel(pairs, bn.seg_start, gx, camera.width,
-                               camera.height, cfg.power_cutoff, cfg.chunk)
-        lane = torch.arange(pairs.shape[1], device=pairs.device)
-        gid = torch.where(lane < bn.num_pairs, bn.pair_gauss, n)
-        gs_count, contribs = _per_gaussian(
-            mode, pairs[5], pair_stats, best_lane, best_w, first_trig, gid,
-            bn.seg_start, n, gx, camera.width, camera.height, lm)
-    image = tiles_to_image(tile_color, gx, gy, camera.width, camera.height)
-    T_img = tiles_to_image(final_T[..., None], gx, gy, camera.width,
-                           camera.height)[..., 0]
-    if bg_color is not None:
-        image = image + T_img[..., None] * torch.as_tensor(
-            bg_color, dtype=image.dtype, device=image.device)
+            cols, prep.valid, prep.depth, gx, gy, cfg.pair_capacity,
+            cfg.kept_capacity(), cfg.use_obb)
+        with span("stats"):
+            lm = None if loss_map is None else image_to_tiles(loss_map, gx,
+                                                              gy)
+            tile_color, final_T, pair_stats, best_lane, best_w, first_trig \
+                = blend_stats_kernel(pairs, bn.seg_start, gx, camera.width,
+                                     camera.height, cfg.power_cutoff,
+                                     cfg.chunk)
+        with span("reduce"):
+            lane = torch.arange(pairs.shape[1], device=pairs.device)
+            gid = torch.where(lane < bn.num_pairs, bn.pair_gauss, n)
+            gs_count, contribs = _per_gaussian(
+                mode, pairs[5], pair_stats, best_lane, best_w, first_trig,
+                gid, bn.seg_start, n, gx, camera.width, camera.height, lm)
+    with span("compose"):
+        image = tiles_to_image(tile_color, gx, gy, camera.width,
+                               camera.height)
+        T_img = tiles_to_image(final_T[..., None], gx, gy, camera.width,
+                               camera.height)[..., 0]
+        if bg_color is not None:
+            image = image + T_img[..., None] * torch.as_tensor(
+                bg_color, dtype=image.dtype, device=image.device)
+        radii = torch.where(valid, radius,
+                            torch.zeros_like(radius)).to(torch.int32)
     return {"render": image, "final_T": T_img, "gs_count": gs_count,
-            "contribs": contribs,
-            "radii": torch.where(valid, radius,
-                                 torch.zeros_like(radius)).to(torch.int32),
-            "binned": bn}
+            "contribs": contribs, "radii": radii, "binned": bn}

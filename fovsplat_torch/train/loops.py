@@ -28,7 +28,10 @@ package's step for step. A loop runs on the device of the state it is
 given. finetune serves a live viewer (eval/network_gui) when given one.
 A step's stages run in profiling spans (utils/profiling.span), which a
 CUDA graph's stage map reads: render (holding the frame's own spans),
-loss, backward (autograd and the dead-gradient mask) and adam.
+loss, backward (autograd and the dead-gradient mask) and adam; a score
+view's are ops/stats.rasterize_stats' (project, table, expand, sort,
+gather, stats, reduce, compose), and a score pass adds max (the max over
+views) and models/state.metric_prune's cut.
 """
 
 from __future__ import annotations
@@ -448,41 +451,78 @@ def make_eval_fns(cfg: LoopConfig, device=None):
 
 def make_score_fn(cfg: LoopConfig, metric: str = "max_comp_efficiency",
                   device=None):
-    """score_view(state, camera) -> (C,) per-Gaussian metric of one view
-    (metric_pruning's inner body, prune.py:79-97): "max_comp_efficiency"
-    (pixels won / fetched pairs), "max_contrib" (the largest alpha * T)
-    or "surface" (pixels won). Unless `device` is "cpu" (then the eager
-    function), a state on the card runs through a CUDA graph per state
-    capacity and camera (width, height) (graphed_view), kernel 8 and the
-    reductions inside; a state on the CPU runs eagerly."""
+    """score_view(state, camera) -> (scores (C,), overflow ()): the
+    per-Gaussian metric of one view (metric_pruning's inner body,
+    prune.py:79-97), "max_comp_efficiency" (pixels won / fetched pairs),
+    "max_contrib" (the largest alpha * T) or "surface" (pixels won), and
+    the view's pairs past the capacities (Binned.overflow: a view that
+    spills scores a cut pair list). Unless `device` is "cpu" (then the
+    eager function), a state on the card runs through a CUDA graph per
+    state capacity and camera (width, height) (graphed_view), kernel 8
+    and the reductions inside; a state on the CPU runs eagerly."""
     mode = "max" if metric == "max_contrib" else "loss_weighted_max_count"
 
     def score_view(state: S.TrainerState, camera):
         p = state.params
-        loss_map = torch.ones((camera.height, camera.width),
-                              dtype=torch.float32, device=p.xyz.device)
+        with span("project"):
+            acts = (p.get_scaling(), p.get_rotation(), p.get_opacity(),
+                    p.get_features())
+        with span("stats"):
+            loss_map = torch.ones((camera.height, camera.width),
+                                  dtype=torch.float32, device=p.xyz.device)
         out = stats_ops.rasterize_stats(
-            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(),
-            camera, shs=p.get_features(), sh_degree=cfg.sh_degree,
+            p.xyz, *acts[:3], camera, shs=acts[3], sh_degree=cfg.sh_degree,
             mode=mode, loss_map=loss_map, config=cfg.raster,
             live_mask=state.live)
-        contribs = out["contribs"]
+        scores = out["contribs"]
         if metric == "max_comp_efficiency":
-            gs = out["gs_count"]
-            s = contribs / (gs.to(torch.float32) + 1e-7)
-            return torch.where(gs >= 1, s, torch.zeros_like(s))
-        return contribs
+            with span("reduce"):
+                gs = out["gs_count"]
+                s = scores / (gs.to(torch.float32) + 1e-7)
+                scores = torch.where(gs >= 1, s, torch.zeros_like(s))
+        return scores, out["binned"].overflow
 
     return graphed_view(score_view, device)
 
 
 def metric_prune_scores(state, views, score_view):
-    """Max over views of the per-view metric (prune.py:86)."""
-    scores = torch.zeros(state.capacity, dtype=torch.float32,
-                         device=state.live.device)
+    """Max over views of the per-view metric (prune.py:86) and the views'
+    overflow summed: (scores (C,) f32, overflow () i64), not
+    synchronised."""
+    dev = state.live.device
+    with span("max"):
+        scores = torch.zeros(state.capacity, dtype=torch.float32, device=dev)
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for v in views:
-        scores = torch.maximum(scores, score_view(state, v.camera))
-    return scores
+        s, ovf = score_view(state, v.camera)
+        with span("max"):
+            scores = torch.maximum(scores, s)
+            overflow = overflow + ovf
+    return scores, overflow
+
+
+class ScoreWatch:
+    """Runs the score passes of the prune and mask loops and counts those
+    whose views overflowed: each is logged, and still cuts on the scores
+    of the pairs that fit (the loops do not cut on the count). `passes`
+    and `overflowed` count the passes and the overflowing ones."""
+
+    def __init__(self, views, score_view, log: Callable):
+        self._views, self._score_view, self._log = views, score_view, log
+        self.passes = 0
+        self.overflowed = 0
+
+    def scores(self, state: S.TrainerState):
+        scores, overflow = metric_prune_scores(state, self._views,
+                                               self._score_view)
+        self.passes += 1
+        ovf = int(overflow)
+        if ovf:
+            self.overflowed += 1
+            self._log(f"[warn] score pass {self.passes} overflowed: {ovf} "
+                      f"pairs past the capacities over {len(self._views)} "
+                      f"views (overflowed passes: {self.overflowed})")
+        return scores
 
 
 def view_image(v, device):
@@ -583,7 +623,8 @@ def prune_training(state: S.TrainerState, train_views, test_views,
     step_fn = make_photometric_step(cfg, use_scale_decay=use_scale_decay,
                                     device=dev)
     eval_view, _ = make_eval_fns(cfg, device=dev)
-    score_view = make_score_fn(cfg, metric, device=dev)
+    watch_scores = ScoreWatch(train_views, make_score_fn(cfg, metric,
+                                                         device=dev), log)
 
     def run_eval(st):
         return evaluate(st, test_views or train_views, eval_view,
@@ -596,9 +637,7 @@ def prune_training(state: S.TrainerState, train_views, test_views,
 
     def do_metric_prunes(st, times):
         for _ in range(times):
-            cand = S.metric_prune(
-                st, metric_prune_scores(st, train_views, score_view),
-                prune_ratio)
+            cand = S.metric_prune(st, watch_scores.scores(st), prune_ratio)
             if not passes(cand)[0]:
                 break
             st = cand
@@ -643,9 +682,8 @@ def prune_training(state: S.TrainerState, train_views, test_views,
                 state = best
             adapt_iters = max(prune_interval // 10, 25)
             for _ in range(final_prune_rounds):
-                cand = S.metric_prune(
-                    state, metric_prune_scores(state, train_views,
-                                               score_view), prune_ratio)
+                cand = S.metric_prune(state, watch_scores.scores(state),
+                                      prune_ratio)
                 for ai in range(adapt_iters):
                     va = stack.pop()
                     cand, aux = step_fn(cand, va.camera,
@@ -680,7 +718,8 @@ def mask_training(state: S.TrainerState, train_views, pooling_size: float,
     step_fn = make_hvs_step(cfg, pooling_size, "L1", masking=True,
                             device=dev)
     _, hvs_view = make_eval_fns(cfg, device=dev)
-    score_view = make_score_fn(cfg, "surface", device=dev)
+    watch_scores = ScoreWatch(train_views, make_score_fn(cfg, "surface",
+                                                         device=dev), log)
 
     def run_hvs(st):
         return float(np.mean([
@@ -707,9 +746,8 @@ def mask_training(state: S.TrainerState, train_views, pooling_size: float,
             if hvs <= target_hvs:
                 best = state
                 for _ in range(per_prune_times):
-                    cand = S.metric_prune(
-                        state, metric_prune_scores(state, train_views,
-                                                   score_view), prune_ratio)
+                    cand = S.metric_prune(state, watch_scores.scores(state),
+                                          prune_ratio)
                     if run_hvs(cand) > target_hvs:
                         break
                     state = best = cand

@@ -508,7 +508,7 @@ def test_score_and_hvs_step_match_cpu(cuda):
             p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(), cam,
             shs=p.get_features(), mode=m, config=cfg.raster,
             live_mask=st.live) for m in stats.MODES]
-        scores = [loops.make_score_fn(cfg, m)(st, cam).cpu()
+        scores = [loops.make_score_fn(cfg, m)(st, cam)[0].cpu()
                   for m in ("max_comp_efficiency", "max_contrib", "surface")]
         new, aux = loops.make_hvs_step(cfg, 3.0, masking=True, device=d)(
             st, cam, torch.from_numpy(gt).to(d), 1)
@@ -2340,3 +2340,59 @@ def test_stage_map_splits_three_replays(cuda, path, monkeypatch):
     assert abs(sum(g["stage_s"].values()) - g["device_s"]) <= \
         1e-9 + 1e-6 * g["device_s"]
 
+
+
+def test_dense_score_pass_graphed_matches_eager(cuda):
+    """The metric-prune score pass on the dense proxy (benchmark/
+    reference/dense.py) cut to 1.5M rows at 1237x822, two ring views:
+    the graphed pass equals the eager one bit for bit, its overflow
+    included, at the configuration's capacities (no overflow) and at a
+    pair capacity that spills (both count the same overflow); the cut
+    kills 2% of the rows; and profiling.window_report splits a view's
+    replay into the score route's stages with 0 unmatched operations and
+    under 1% of its device time outside every span."""
+    import json
+    import types
+    from pathlib import Path
+    from torch.profiler import ProfilerActivity, profile
+    from benchmark.reference import camera as refcam
+    from benchmark.reference import dense
+    from benchmark.runners.frame_loop import program_cameras
+    from fovsplat_torch.models.gaussians import GaussianParams
+    from fovsplat_torch.utils import profiling
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark/configs/bicycle-3dgs-dense.json")
+                     .read_text())
+    fc = cfg["frame"]
+    fc["points"] = 1_500_000
+    p0 = dense.dense_raw(cfg, 2**31 + 5, cuda)
+    st = S.from_params(GaussianParams(**p0))
+    arrays = refcam.ring_arrays([0.0, 2.0], fc["width"], fc["height"])
+    views = [types.SimpleNamespace(camera=c) for c in program_cameras(
+        arrays, fc["width"], fc["height"], cuda)]
+    passes = {}
+    for pair_capacity in (1 << 20, fc["pair_capacity"]):
+        lc = loops.LoopConfig(raster=RasterizeConfig(
+            pair_capacity=pair_capacity,
+            compact_capacity=min(pair_capacity, fc["compact_capacity"]),
+            power_cutoff=fc["power_cutoff"]))
+        view = loops.make_score_fn(lc)
+        g, g_ovf = loops.metric_prune_scores(st, views, view)
+        e, e_ovf = loops.metric_prune_scores(st, views, view.eager)
+        assert torch.equal(g, e) and int(g_ovf) == int(e_ovf)
+        assert view.graph.captures == 1
+        passes[pair_capacity] = (g, int(g_ovf))
+    assert passes[1 << 20][1] > 0 and passes[fc["pair_capacity"]][1] == 0
+    cut = S.metric_prune(st, g, 0.02)
+    assert int(st.live.sum() - cut.live.sum()) == int(1_500_000 * 0.02)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        view(st, views[0].camera)
+        torch.cuda.synchronize()
+    rep = profiling.window_report(prof.events())
+    assert rep["unmatched"] == 0
+    (graph,) = [v for v in rep["graphs"].values() if v["replays"]]
+    stages = graph["stage_s"]
+    assert {"project", "table", "expand", "sort", "gather", "stats",
+            "reduce", "compose"} <= set(stages)
+    assert stages.get("other", 0.0) < 0.01 * graph["device_s"]

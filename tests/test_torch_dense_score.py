@@ -1,0 +1,182 @@
+"""The metric-prune score pass on a tiny dense proxy: the port's CPU path
+(train/loops.make_score_fn, metric_prune_scores, models/state.
+metric_prune) against the benchmark's plain reference
+(benchmark/reference/score.py), the dense proxy's rows
+(benchmark/reference/dense.py), the score route's overflow count and its
+bound on the f32 Gaussian-id row."""
+
+import json
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.reference import camera as refcam
+from benchmark.reference import dense
+from benchmark.reference import proxy as bproxy
+from benchmark.reference import score as ref
+from benchmark.runners.frame_loop import program_cameras
+from fovsplat_torch.models import state as S
+from fovsplat_torch.models.gaussians import GaussianParams
+from fovsplat_torch.ops import stats
+from fovsplat_torch.ops.rasterize import RasterizeConfig
+from fovsplat_torch.train import loops
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+W, H, VIEWS, SEED = 80, 56, 3, 2**31 + 11
+MODE = "loss_weighted_max_count"
+
+
+def _config(n_ps1=1000, n=5250):
+    """The cell's configuration at a tiny size: n_ps1 PS1 rows and their
+    split children up to n rows, 80x56."""
+    cfg = json.loads((ROOT / "benchmark/configs/bicycle-3dgs-dense.json")
+                     .read_text())
+    cfg["ps1_points"] = n_ps1
+    cfg["frame"].update(points=n, width=W, height=H,
+                        pair_capacity=1 << 16, compact_capacity=1 << 15)
+    return cfg
+
+
+def _loop_config(fc, pair_capacity=None):
+    cap = pair_capacity or fc["pair_capacity"]
+    return loops.LoopConfig(raster=RasterizeConfig(
+        pair_capacity=cap, compact_capacity=min(cap, fc["compact_capacity"]),
+        power_cutoff=fc["power_cutoff"]))
+
+
+def _state(p0):
+    return S.from_params(GaussianParams(**{f: v.clone()
+                                           for f, v in p0.items()}))
+
+
+def _views(n):
+    arrays = refcam.ring_arrays(2 * np.pi * np.arange(n) / n, W, H)
+    return arrays, program_cameras(arrays, W, H, torch.device("cpu"))
+
+
+@pytest.fixture(scope="module")
+def dense_pass():
+    """The port's score views, pass and cut, and the reference's, on the
+    tiny dense proxy over three ring views."""
+    cfg = _config()
+    fc = cfg["frame"]
+    p0 = dense.dense_raw(cfg, SEED, "cpu")
+    st = _state(p0)
+    lc = _loop_config(fc)
+    arrays, cams = _views(VIEWS)
+    score_view = loops.make_score_fn(lc, device="cpu")
+    seen = []
+
+    def view(state, camera):
+        seen.append(score_view(state, camera))
+        return seen[-1]
+    best, overflow = loops.metric_prune_scores(
+        st, [types.SimpleNamespace(camera=c) for c in cams], view)
+    p = st.params
+    per_view = []
+    for cam, (scores, ovf) in zip(cams, seen):
+        o = stats.rasterize_stats(
+            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(), cam,
+            shs=p.get_features(), mode=MODE,
+            loss_map=torch.ones((H, W)), config=lc.raster,
+            live_mask=st.live)
+        per_view.append((o["gs_count"], o["contribs"], scores, ovf))
+    cut = S.metric_prune(st, best, cfg["prune"]["prune_ratio"])
+    want = ref.score_pass(
+        p0, [refcam.ref_camera(arrays, i, W, H, "cpu") for i in range(VIEWS)],
+        fc, cfg["prune"]["prune_ratio"])
+    return {"views": per_view, "max": best, "overflow": overflow,
+            "kill": st.live & ~cut.live, "want": want}
+
+
+@pytest.mark.parametrize("case", ["view0", "view1", "view2", "pass"])
+def test_dense_score_matches_reference(dense_pass, case):
+    """Each view's gs_count and contribs exactly, its max_comp_efficiency
+    within 1e-6 relative; the pass's max over the views and the rows its
+    2% cut kills, as the reference's."""
+    d, want = dense_pass, dense_pass["want"]
+    if case == "pass":
+        torch.testing.assert_close(d["max"], want["max"], rtol=1e-6, atol=0)
+        assert int(d["overflow"]) == 0
+        assert torch.equal(d["kill"], want["kill"])
+        assert int(d["kill"].sum()) == int(want["max"].shape[0] * 0.02)
+        return
+    gs, contribs, scores, overflow = d["views"][int(case[-1])]
+    w_gs, w_contribs, work = want["views"][int(case[-1])]
+    assert int(overflow) == 0 and work["kept"] > 1000
+    assert torch.equal(gs.long(), w_gs)
+    assert torch.equal(contribs, w_contribs)
+    assert int((contribs > 0).sum()) > 100
+    torch.testing.assert_close(scores, ref.efficiency(w_gs, w_contribs),
+                               rtol=1e-6, atol=0)
+
+
+def test_dense_proxy_rows():
+    """The first rows are the PS1 proxy of the same seed; the rest are
+    split children (the parent's scale / 1.6, its rotation and SH, an
+    opacity above the floor); the row count is the configuration's; a
+    seed only orders the rows."""
+    cfg = _config()
+    n_ps1, n = cfg["ps1_points"], cfg["frame"]["points"]
+    p0 = dense.dense_raw(cfg, SEED, "cpu")
+    assert all(v.shape[0] == n for v in p0.values())
+    ps1 = bproxy.train_raw(bproxy.bicycle_proxy(n_ps1, SEED, "cpu",
+                                                cfg["pnum"]))
+    for f, v in ps1.items():
+        assert torch.equal(p0[f][:n_ps1], v), f
+    cloud = bproxy._cloud(n_ps1, torch.device("cpu"), cfg["pnum"], 0.45)
+    kids = dense.split_children(cloud, n - n_ps1, "cpu", cfg["children"])
+    par = kids["parent"]
+    torch.testing.assert_close(torch.exp(kids["scaling"]),
+                               cloud["scales"][par] / 1.6, rtol=1e-6, atol=0)
+    assert torch.equal(kids["rotation"], cloud["rotations"][par])
+    assert torch.equal(kids["features_rest"], cloud["shs_rest"][par])
+    floor = float(np.log(0.005 / 0.995))
+    assert float(kids["opacity"].min()) >= floor - 1e-6
+    assert float(torch.sigmoid(kids["opacity"]).median()) < 0.1
+    other = dense.dense_raw(cfg, SEED + 1, "cpu")
+
+    def rows(q):
+        # Ordered by the position's x, then its y.
+        r = torch.cat([q[f].reshape(n, -1) for f in sorted(q)], 1)
+        r = r[torch.argsort(q["xyz"][:, 1], stable=True)]
+        return r[torch.argsort(r[:, -3], stable=True)]
+    assert not torch.equal(other["xyz"], p0["xyz"])
+    assert torch.equal(rows(other), rows(p0))
+
+
+def test_score_pass_counts_overflow():
+    """A pair capacity the views spill: each view reports its overflow,
+    the pass their sum, and ScoreWatch logs the pass and counts it."""
+    cfg = _config(n_ps1=500, n=2500)
+    st = _state(dense.dense_raw(cfg, SEED, "cpu"))
+    _, cams = _views(2)
+    view = loops.make_score_fn(_loop_config(cfg["frame"], 1 << 11),
+                               device="cpu")
+    each = [int(view(st, c)[1]) for c in cams]
+    views = [types.SimpleNamespace(camera=c) for c in cams]
+    _, total = loops.metric_prune_scores(st, views, view)
+    assert min(each) > 0 and int(total) == sum(each)
+    logs = []
+    watch = loops.ScoreWatch(views, view, logs.append)
+    watch.scores(st)
+    assert (watch.passes, watch.overflowed) == (1, 1)
+    assert len(logs) == 1 and f"{sum(each)} pairs" in logs[0]
+
+
+@pytest.mark.parametrize("past", ["gaussians", "kept"])
+def test_gid_row_bound_raises(past):
+    """The fused stats route sorts Gaussian ids as an f32 row: it refuses
+    more than 2^24 Gaussians or kept pairs before any work."""
+    n = stats.GID_EXACT + 1 if past == "gaussians" else 16
+    cam = _views(1)[1][0]
+    rows = torch.zeros(1, 4).expand(n, 4)
+    cfg = RasterizeConfig(pair_capacity=1 << 12, compact_capacity=(
+        stats.GID_EXACT + 1 if past == "kept" else None))
+    with pytest.raises(ValueError, match="exact up to"):
+        stats.rasterize_stats(rows[:, :3], rows[:, :3], rows, rows[:, 0],
+                              cam, colors=rows[:, :3], config=cfg)

@@ -405,8 +405,9 @@ def test_eval_and_score_fns_match_jax(scene):
     for metric in ("max_comp_efficiency", "surface", "max_contrib"):
         sj = np.asarray(jloops.metric_prune_scores(
             jst, s["jviews"], jloops.make_score_fn(s["jcfg"], metric)))
-        st = tloops.metric_prune_scores(
+        st, ovf = tloops.metric_prune_scores(
             tst, s["tviews"], tloops.make_score_fn(s["tcfg"], metric))
+        assert int(ovf) == 0, metric
         np.testing.assert_allclose(st.numpy(), sj, rtol=1e-4, atol=1e-6,
                                    err_msg=metric)
         assert (sj > 0).sum() > 100, metric
@@ -495,7 +496,7 @@ def test_rollback_snapshots_stay_as_they_were(scene):
         st, v.camera, t(v.image), 1, 1e-4)
     new, _ = tloops.make_hvs_step(cfg, 3.0, masking=True, device="cpu")(
         new, v.camera, t(v.image), 2)
-    scores = tloops.metric_prune_scores(
+    scores, _ = tloops.metric_prune_scores(
         st, s["tviews"][:1], tloops.make_score_fn(cfg))
     for fn in (lambda x: tstate.opacity_prune(x, 0.5),
                lambda x: tstate.metric_prune(x, scores, 0.3),
