@@ -2100,8 +2100,8 @@ def scratch_launches(iterations, views, lg_prunes, degrees, warmups):
     """The launches of kernels 4-8, 10 and 13 a train_scratch run implies:
     one projection forward and backward, expansion, forward and backward
     blend, gid reduce and SSIM forward and backward a step, and per view
-    of each LG prune one expansion, stats blend and reduce (the
-    count_opacity contributions).
+    of each LG prune one projection forward, expansion, stats blend and
+    reduce (the count_opacity contributions).
     On the card each of the step's `degrees` graphs (one an SH degree)
     and each LG prune's view graph add `warmups` runs
     (utils/graphs.WARMUPS) when captured."""
@@ -2110,7 +2110,7 @@ def scratch_launches(iterations, views, lg_prunes, degrees, warmups):
     return {"expand_ps1": steps + lg, "blend_forward": steps,
             "blend_backward": steps,
             "reduce_by_sorted_gid": steps + lg, "blend_stats": lg,
-            "project_sh_forward": steps, "project_sh_backward": steps,
+            "project_sh_forward": steps + lg, "project_sh_backward": steps,
             "ssim_forward": steps, "ssim_backward": steps}
 
 

@@ -15,7 +15,9 @@ The reference's counting rasterizers, by mode:
   "count_opacity"  gs_count the contributing pixels, contribs the sum of
           opacity over them (LightGaussian's renderCUDA_count).
 
-rasterize_stats runs kernel 4 (binning.bin_fused_ps1, which carries each
+rasterize_stats runs kernel 10's forward (ops/kernels/project_sh, the
+train route's projection and SH colour; CPU tensors take its plain twin,
+project_sh_plain), kernel 4 (binning.bin_fused_ps1, which carries each
 pair's Gaussian id), kernel 8 (ops/kernels/blend_stats) and reductions by
 Gaussian id. Float sums are deterministic: the value rows are sorted by
 Gaussian id (a stable torch.sort) and kernel 7 sums each Gaussian's run
@@ -33,25 +35,27 @@ binning.bin_gaussians' pairs.
 The fused route carries each pair's Gaussian id as an f32 row, exact up
 to 2^24 (GID_EXACT): rasterize_stats refuses a state or a kept capacity
 past it before any work. Its stages run in profiling spans: project
-(activated SH colour, projection, the table's columns), the binning's
-table, expand, sort and gather, stats (kernel 8), reduce (the
-per-Gaussian sums) and compose (the image and radii).
+(kernel 10's forward: projection, SH colour and the table's columns, the
+SH read in place from the model's pair), the binning's table, expand,
+sort and gather, stats (kernel 8), reduce (the per-Gaussian sums) and
+compose (the image and radii).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fovsplat_torch.ops import binning, projection, sh
+from fovsplat_torch.ops import binning, sh
 from fovsplat_torch.ops.blend import (BIG, PIX, blend_stats_plain,
                                       tile_inside_mask, tiles_to_image)
 from fovsplat_torch.ops.kernels.blend_stats import (
     blend_stats as blend_stats_kernel)
+from fovsplat_torch.ops.kernels.project_sh import (project_sh, sh_tensor,
+                                                   train_order)
 from fovsplat_torch.ops.kernels.segment_reduce import (
     reduce_by_sorted_gid, reduce_by_sorted_gid_plain)
 from fovsplat_torch.ops.projection import TILE
-from fovsplat_torch.ops.rasterize import (RasterizeConfig, _grid,
-                                          _xla_pairs, train_columns)
+from fovsplat_torch.ops.rasterize import RasterizeConfig, _grid, _xla_pairs
 from fovsplat_torch.utils.profiling import span
 
 MODES = ("sum", "max", "loss_weighted_max_count", "count_opacity")
@@ -196,7 +200,9 @@ def rasterize_stats(means3d, scales, rotations, opacities, camera,
     ..._pcheck_obb_sum/__init__.py:92-104).
 
     Arguments as ops/rasterize.rasterize, plus mode (one of MODES) and
-    loss_map (H, W) for "loss_weighted_max_count" (None: ones);
+    loss_map (H, W) for "loss_weighted_max_count" (None: ones); shs the
+    pair (sh_a, sh_b or None), as the model's (features_dc,
+    features_rest), or one (N, K, 3) tensor, the same bits either way;
     config.backend "xla" takes the XLA route (stats.py:330-345). Returns a
     dict: render (H, W, 3), final_T (H, W), gs_count (N,) i32, contribs
     (N,) f32, radii (N,) i32 and binned (ops/binning.Binned), whose
@@ -212,10 +218,13 @@ def rasterize_stats(means3d, scales, rotations, opacities, camera,
             f"the fused stats route sorts Gaussian ids as f32, exact up to "
             f"{GID_EXACT}; got {n} Gaussians and a kept capacity of "
             f"{cfg.kept_capacity()}")
-    with span("project"):
-        if colors is None:
-            colors = sh.sh_to_rgb(sh_degree, shs, means3d, camera.cam_center)
+    if colors is None and torch.is_tensor(shs):
+        shs = (shs, None)
     if cfg.backend == "xla":
+        with span("project"):
+            if colors is None:
+                colors = sh.sh_to_rgb(sh_degree, sh_tensor(shs), means3d,
+                                      camera.cam_center)
         lm = None if loss_map is None else image_to_tiles(loss_map, gx, gy)
         prep, bn, rows = _xla_pairs(means3d, scales, rotations, opacities,
                                     camera, colors, cfg, None, live_mask,
@@ -228,14 +237,14 @@ def rasterize_stats(means3d, scales, rotations, opacities, camera,
             camera.height)
     else:
         with span("project"):
-            prep = projection.preprocess_cols(
-                means3d, scales, rotations, camera,
-                scale_modifier=cfg.scale_modifier, live_mask=live_mask)
+            prep = project_sh(means3d, scales, rotations, opacities, camera,
+                              colors=colors, shs=shs, sh_degree=sh_degree,
+                              scale_modifier=cfg.scale_modifier,
+                              live_mask=live_mask)
             valid, radius = prep.valid, prep.radius
-            cols = train_columns(prep, opacities, colors)
         pairs, bn = binning.bin_fused_ps1(
-            cols, prep.valid, prep.depth, gx, gy, cfg.pair_capacity,
-            cfg.kept_capacity(), cfg.use_obb)
+            train_order(prep.aux, prep.diff), prep.valid, prep.depth, gx,
+            gy, cfg.pair_capacity, cfg.kept_capacity(), cfg.use_obb)
         with span("stats"):
             lm = None if loss_map is None else image_to_tiles(loss_map, gx,
                                                               gy)

@@ -456,24 +456,25 @@ def make_score_fn(cfg: LoopConfig, metric: str = "max_comp_efficiency",
     prune.py:79-97), "max_comp_efficiency" (pixels won / fetched pairs),
     "max_contrib" (the largest alpha * T) or "surface" (pixels won), and
     the view's pairs past the capacities (Binned.overflow: a view that
-    spills scores a cut pair list). Unless `device` is "cpu" (then the
-    eager function), a state on the card runs through a CUDA graph per
-    state capacity and camera (width, height) (graphed_view), kernel 8
+    spills scores a cut pair list). Its stage project is the activations
+    in torch and kernel 10's forward (rasterize_stats), which reads the
+    model's SH pair in place. Unless `device` is "cpu" (then the eager
+    function), a state on the card runs through a CUDA graph per state
+    capacity and camera (width, height) (graphed_view), kernels 10, 8
     and the reductions inside; a state on the CPU runs eagerly."""
     mode = "max" if metric == "max_contrib" else "loss_weighted_max_count"
 
     def score_view(state: S.TrainerState, camera):
         p = state.params
         with span("project"):
-            acts = (p.get_scaling(), p.get_rotation(), p.get_opacity(),
-                    p.get_features())
+            acts = (p.get_scaling(), p.get_rotation(), p.get_opacity())
         with span("stats"):
             loss_map = torch.ones((camera.height, camera.width),
                                   dtype=torch.float32, device=p.xyz.device)
         out = stats_ops.rasterize_stats(
-            p.xyz, *acts[:3], camera, shs=acts[3], sh_degree=cfg.sh_degree,
-            mode=mode, loss_map=loss_map, config=cfg.raster,
-            live_mask=state.live)
+            p.xyz, *acts, camera, shs=(p.features_dc, p.features_rest),
+            sh_degree=cfg.sh_degree, mode=mode, loss_map=loss_map,
+            config=cfg.raster, live_mask=state.live)
         scores = out["contribs"]
         if metric == "max_comp_efficiency":
             with span("reduce"):

@@ -153,8 +153,9 @@ def make_significance_view(cfg: loops.LoopConfig, device=None):
         p = state.params
         out = stats_ops.rasterize_stats(
             p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(),
-            camera, shs=p.get_features(), sh_degree=cfg.sh_degree,
-            mode="count_opacity", config=cfg.raster, live_mask=state.live)
+            camera, shs=(p.features_dc, p.features_rest),
+            sh_degree=cfg.sh_degree, mode="count_opacity", config=cfg.raster,
+            live_mask=state.live)
         return out["gs_count"], out["contribs"]
 
     return loops.graphed_view(view, device)

@@ -2396,3 +2396,102 @@ def test_dense_score_pass_graphed_matches_eager(cuda):
     assert {"project", "table", "expand", "sort", "gather", "stats",
             "reduce", "compose"} <= set(stages)
     assert stages.get("other", 0.0) < 0.01 * graph["device_s"]
+
+
+def _dense_case(dev, n_ps1=20_000, n=100_000, w=W, h=H):
+    """The dense proxy (benchmark/reference/dense.py) cut to n rows, its
+    first n_ps1 the PS1 proxy's and the rest their split children
+    (opacity logit N(-3, 1)), every seventh row dead; a ring camera at
+    w x h; capacities past the candidates and kept pairs."""
+    import json
+    from pathlib import Path
+    from benchmark.reference import camera as refcam
+    from benchmark.reference import dense
+    from benchmark.runners.frame_loop import program_cameras
+    from fovsplat_torch.models.gaussians import GaussianParams
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark/configs/bicycle-3dgs-dense.json")
+                     .read_text())
+    cfg["ps1_points"] = n_ps1
+    cfg["frame"]["points"] = n
+    st = S.from_params(GaussianParams(**dense.dense_raw(cfg, 2**31 + 7,
+                                                        dev)))
+    st = S.prune_mask(st, torch.arange(n, device=dev) % 7 == 3)
+    arrays = refcam.ring_arrays([0.7], w, h)
+    cams = [program_cameras(arrays, w, h, d)[0]
+            for d in (dev, torch.device("cpu"))]
+    raster = RasterizeConfig(pair_capacity=1 << 18,
+                             power_cutoff=cfg["frame"]["power_cutoff"])
+    return st, cams, raster
+
+
+@pytest.mark.parametrize("mode", stats.MODES)
+def test_score_route_on_kernel_10_matches_twin(cuda, mode, monkeypatch):
+    """rasterize_stats on the card takes its columns from kernel 10's
+    forward, one launch a call, on the dense proxy's rows: kernel 10's
+    columns, valid, depth and radius equal the twin's bit for bit; the
+    route with the model's SH pair and with one (N, 16, 3) tensor equals
+    the same route with the twin (project_sh_plain, the torch glue it
+    replaces) in every output bit for bit, and the CPU route with
+    gs_count exact, contribs within 1e-5 relative and the render within
+    1e-4."""
+    st, (cam, cam_cpu), raster = _dense_case(cuda)
+    p = st.params
+    args = (p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity())
+    pair = (p.features_dc, p.features_rest)
+    with torch.no_grad():
+        k = psh.project_sh_forward(*args, cam, shs=pair, live_mask=st.live)
+        q = psh.project_sh_plain(*args, cam, shs=pair, live_mask=st.live)
+    for name in ("diff", "aux", "valid", "depth", "radius"):
+        assert _same_bits(getattr(k, name), getattr(q, name)), name
+    assert int(k.valid.sum()) > 40_000
+    lm = torch.rand((H, W), generator=torch.Generator().manual_seed(3))
+
+    def run(shs, dev=cuda):
+        return stats.rasterize_stats(
+            *[a.to(dev) for a in args], cam if dev == cuda else cam_cpu,
+            shs=shs, mode=mode, loss_map=lm.to(dev), config=raster,
+            live_mask=st.live.to(dev))
+    kernel = psh.project_sh_forward
+    kernel.launches = 0
+    got = [run(pair), run(psh.sh_tensor(pair))]
+    assert kernel.launches == 2
+    cpu = run(tuple(t.cpu() for t in pair), torch.device("cpu"))
+    monkeypatch.setattr(psh, "project_sh_forward", psh.project_sh_plain)
+    want = run(pair)
+    assert kernel.launches == 2
+    keys = ("render", "final_T", "gs_count", "contribs", "radii")
+    for o in got:
+        assert all(torch.equal(o[key], want[key]) for key in keys)
+    assert int(want["binned"].overflow) == int(cpu["binned"].overflow) == 0
+    assert int(want["binned"].num_pairs) == int(cpu["binned"].num_pairs)
+    assert int((want["contribs"] > 0).sum()) > 2_000
+    assert torch.equal(want["gs_count"].cpu(), cpu["gs_count"])
+    torch.testing.assert_close(want["contribs"].cpu(), cpu["contribs"],
+                               rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(want["render"].cpu(), cpu["render"], rtol=0,
+                               atol=1e-4)
+
+
+def test_graphed_score_view_launches_kernel_10(cuda, monkeypatch):
+    """The graphed score view on the dense proxy launches kernel 10's
+    forward once a view (its capture counts it, each replay adds one)
+    and reaches no torch SH colour (sh.sh_to_rgb) on the card; graph and
+    eager agree bit for bit."""
+    st, (cam, _), raster = _dense_case(cuda)
+    calls = []
+    real = sh.sh_to_rgb
+    monkeypatch.setattr(sh, "sh_to_rgb",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    view = loops.make_score_fn(loops.LoopConfig(raster=raster))
+    first = view(st, cam)
+    eager = view.eager(st, cam)
+    assert not calls
+    assert view.graph.launches_per_replay["project_sh_forward"] == 1
+    psh.project_sh_forward.launches = 0
+    for _ in range(3):
+        again = view(st, cam)
+    assert psh.project_sh_forward.launches == 3
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(first, eager, again))
+    assert int(first[1]) == 0 and int((first[0] > 0).sum()) > 2_000

@@ -2,9 +2,10 @@
 (train/loops.make_score_fn, metric_prune_scores, models/state.
 metric_prune) against the benchmark's plain reference
 (benchmark/reference/score.py), the dense proxy's rows
-(benchmark/reference/dense.py), the score route's overflow count and its
-bound on the f32 Gaussian-id row."""
+(benchmark/reference/dense.py), the score route's overflow count, its
+bound on the f32 Gaussian-id row and its two forms of the SH."""
 
+import dataclasses
 import json
 import types
 from pathlib import Path
@@ -21,6 +22,7 @@ from benchmark.runners.frame_loop import program_cameras
 from fovsplat_torch.models import state as S
 from fovsplat_torch.models.gaussians import GaussianParams
 from fovsplat_torch.ops import stats
+from fovsplat_torch.ops.kernels.project_sh import sh_tensor
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from fovsplat_torch.train import loops
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -180,3 +182,31 @@ def test_gid_row_bound_raises(past):
     with pytest.raises(ValueError, match="exact up to"):
         stats.rasterize_stats(rows[:, :3], rows[:, :3], rows, rows[:, 0],
                               cam, colors=rows[:, :3], config=cfg)
+
+
+@pytest.mark.parametrize("mode", stats.MODES)
+@pytest.mark.parametrize("backend", ["kernels", "xla"])
+def test_sh_pair_matches_one_tensor(backend, mode):
+    """rasterize_stats with the model's SH pair (features_dc,
+    features_rest) and with sh_tensor of it, one (N, 16, 3) tensor: every
+    output bit for bit, on the kernel route (its plain twin on the CPU)
+    and on the XLA route, over the dense proxy's split children with
+    every fifth row dead."""
+    cfg = _config(n_ps1=500, n=2500)
+    p = _state(dense.dense_raw(cfg, SEED, "cpu")).params
+    live = torch.arange(p.num_points) % 5 != 2
+    cam = _views(1)[1][0]
+    raster = dataclasses.replace(_loop_config(cfg["frame"]).raster,
+                                 backend=backend)
+    loss_map = torch.rand((H, W), generator=torch.Generator().manual_seed(1))
+    pair = (p.features_dc, p.features_rest)
+    a, b = [stats.rasterize_stats(
+        p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity(), cam,
+        shs=shs, mode=mode, loss_map=loss_map, config=raster,
+        live_mask=live) for shs in (pair, sh_tensor(pair))]
+    for k in ("render", "final_T", "gs_count", "contribs", "radii"):
+        assert torch.equal(a[k], b[k]), k
+    assert int(a["binned"].num_pairs) == int(b["binned"].num_pairs) > 1000
+    assert int(a["binned"].overflow) == 0
+    assert int((a["contribs"] > 0).sum()) > 100
+    assert not bool(a["radii"][~live].any())
