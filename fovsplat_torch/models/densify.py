@@ -6,14 +6,20 @@ Counterpart of the reference's densify_and_prune family
 scale/1.6 resampling, prune by opacity/screen-size) and the gradient
 accumulation driven from the render loop (add_densification_stats).
 
-Fixed capacity: each densify event promotes at most `budget` candidates
-into dead capacity rows, highest view-space positional gradient first. If
-the capacity runs out the lowest-priority candidates are dropped and
-counted, never silently reordered. Ranks are taken by stable sorts, so
-ties go to the lower row index, as jax.lax.top_k orders them: the
-candidate ranking and the dead-slot pick (whose scores are all +-1) give
-the JAX package's rows exactly. The split's normal samples come in as an
-argument, so that a caller decides where they are drawn.
+Fixed capacity (densify_and_clone, densify_and_split): each densify
+event promotes at most `budget` candidates into dead capacity rows,
+highest view-space positional gradient first. If the capacity runs out
+the lowest-priority candidates are dropped and counted, never silently
+reordered. Ranks are taken by stable sorts, so ties go to the lower row
+index, as jax.lax.top_k orders them: the candidate ranking and the
+dead-slot pick (whose scores are all +-1) give the JAX package's rows
+exactly.
+
+Every candidate (densify_every_candidate): the reference's rule, with no
+budget. Every candidate is cloned or split, and the state grows to a
+larger capacity first when its dead rows cannot hold the new rows, so
+nothing is dropped. The split's normal samples come in as an argument in
+both forms, so that a caller decides where they are drawn.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from fovsplat_torch.ops.projection import quat_to_rotmat
 from fovsplat_torch.train import optim
 from fovsplat_torch.utils.device import resolve_device
 from fovsplat_torch.utils.general import inverse_sigmoid
+from fovsplat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,14 +63,18 @@ def init_stats(capacity: int, device=None) -> DensifyStats:
     return DensifyStats(grad_accum=z, denom=z, max_radii=z)
 
 
-def accumulate(stats: DensifyStats, mean2d_grad, radii, width,
-               height) -> DensifyStats:
+def accumulate(stats: DensifyStats, mean2d_grad, radii, width, height,
+               ndc: bool = False) -> DensifyStats:
     """add_densification_stats: accumulate ||d mean2d|| for visible rows.
-    The reference uses NDC-space gradients (viewspace_points); the
-    pixel-space gradients here are rescaled by 2/size to match the
-    threshold scale."""
-    gx = mean2d_grad[:, 0] * (2.0 / width)
-    gy = mean2d_grad[:, 1] * (2.0 / height)
+    The reference takes the norm of the NDC-space gradient
+    (viewspace_points), the pixel-space gradient times size / 2; `ndc`
+    does the same. By default the pixel-space gradients are scaled by
+    2 / size, as the JAX package scales them, so that its thresholds
+    hold."""
+    sx, sy = ((0.5 * width, 0.5 * height) if ndc
+              else (2.0 / width, 2.0 / height))
+    gx = mean2d_grad[:, 0] * sx
+    gy = mean2d_grad[:, 1] * sy
     norm = torch.sqrt(gx * gx + gy * gy)
     vis = radii > 0
     return DensifyStats(
@@ -176,6 +187,88 @@ def densify_and_clone(state: S.TrainerState, stats: DensifyStats,
     src = {f: t.detach() for f, t in p.fields().items()}
     state2, _, _, dropped = _place_rows(state, src, grads, want, budget)
     return state2, dropped
+
+
+def _put_rows(state: S.TrainerState, rows, values: dict):
+    """Write values (field -> (k, ...)) into `rows` of the state's own
+    tensors, zero their Adam moments and mark them live: in place, so
+    only on a state that grow has just made."""
+    for f in FIELDS:
+        getattr(state.params, f)[rows] = values[f]
+        state.opt.mu[f][rows] = 0.0
+        state.opt.nu[f][rows] = 0.0
+    state.live[rows] = True
+
+
+def _first_rows(mask, k: int):
+    """The first k rows where `mask` holds (it holds at k rows or more),
+    in row order, read without a host sync: row r goes to slot
+    cumsum(mask)[r] - 1, the other rows to a spare slot k."""
+    c = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (c < k), c, k)
+    out = torch.empty(k + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(mask.numel(), device=mask.device))
+    return out[:k]
+
+
+@torch.no_grad()
+def densify_every_candidate(state: S.TrainerState, stats: DensifyStats,
+                            grad_threshold: float, scene_extent: float,
+                            percent_dense: float, noise: torch.Tensor,
+                            capacity_for):
+    """densify_and_clone, then densify_and_split, with no budget
+    (gaussian_model.py:751-812): every live row whose mean gradient
+    reaches the threshold is cloned (largest scale at most percent_dense
+    * extent) or split in two samples of its Gaussian, scales / 1.6.
+
+    The new rows fill the state's first dead rows in row order: the
+    clones, in their sources' order, then each split's first child; the
+    second child takes its parent's row. When the dead rows cannot hold
+    them, the state first grows to capacity_for(rows needed)
+    (models/state.grow). Every new row, both children included, carries
+    zero Adam moments; the other rows keep theirs. `noise` (2, C, 3):
+    standard normals at the state's capacity C, noise[:, r] for a split
+    of row r. The state given is left as it was. One host read, of the
+    live and candidate counts, decides the growth. Stages: densify/grow
+    (the candidates, the growth and the rows to fill), densify/clone and
+    densify/split.
+
+    Returns (state, moves): moves holds the index tensors clone_src,
+    clone_dst, split_src and split_dst (each first child's row)."""
+    p = state.params
+    with span("densify/grow"):
+        grads = _mean_grads(stats)
+        scale = p.get_scaling().detach()
+        big = scale.amax(1) > percent_dense * scene_extent
+        want = state.live & (grads >= grad_threshold)
+        clone, split = want & ~big, want & big
+        live, n_clone, n_split = torch.stack(
+            [state.live.sum(), clone.sum(), split.sum()]).tolist()
+        n_new = n_clone + n_split
+        need = live + n_new
+        cap = state.capacity if need <= state.capacity else capacity_for(
+            need)
+        work = S.grow(state, cap)
+        clone_src = _first_rows(clone, n_clone)
+        split_src = _first_rows(split, n_split)
+        dst = _first_rows(~work.live, n_new)
+        clone_dst, split_dst = dst[:n_clone], dst[n_clone:]
+    with span("densify/clone"):
+        _put_rows(work, clone_dst, {f: t.detach()[clone_src]
+                                    for f, t in p.fields().items()})
+    with span("densify/split"):
+        s = scale[split_src]
+        R = quat_to_rotmat(p.get_rotation().detach()[split_src])
+        samples = p.xyz.detach()[split_src] + torch.einsum(
+            'nij,knj->kni', R, noise[:, split_src] * s)
+        child = {f: getattr(p, f).detach()[split_src]
+                 for f in ("features_dc", "features_rest", "rotation",
+                           "opacity")}
+        child["scaling"] = torch.log(s / (0.8 * 2))
+        _put_rows(work, split_dst, {**child, "xyz": samples[0]})
+        _put_rows(work, split_src, {**child, "xyz": samples[1]})
+    return work, {"clone_src": clone_src, "clone_dst": clone_dst,
+                  "split_src": split_src, "split_dst": split_dst}
 
 
 @torch.no_grad()

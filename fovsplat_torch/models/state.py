@@ -35,30 +35,50 @@ class TrainerState:
         return self.live.sum()
 
 
+def _pad_params(params: GaussianParams, cap: int) -> GaussianParams:
+    """The parameters followed by cap - N dead rows."""
+    n = params.num_points
+
+    def pad(x, fill=0.0):
+        extra = torch.full((cap - n,) + tuple(x.shape[1:]), fill,
+                           dtype=x.dtype, device=x.device)
+        return torch.cat([x.detach(), extra], dim=0)
+    # Padding rows must be numerically safe, not just dead: an all-zero
+    # quaternion hits 0/0 in the normalisation, and the NaN leaks into
+    # dead-row gradients through masked values (0 * NaN = NaN).
+    rotation = pad(params.rotation)
+    rotation[n:, 0] = 1.0
+    return GaussianParams(
+        xyz=pad(params.xyz),
+        features_dc=pad(params.features_dc),
+        features_rest=pad(params.features_rest),
+        scaling=pad(params.scaling, -10.0),     # exp -> ~5e-5
+        rotation=rotation,
+        opacity=pad(params.opacity, -10.0))     # sigmoid -> ~5e-5
+
+
 def from_params(params: GaussianParams, capacity: int | None = None
                 ) -> TrainerState:
     n = params.num_points
     cap = capacity or n
     if cap > n:
-        def pad(x, fill=0.0):
-            extra = torch.full((cap - n,) + tuple(x.shape[1:]), fill,
-                               dtype=x.dtype, device=x.device)
-            return torch.cat([x.detach(), extra], dim=0)
-        # Padding rows must be numerically safe, not just dead: an all-zero
-        # quaternion hits 0/0 in the normalisation, and the NaN leaks into
-        # dead-row gradients through masked values (0 * NaN = NaN).
-        rotation = pad(params.rotation)
-        rotation[n:, 0] = 1.0
-        params = GaussianParams(
-            xyz=pad(params.xyz),
-            features_dc=pad(params.features_dc),
-            features_rest=pad(params.features_rest),
-            scaling=pad(params.scaling, -10.0),     # exp -> ~5e-5
-            rotation=rotation,
-            opacity=pad(params.opacity, -10.0))     # sigmoid -> ~5e-5
+        params = _pad_params(params, cap)
     live = torch.arange(cap, device=params.xyz.device) < n
     return TrainerState(params=params, opt=optim.init_state(params),
                         live=live)
+
+
+def grow(state: TrainerState, capacity: int) -> TrainerState:
+    """The state at `capacity` >= its own: its rows first, then dead rows
+    as from_params pads them, with zero Adam moments (the Adam count
+    kept). Every tensor is new, so the caller may write into it."""
+    if capacity < state.capacity:
+        raise ValueError(f"grow: capacity {capacity} is below the state's "
+                         f"{state.capacity}")
+    extra = capacity - state.capacity
+    live = torch.cat([state.live, state.live.new_zeros(extra)])
+    return TrainerState(params=_pad_params(state.params, capacity),
+                        opt=optim.concat_rows(state.opt, extra), live=live)
 
 
 def compact(state: TrainerState):

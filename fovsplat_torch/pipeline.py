@@ -57,6 +57,9 @@ class PipelineConfig:
                                             # times this (combined_training
                                             # _script.py passes 1.0)
     scratch_iters: int = 30_000
+    scratch_budget: int | None = 16384     # ScratchConfig.densify_budget;
+                                            # None: every candidate, the
+                                            # capacity grown in buckets
     finetune_iters: int = 5_000
     hvs_ft_iters: int = 5_000
     capacity_headroom: float = 1.3
@@ -127,11 +130,15 @@ def run_pipeline(source_path: str, out_dir: str,
         else:
             params = G.create_from_points(scene.points, scene.colors,
                                           device=dev)
-            capacity = int(len(scene.points) * cfg.capacity_headroom * 8)
+            scfg = scratch.ScratchConfig(iterations=cfg.scratch_iters,
+                                         densify_budget=cfg.scratch_budget)
+            if cfg.scratch_budget is None:
+                capacity = scratch.capacity_bucket(len(scene.points))
+            else:
+                capacity = int(len(scene.points) * cfg.capacity_headroom * 8)
             state = S.from_params(params, capacity=capacity)
             log(f"from-scratch init: {params.num_points} gaussians, "
                 f"capacity {capacity}")
-            scfg = scratch.ScratchConfig(iterations=cfg.scratch_iters)
             state = scratch.train_scratch(state, scene.train_views,
                                           base_loop, scfg,
                                           scene_extent=scene.spatial_scale,

@@ -14,15 +14,31 @@ The global-significance scores run the count_opacity stats pass (kernel
 graphs (utils/graphs), the counterpart of the JAX package's jax.jit
 (scratch.py:71 and :96): the step one per state capacity, camera (width,
 height) and active SH degree, which picks the SH coefficients (a 30k run
-captures once a degree); a densify event keeps the capacity, so it
-captures nothing. scratch_step is the step's eager body. The split's
-normal samples are drawn from a torch.Generator on the state's device,
-seeded from `seed`, in place of the JAX package's key chain.
+captures once a degree). scratch_step is the step's eager body; its
+stages run in the spans render, loss, backward, adam and stats (the
+statistics' accumulate).
+
+A densify event (densify_event: clone, split, the size prune, the
+statistics' reset) takes one of two forms. With a densify_budget, the
+JAX package's: at most that many candidates placed into dead rows, the
+capacity kept, so it captures nothing. With densify_budget None, the
+reference's: every candidate cloned or split, the state grown to the
+next capacity bucket (capacity_bucket) when its dead rows cannot hold
+the new rows, the statistics in the reference's NDC scale, so that the
+published threshold 2e-4 holds, and reset before the size prune reads
+them, as the published densification_postfix resets them, so that the
+screen-size rule never fires; a new capacity is a new key, so the step
+captures once a bucket. Its stages run in the spans
+densify/grow, densify/clone, densify/split, densify/prune and
+densify/reset. The split's normal samples are drawn from a
+torch.Generator on the state's device, seeded from `seed`, in place of
+the JAX package's key chain.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence
 
 import torch
@@ -34,6 +50,7 @@ from fovsplat_torch.ops import stats as stats_ops
 from fovsplat_torch.train import loops, losses, optim
 from fovsplat_torch.utils import graphs
 from fovsplat_torch.utils.device import resolve_device
+from fovsplat_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,45 +67,83 @@ class ScratchConfig:
     prune_percent: float = 0.1
     prune_decay: float = 0.6
     v_pow: float = 0.1
-    densify_budget: int = 16384
+    # None: the reference's rule (every candidate, the capacity grown in
+    # buckets, NDC statistics); an int: the JAX package's budgeted event.
+    densify_budget: int | None = 16384
+
+
+# The buckets' step, in rows; a new bucket holds an eighth more rows than
+# it must, so that the next events' rows fit before the capacity grows
+# again.
+CAPACITY_QUANTUM = 1 << 20
+CAPACITY_HEADROOM = 1.125
+
+
+def capacity_bucket(rows: int) -> int:
+    """The capacity that holds `rows`: the smallest multiple of
+    CAPACITY_QUANTUM at or above CAPACITY_HEADROOM * rows."""
+    q = CAPACITY_QUANTUM
+    return -(-math.ceil(CAPACITY_HEADROOM * rows) // q) * q
 
 
 def scratch_step(state: S.TrainerState, dstats: D.DensifyStats, camera,
-                 gt, it, sh_degree: int, cfg: loops.LoopConfig):
+                 gt, it, sh_degree: int, cfg: loops.LoopConfig,
+                 scfg: ScratchConfig = ScratchConfig()):
     """One from-scratch step, the eager body of make_scratch_step's step:
     (new state, new dstats, {loss, nonfinite, overflow, num_pairs}), the
     values 0-d tensors on the state's device (not synchronised). `it` is
-    a python number or a 0-d tensor there."""
+    a python number or a 0-d tensor there. The statistics take the scale
+    of scfg's densify event: the reference's NDC gradient with no budget,
+    the JAX package's scale with one (D.accumulate). Raises ValueError
+    for a capacity or kept capacity of 2^24 or more: the pair rows carry
+    Gaussian ids as exact f32 integers."""
+    cap = max(state.capacity, cfg.raster.kept_capacity())
+    if cap >= stats_ops.GID_EXACT:
+        raise ValueError(
+            f"the scratch step's pair rows carry Gaussian ids as f32, exact "
+            f"below {stats_ops.GID_EXACT}; got a capacity of "
+            f"{state.capacity} and a kept capacity of "
+            f"{cfg.raster.kept_capacity()}")
     p = state.params
     fields = p.fields()
     offset = torch.zeros((state.capacity, 2), dtype=torch.float32,
                          device=p.xyz.device, requires_grad=True)
     with torch.enable_grad():
-        out = rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
-                             p.get_opacity(), camera,
-                             shs=(p.features_dc, p.features_rest),
-                             sh_degree=sh_degree,
-                             config=cfg.raster, live_mask=state.live,
-                             mean2d_offset=offset)
-        loss = losses.photometric_loss(out["render"], gt, cfg.lambda_dssim)
-        g = torch.autograd.grad(loss, [*fields.values(), offset])
-    grads, n_bad = loops._mask_dead_grads(dict(zip(fields, g[:-1])),
-                                          state.live)
-    lrs = optim.learning_rates(p, it, cfg.optim, cfg.spatial_lr_scale)
-    params, opt = optim.apply_updates(p, grads, state.opt, lrs, cfg.optim)
-    dstats = D.accumulate(dstats, g[-1], out["radii"], camera.width,
-                          camera.height)
+        with span("render"):
+            out = rast.rasterize(p.xyz, p.get_scaling(), p.get_rotation(),
+                                 p.get_opacity(), camera,
+                                 shs=(p.features_dc, p.features_rest),
+                                 sh_degree=sh_degree, config=cfg.raster,
+                                 live_mask=state.live, mean2d_offset=offset)
+        with span("loss"):
+            loss = losses.photometric_loss(out["render"], gt,
+                                           cfg.lambda_dssim)
+        with span("backward"):
+            g = torch.autograd.grad(loss, [*fields.values(), offset])
+    with span("backward"):
+        grads, n_bad = loops._mask_dead_grads(dict(zip(fields, g[:-1])),
+                                              state.live)
+    with span("adam"):
+        lrs = optim.learning_rates(p, it, cfg.optim, cfg.spatial_lr_scale)
+        params, opt = optim.apply_updates(p, grads, state.opt, lrs,
+                                          cfg.optim)
+    with span("stats"):
+        dstats = D.accumulate(dstats, g[-1], out["radii"], camera.width,
+                              camera.height,
+                              ndc=scfg.densify_budget is None)
     bn = out["binned"]
     return (dataclasses.replace(state, params=params, opt=opt), dstats,
             {"loss": loss.detach(), "nonfinite": n_bad,
              "overflow": bn.overflow, "num_pairs": bn.num_pairs})
 
 
-def make_scratch_step(cfg: loops.LoopConfig, device=None):
+def make_scratch_step(cfg: loops.LoopConfig, device=None,
+                      scfg: ScratchConfig = ScratchConfig()):
     """step(state, dstats, camera, gt, it, sh_degree) -> (new state, new
-    dstats, {loss, nonfinite, overflow, num_pairs}) (scratch_step), the
-    values 0-d tensors on the device (not synchronised). `device` None
-    means CUDA and raises without it; pass "cpu" for the plain path.
+    dstats, {loss, nonfinite, overflow, num_pairs}) (scratch_step, the
+    statistics in the scale of scfg's densify event), the values 0-d
+    tensors on the device (not synchronised). `device` None means CUDA
+    and raises without it; pass "cpu" for the plain path.
 
     On the card the step is a CUDA graph per state capacity, camera
     (width, height) and sh_degree: the state's tensors, the DensifyStats
@@ -101,7 +156,8 @@ def make_scratch_step(cfg: loops.LoopConfig, device=None):
     def eager(state: S.TrainerState, dstats: D.DensifyStats, camera, gt,
               it, sh_degree: int):
         loops._check_device(state, dev)
-        return scratch_step(state, dstats, camera, gt, it, sh_degree, cfg)
+        return scratch_step(state, dstats, camera, gt, it, sh_degree, cfg,
+                            scfg)
 
     if dev.type == "cpu":
         return eager
@@ -114,7 +170,8 @@ def make_scratch_step(cfg: loops.LoopConfig, device=None):
 
         def body(st, cam, g, *rest):
             new, ds, aux = scratch_step(st, D.stats_of(rest[:n_stats]), cam,
-                                        g, rest[n_stats], sh_degree, cfg)
+                                        g, rest[n_stats], sh_degree, cfg,
+                                        scfg)
             return new, (D.stats_tensors(ds), aux)
 
         new, (ds, aux) = loops._graph_step(
@@ -125,6 +182,72 @@ def make_scratch_step(cfg: loops.LoopConfig, device=None):
     step.graph = graph
     step.eager = eager
     return step
+
+
+@dataclasses.dataclass(frozen=True)
+class EventCounts:
+    """What one densify event did: rows cloned, split (one new row each),
+    pruned and dropped (0-d tensors on the state's device, not
+    synchronised), the capacity before and after, and, with no budget,
+    moves (densify_every_candidate's index tensors; None otherwise)."""
+    cloned: torch.Tensor
+    split: torch.Tensor
+    pruned: torch.Tensor
+    dropped: torch.Tensor
+    capacity_before: int
+    capacity_after: int
+    moves: dict | None = None
+
+
+def densify_event(state: S.TrainerState, dstats: D.DensifyStats, it: int,
+                  scfg: ScratchConfig, scene_extent: float, noise):
+    """densify_and_prune at iteration `it`: clone, then split, then the
+    size prune (past the first opacity reset, also the screen-size and
+    world-size rules), and fresh statistics at the state's capacity.
+    With a densify budget, the JAX package's: both budgeted, the prune
+    reading the pass's largest screen radii, then the reset. With
+    scfg.densify_budget None, the reference's: every candidate, the
+    capacity grown in buckets (D.densify_every_candidate), then the
+    statistics reset before the prune reads them, as
+    densification_postfix resets max_radii2D, so that the screen-size
+    rule never fires. `noise` (2, C, 3) standard normals at the state's
+    capacity, for the split. Returns (state, dstats, EventCounts); the
+    counts are tensors, and only the unbudgeted growth reads the host."""
+    thr, pd = scfg.densify_grad_threshold, scfg.percent_dense
+    cap0, live0 = state.capacity, state.live.sum()
+    max_screen = 20.0 if it > scfg.opacity_reset_every else None
+    moves = None
+    if scfg.densify_budget is None:
+        state, moves = D.densify_every_candidate(
+            state, dstats, thr, scene_extent, pd, noise, capacity_bucket)
+        dropped = torch.zeros((), dtype=torch.int64, device=live0.device)
+        live1 = live0 + moves["clone_src"].numel()
+        live2 = live1 + moves["split_src"].numel()
+        with span("densify/reset"):
+            dstats = D.init_stats(state.capacity, state.live.device)
+        with span("densify/prune"):
+            state = D.prune_oversized(state, dstats, max_screen,
+                                      scene_extent)
+    else:
+        with span("densify/clone"):
+            state, d1 = D.densify_and_clone(state, dstats, thr, scene_extent,
+                                            pd, scfg.densify_budget)
+            live1 = state.live.sum()
+        with span("densify/split"):
+            state, d2 = D.densify_and_split(state, dstats, thr, scene_extent,
+                                            pd, scfg.densify_budget,
+                                            noise=noise)
+            live2 = state.live.sum()
+        dropped = d1 + d2
+        with span("densify/prune"):
+            state = D.prune_oversized(state, dstats, max_screen,
+                                      scene_extent)
+        with span("densify/reset"):
+            dstats = D.init_stats(state.capacity, state.live.device)
+    return state, dstats, EventCounts(
+        cloned=live1 - live0, split=live2 - live1,
+        pruned=live2 - state.live.sum(), dropped=dropped,
+        capacity_before=cap0, capacity_after=state.capacity, moves=moves)
 
 
 def v_importance_score(state: S.TrainerState, gs_count, important_score,
@@ -205,16 +328,19 @@ def train_scratch(state: S.TrainerState, train_views: Sequence,
     seeded view stack, densification (clone, then split, then the size
     prune) every densify_every iterations strictly between densify_from
     and densify_until, opacity resets, the SH degree raised every
-    sh_up_every iterations and LightGaussian prunes at prune_iterations.
-    Each densify event logs the live and dropped counts."""
+    sh_up_every iterations (from start_iter's degree) and LightGaussian
+    prunes at prune_iterations. Each densify event (densify_event) logs
+    the live count and its EventCounts, with the step's captures so far,
+    in one read."""
     dev = state.live.device
     dstats = D.init_stats(state.capacity, dev)
     stack = loops._ViewStack(train_views, seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    active_sh = 0
-    step_fn = make_scratch_step(cfg, device=dev)
     max_sh = state.params.sh_degree
+    active_sh = min(start_iter // scfg.sh_up_every, max_sh)
+    step_fn = make_scratch_step(cfg, device=dev, scfg=scfg)
+    graph = getattr(step_fn, "graph", None)
 
     for it in range(start_iter + 1, start_iter + scfg.iterations + 1):
         if it % scfg.sh_up_every == 0 and active_sh < max_sh:
@@ -228,20 +354,18 @@ def train_scratch(state: S.TrainerState, train_views: Sequence,
 
         if scfg.densify_from < it < scfg.densify_until:
             if it % scfg.densify_every == 0:
-                state, d1 = D.densify_and_clone(
-                    state, dstats, scfg.densify_grad_threshold, scene_extent,
-                    scfg.percent_dense, scfg.densify_budget)
                 noise = torch.randn((2, state.capacity, 3), generator=gen,
                                     device=dev)
-                state, d2 = D.densify_and_split(
-                    state, dstats, scfg.densify_grad_threshold, scene_extent,
-                    scfg.percent_dense, scfg.densify_budget, noise=noise)
-                max_screen = 20.0 if it > scfg.opacity_reset_every else None
-                state = D.prune_oversized(state, dstats, max_screen,
-                                          scene_extent)
-                log(f"[scratch] it={it} densify live="
-                    f"{int(state.live_count())} dropped={int(d1) + int(d2)}")
-                dstats = D.init_stats(state.capacity, dev)
+                state, dstats, ev = densify_event(state, dstats, it, scfg,
+                                                  scene_extent, noise)
+                live, cloned, split, pruned, dropped = torch.stack([
+                    state.live_count(), ev.cloned, ev.split, ev.pruned,
+                    ev.dropped]).tolist()
+                log(f"[scratch] it={it} densify live={live} "
+                    f"dropped={dropped} cloned={cloned} split={split} "
+                    f"pruned={pruned} capacity={ev.capacity_before}->"
+                    f"{ev.capacity_after} captures="
+                    f"{graph.captures if graph else 0}")
             if it % scfg.opacity_reset_every == 0:
                 state = D.reset_opacity(state, 0.01)
 

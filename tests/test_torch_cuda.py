@@ -2010,6 +2010,61 @@ def test_graphed_scratch_step_across_sh_raise_and_densify(cuda):
     assert captures == [1, 1, 2, 2, 2, 2]
 
 
+def test_graphed_scratch_step_captures_once_a_bucket(cuda, monkeypatch):
+    """The published schedule's scratch steps (no densify budget, the
+    statistics in NDC) graphed against eager ones across densify events
+    with every candidate (train/scratch.densify_event, applied to each
+    side's own state): state, statistics and aux bit for bit, also at the
+    grown capacities; the capacity grown by the bucket rule, and exactly
+    one capture a capacity (none at an event that fits)."""
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.train import scratch
+    st, cam, gt, cfg = _small_graph_inputs(cuda, capacity=5120)
+    monkeypatch.setattr(scratch, "CAPACITY_QUANTUM", 1024)
+    scfg = scratch.ScratchConfig(densify_budget=None)
+    step = scratch.make_scratch_step(cfg, scfg=scfg)
+    de = dg = D.init_stats(st.capacity, cuda)
+    se = sg = st
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    caps, captures = [], []
+    for it in range(1, 10):
+        se, de, ae = scratch.scratch_step(se, de, cam, gt, it, 1, cfg,
+                                          scfg)
+        sg, dg, ag = step(sg, dg, cam, gt, it, 1)
+        fe = _flat_state(se, ae) + list(D.stats_tensors(de))
+        fg = _flat_state(sg, ag) + list(D.stats_tensors(dg))
+        assert all(torch.equal(a, b) for a, b in zip(fe, fg)), it
+        assert torch.equal(se.live, sg.live)
+        caps.append(se.capacity)
+        captures.append(step.graph.captures)
+        if it % 3 == 0:
+            noise = torch.randn((2, se.capacity, 3), generator=gen,
+                                device=cuda)
+            need = int(se.live.sum())
+            se, de, ev = scratch.densify_event(se, de, it, scfg, 4.0, noise)
+            sg, dg, _ = scratch.densify_event(sg, dg, it, scfg, 4.0, noise)
+            need += int(ev.cloned) + int(ev.split)
+            assert int(ev.dropped) == 0 and int(ev.cloned) > 0
+            if ev.capacity_after != ev.capacity_before:
+                assert ev.capacity_after == scratch.capacity_bucket(need)
+    assert len(set(caps)) >= 2
+    assert captures == [len(set(caps[:i + 1])) for i in range(len(caps))]
+
+
+def test_scratch_step_refuses_gid_row_bound_on_the_card(cuda):
+    """The graphed scratch step refuses a kept capacity of 2^24 before it
+    captures, as the score route refuses past its bound."""
+    from fovsplat_torch.models import densify as D
+    from fovsplat_torch.train import scratch
+    st, cam, gt, cfg = _small_graph_inputs(cuda)
+    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+        cfg.raster, compact_capacity=stats.GID_EXACT))
+    step = scratch.make_scratch_step(cfg)
+    with pytest.raises(ValueError, match="exact"):
+        step(st, D.init_stats(st.capacity, cuda), cam, gt, 1, 1)
+    assert step.graph.captures == 0
+
+
 # CUDA graphs of the last jit sites: distill's teacher render, the
 # quality and layer renders, SSIM and LPIPS, VQ's assignment and EMA
 # update, the DP step on NCCL.
