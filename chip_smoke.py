@@ -124,12 +124,16 @@ into build/kernels first. Phases, one JSON line each on stdout:
      pass's own pairs at the train phase's shapes: best_lane, first_trig
      and the touched and geo_win rows exact, the float rows and best_w
      within 1e-5 relative, colour and T within T_EPS, every output
-     bit-identical over two launches; then kernel 7 on
+     bit-identical over two launches; then kernel 14 (the fetched-pair
+     count) on kernel 8's first_trig and the same pairs, equal to its
+     plain version bit for bit and over two launches, with the share of
+     the kept pairs it walks; then kernel 7 on
      the score view's argmax stream (1,038,336 lanes, one row) as on the
      train stream;
  16. the score pass at full width: one score view per metric
      (max_comp_efficiency, max_contrib, surface), timed, with the launch
-     counters set to 0 just before and read just after; two runs give
+     counters set to 0 just before and read just after (kernels 7, 8
+     and 14 launched, and in the graphs' replays); two runs give
      bit-identical scores; then the card against the CPU at 20k / 320x224
      (gs_count exact, contribs and scores within 1e-5 relative);
  17. the model-building chain at full width (scripts/onchip_pipeline.py's
@@ -301,7 +305,7 @@ into build/kernels first. Phases, one JSON line each on stdout:
      and points3D.bin parsed natively (built with g++ into build/native)
      and in Python, equal; trace: utils/profiling.trace around one frame
      writes a non-empty Chrome trace under build/trace;
- 39. the kernels line: per kernel (1-9, and 1p, 4q, 5q, kernel 5q on
+ 39. the kernels line: per kernel (1-14, and 1p, 4q, 5q, kernel 5q on
      MM-FR, kernel 7's argmax stream and kernel 3 over a tile range)
      its launches on its path and how many of them graph replays made
      (launches_graphed), time
@@ -1323,13 +1327,16 @@ def check_stats_kernel(st, cam, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{cam.width}x{cam.height}, pairs={num_pairs}")
 
+    n, cap = st.capacity, pairs.shape[1]
+    gid = torch.where(torch.arange(cap, device=pairs.device) < bn.num_pairs,
+                      bn.pair_gauss, n)
+    check_fetch_count((k[5], seg, gid, n, gx, cam.width, cam.height),
+                      num_pairs, results)
+
     # --- kernel 7 on the score view's argmax stream, built as
     # ops/stats.py's loss_weighted_max_count builds it: each pixel's best
     # lane's Gaussian (n where the pixel has none), sorted stably; the
     # values are seeded uniform draws on the pixels that have one.
-    n, cap = st.capacity, pairs.shape[1]
-    gid = torch.where(torch.arange(cap, device=pairs.device) < bn.num_pairs,
-                      bn.pair_gauss, n)
     has = (k[4] > 0).reshape(-1)
     best = torch.clamp(k[3].reshape(-1), 0, cap - 1).long()
     gen = torch.Generator(device=pairs.device).manual_seed(0)
@@ -1339,6 +1346,42 @@ def check_stats_kernel(st, cam, results):
         key.to(torch.int32).contiguous(),
         torch.where(has, w, 0.0)[None].index_select(1, perm).contiguous(), n,
         f"score view argmax stream, N={n}, lanes={has.numel()}")
+
+
+def check_fetch_count(args, num_pairs, results):
+    """Kernel 14 against its plain version on the score pass's pairs
+    (args: kernel 8's first_trig, the segment bounds, the gid row, n, the
+    grid's width in tiles, the image's size): equal bit for bit, two
+    launches equal. Its row gives walked_share, the share of the kept
+    pairs that the reference's fetch loop reads (the lanes the kernel
+    walks)."""
+    import torch
+    from fovsplat_torch.ops.kernels import fetch_count as fc
+    first_trig, seg, gid, n = args[:4]
+    got = fc.fetch_count(*args)
+    want = fc.fetch_count_plain(*args)
+    err = float((got - want).abs().max()) if n else 0.0
+    same = bool(torch.equal(got, fc.fetch_count(*args)))
+    fetched = int(got.sum())
+    T = seg.shape[0] - 1
+    # Bytes by need: first_trig and the segment bounds read, the fetched
+    # lanes' gids read, the count written; no FLOP worth counting.
+    b_ms, b_by = bound(first_trig.numel() * 4 + (T + 1) * 4 + fetched * 4
+                       + n * 4, 0.0)
+    share = fetched / max(num_pairs, 1)
+    emit({"phase": "check", "kernel": "fetch_count", "num_pairs": num_pairs,
+          "fetched": fetched, "walked_share": share, "max_abs_err": err,
+          "bit_identical_twice": same})
+    if not (err == 0.0 and same):
+        raise AssertionError(f"fetch_count differs from its plain version "
+                             f"(max err {err}) or between two launches "
+                             f"({same})")
+    results["fetch_count"] = dict(
+        max_abs_err=err, **kernel_times(lambda: fc.fetch_count(*args)),
+        plain_ms=cuda_ms(lambda: fc.fetch_count_plain(*args), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, walked_share=share,
+        shape=f"{int(args[5])}x{int(args[6])}, pairs={num_pairs}, "
+              f"fetched={fetched}, N={n}")
 
 
 def run_score_pass(st, cam, cfg, kernels):
@@ -1380,8 +1423,10 @@ def run_score_pass(st, cam, cfg, kernels):
         raise AssertionError(f"scores differ between two runs: {same}")
     if (row["overflow"] != 0 or launches["blend_stats"] <= 0
             or launches["reduce_by_sorted_gid"] <= 0
+            or launches["fetch_count"] <= 0
             or graphed.get("blend_stats", 0) <= 0
-            or graphed.get("reduce_by_sorted_gid", 0) <= 0):
+            or graphed.get("reduce_by_sorted_gid", 0) <= 0
+            or graphed.get("fetch_count", 0) <= 0):
         raise AssertionError(f"score pass: {row}")
     return launches, graphed
 
@@ -5609,6 +5654,7 @@ def main():
     from fovsplat_torch.ops.kernels import compact_table as ct
     from fovsplat_torch.ops.kernels import expand_fov as ef
     from fovsplat_torch.ops.kernels import expand_ps1 as ep1
+    from fovsplat_torch.ops.kernels import fetch_count as fc
     from fovsplat_torch.ops.kernels import hvs_loss as hvs
     from fovsplat_torch.ops.kernels import project_sh as psh
     from fovsplat_torch.ops.kernels import segment_reduce as sr
@@ -5648,7 +5694,8 @@ def main():
                      "ssim_backward": ssim_k.ssim_backward}
     hvs_kernels = {k: getattr(hvs, k) for k in HVS_ROWS}
     all_kernels = {**frame_kernels, **train_kernels,
-                   "blend_stats": bs.blend_stats, **hvs_kernels}
+                   "blend_stats": bs.blend_stats,
+                   "fetch_count": fc.fetch_count, **hvs_kernels}
 
     results = {}
     full = check_table_and_expand(dev, results)
@@ -5733,6 +5780,8 @@ def main():
     # Kernel 7 runs on the score pass's argmax stream only.
     launches["reduce_by_sorted_gid_argmax"] = sl["reduce_by_sorted_gid"]
     graphed_l["reduce_by_sorted_gid_argmax"] = sg["reduce_by_sorted_gid"]
+    launches["fetch_count"] = sl["fetch_count"]
+    graphed_l["fetch_count"] = sg["fetch_count"]
     score_vs_cpu(train_config(1 << 20, None))
     chain_cfg = train_config(CHAIN_PAIR_CAPACITY, CHAIN_COMPACT_CAPACITY)
     cl, chain_model, chain = run_chain(N_FULL, W_FULL, H_FULL, chain_cfg,
@@ -5827,6 +5876,9 @@ def main():
                "fovsplat/ops/pallas/segment_reduce.py:175"),
            "blend_stats": ("fovsplat_torch/csrc/blend_stats.cu",
                            "fovsplat/ops/pallas/blend_stats.py:234"),
+           "fetch_count": ("fovsplat_torch/csrc/fetch_count.cu",
+                           "none (fovsplat/ops/stats.py:285-302 "
+                           "fetched_counts, jnp)"),
            "build_table_ps1": ("fovsplat_torch/csrc/build_table.cu",
                                "fovsplat/ops/pallas/build_table.py:418"),
            "build_table_ps1_mmfr": ("fovsplat_torch/csrc/build_table.cu",
@@ -5866,6 +5918,8 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "shape": r["shape"]})
+        if "walked_share" in r:
+            rows[-1]["walked_share"] = r["walked_share"]
         if k in ("expand_ps1", "blend_forward", "blend_backward",
                  "reduce_by_sorted_gid", "blend_stats", "project_sh_forward",
                  "project_sh_backward", *HVS_ROWS, *SSIM_ROWS):

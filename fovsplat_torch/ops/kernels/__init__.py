@@ -14,7 +14,8 @@ def launch_counters() -> dict:
     # package.
     from fovsplat_torch.ops.kernels import (
         blend_fov, blend_fwd, blend_stats, build_table, compact_table,
-        expand_fov, expand_ps1, hvs_loss, project_sh, segment_reduce, ssim)
+        expand_fov, expand_ps1, fetch_count, hvs_loss, project_sh,
+        segment_reduce, ssim)
     wrappers = (build_table.build_table, build_table.build_table_ps1,
                 expand_fov.expand_fov, blend_fov.blend_fov,
                 expand_ps1.expand_ps1, blend_fwd.blend_forward,
@@ -24,7 +25,7 @@ def launch_counters() -> dict:
                 project_sh.project_sh_backward, hvs_loss.hvs_level_forward,
                 hvs_loss.hvs_stats_loss, hvs_loss.hvs_stats_backward,
                 hvs_loss.hvs_level_backward, ssim.ssim_forward,
-                ssim.ssim_backward)
+                ssim.ssim_backward, fetch_count.fetch_count)
     counters = {w.__name__: (w, "launches") for w in wrappers}
     counters["blend_fov_tile0"] = (blend_fov.blend_fov, "launches_tile0")
     return counters

@@ -2550,3 +2550,166 @@ def test_graphed_score_view_launches_kernel_10(cuda, monkeypatch):
     assert all(torch.equal(a, b) and torch.equal(a, c)
                for a, b, c in zip(first, eager, again))
     assert int(first[1]) == 0 and int((first[0] > 0).sum()) > 2_000
+
+
+FETCH_GRID = (5, 4)          # tiles; an 80x64 grid
+FETCH_CAP, FETCH_N = 16_384, 300
+FETCH_CASES = ("no_inside", "never", "past_end", "rounds", "empty",
+               "past_num_pairs", "padding")
+
+
+def fetch_case(case, seed=6):
+    """Kernel 14's inputs on one edge case, numpy: (first_trig (T, PIX)
+    i32, seg_start (T+1,) i32, pair_gauss (FETCH_CAP,) i32, width,
+    height). The frame is 75x55 on the 5x4 grid, so the last tile column
+    and row hold padding pixels; every pixel freezes by a rank below a
+    third of its segment's length unless the case says otherwise (long
+    segments stop early); pair_gauss draws
+    from FETCH_N Gaussians (each in many tiles), a few ids at or past
+    FETCH_N inside the segments, and ids below FETCH_N past
+    seg_start[T] (lanes past num_pairs). Cases: "no_inside": a 60x55
+    frame, so the last column has no inside pixel and fetches nothing;
+    "never": tiles where one inside pixel never freezes, one of them of
+    5,000 pairs; "past_end": fetch points past the segment's end (length
+    300, largest rank 290; length 257, rank 256); "rounds": largest ranks
+    0, 255, 256, 511 and 512 in segments of 2,000; "empty": empty
+    segments, the first and the last tile among them; "past_num_pairs":
+    3,000 lanes past seg_start[T]; "padding": padding pixels that never
+    freeze or freeze late, beside inside pixels that freeze early."""
+    gx, gy = FETCH_GRID
+    T, P = gx * gy, blend.PIX
+    rng = np.random.default_rng(seed)
+    width, height = 75, 55
+    seg_len = rng.integers(1, 500, T)
+    ft = np.zeros((T, P), np.int64)
+
+    def freeze(t, top):
+        ft[t] = rng.integers(0, max(top, 1), P)
+    if case == "no_inside":
+        width = 60
+    elif case == "never":
+        seg_len[7] = 5000
+    elif case == "past_end":
+        seg_len[[3, 8]] = (300, 257)
+    elif case == "rounds":
+        seg_len[[1, 2, 6, 11, 13]] = 2000
+    elif case == "empty":
+        seg_len[[0, 5, 6, T - 1]] = 0
+    for t in range(T):
+        freeze(t, seg_len[t] // 3)
+    if case == "never":
+        for t in (0, 7, 12):
+            ft[t, rng.integers(0, P)] = blend.BIG
+    elif case == "past_end":
+        ft[3, 17], ft[8, 100] = 290, 256
+        ft[3] = np.minimum(ft[3], 290)
+        ft[8] = np.minimum(ft[8], 256)
+    elif case == "rounds":
+        for t, top in zip((1, 2, 6, 11, 13), (0, 255, 256, 511, 512)):
+            ft[t] = rng.integers(0, top + 1, P)
+            ft[t, 40] = top
+    elif case == "padding":
+        inside = blend.tile_inside_mask(gx, gy, width, height).numpy()
+        for t in range(T):
+            if not inside[t].all():
+                ft[t] = rng.integers(0, 20, P)
+                out = np.flatnonzero(~inside[t])
+                ft[t, out] = np.where(rng.random(out.size) < 0.5, blend.BIG,
+                                      seg_len[t] + 1000)
+    seg = np.concatenate([[0], np.cumsum(seg_len)]).astype(np.int32)
+    tail = 3000 if case == "past_num_pairs" else 40
+    assert seg[-1] + tail <= FETCH_CAP
+    gauss = rng.integers(0, FETCH_N, FETCH_CAP)
+    for lane in rng.integers(0, seg[-1], 7):
+        gauss[lane] = FETCH_N + rng.integers(0, 3)
+    gauss[seg[-1] + tail:] = FETCH_N + 1
+    return (ft.astype(np.int32), seg, gauss.astype(np.int32), width, height)
+
+
+def _fetch_inputs(case, dev):
+    """fetch_case's tensors on dev, pair_gauss turned into the score
+    route's gid (FETCH_N past num_pairs, as rasterize_stats gives it)."""
+    ft, seg, gauss, width, height = fetch_case(case)
+    gid = np.where(np.arange(FETCH_CAP) < seg[-1], gauss, FETCH_N)
+    return ([torch.from_numpy(a).to(dev)
+             for a in (ft, seg, gid.astype(np.int32))]
+            + [FETCH_N, FETCH_GRID[0], width, height])
+
+
+@pytest.mark.parametrize("case", FETCH_CASES)
+def test_fetch_count_edge_cases_match_plain(cuda, case):
+    """Kernel 14 against its plain version, bit for bit, on each edge case
+    of fetch_case; two launches equal, one launch each, and no count from
+    a lane past num_pairs."""
+    from fovsplat_torch.ops.kernels import fetch_count as fc
+    args = _fetch_inputs(case, cuda)
+    fc.fetch_count.launches = 0
+    got = fc.fetch_count(*args)
+    again = fc.fetch_count(*args)
+    want = fc.fetch_count_plain(*args)
+    assert fc.fetch_count.launches == 2
+    assert got.dtype == torch.int32 and got.shape == (FETCH_N,)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert 0 < int(got.sum()) < int(args[1][-1])
+
+
+def _score_pairs(dev, n=200_000):
+    """The score route's own inputs to kernel 14 on n rows of the PS1
+    proxy at 320x224 (dense enough that some tiles stop early): kernel
+    10's columns, kernel 4's pairs, kernel 8's first_trig and the gid row,
+    as rasterize_stats builds them."""
+    st = _train_state(dev, n, 2)
+    cam = proxy.proxy_camera(W, H, device=dev)
+    raster = RasterizeConfig(pair_capacity=1 << 21)
+    p = st.params
+    gx, gy = (cam.width + 15) // 16, (cam.height + 15) // 16
+    with torch.no_grad():
+        prep = psh.project_sh(p.xyz, p.get_scaling(), p.get_rotation(),
+                              p.get_opacity(), cam,
+                              shs=(p.features_dc, p.features_rest),
+                              live_mask=st.live)
+        pairs, bn = binning.bin_fused_ps1(
+            psh.train_order(prep.aux, prep.diff), prep.valid, prep.depth,
+            gx, gy, raster.pair_capacity, raster.kept_capacity(),
+            raster.use_obb)
+        first_trig = bs.blend_stats(pairs, bn.seg_start, gx, cam.width,
+                                    cam.height, raster.power_cutoff)[5]
+    lane = torch.arange(pairs.shape[1], device=dev)
+    gid = torch.where(lane < bn.num_pairs, bn.pair_gauss, st.capacity)
+    return ((first_trig, bn.seg_start, gid, st.capacity, gx, cam.width,
+             cam.height), int(bn.num_pairs))
+
+
+def test_fetch_count_matches_plain_on_score_pairs(cuda):
+    """Kernel 14 on the score route's pairs (200k rows of the PS1 proxy
+    at 320x224): equal to its plain version bit for bit, two launches
+    equal, and the early exit engaged (fewer fetched pairs than kept
+    ones)."""
+    from fovsplat_torch.ops.kernels import fetch_count as fc
+    args, num_pairs = _score_pairs(cuda)
+    got = fc.fetch_count(*args)
+    assert torch.equal(got, fc.fetch_count(*args))
+    assert torch.equal(got, fc.fetch_count_plain(*args))
+    assert 100_000 < int(got.sum()) < num_pairs
+
+
+def test_graphed_score_view_launches_kernel_14(cuda):
+    """The graphed score view launches kernel 14 once a view (its capture
+    counts it, each replay adds one) for the metrics of the fetched-pair
+    count and never for "max_contrib"; graph and eager agree bit for
+    bit."""
+    from fovsplat_torch.ops.kernels import fetch_count as fc
+    st, (cam, _), raster = _dense_case(cuda)
+    for metric, per_view in (("max_comp_efficiency", 1), ("surface", 1),
+                             ("max_contrib", 0)):
+        view = loops.make_score_fn(loops.LoopConfig(raster=raster), metric)
+        first = view(st, cam)
+        eager = view.eager(st, cam)
+        assert view.graph.launches_per_replay.get("fetch_count", 0) == \
+            per_view
+        fc.fetch_count.launches = 0
+        for _ in range(3):
+            again = view(st, cam)
+        assert fc.fetch_count.launches == 3 * per_view
+        assert all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(first, eager, again))

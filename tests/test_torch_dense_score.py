@@ -3,13 +3,17 @@
 metric_prune) against the benchmark's plain reference
 (benchmark/reference/score.py), the dense proxy's rows
 (benchmark/reference/dense.py), the score route's overflow count, its
-bound on the f32 Gaussian-id row and its two forms of the SH."""
+bound on the f32 Gaussian-id row and its two forms of the SH; and the
+fetched-pair count's plain version (kernel 14's twin) against the JAX
+package's fused-route count on edge tiles."""
 
 import dataclasses
 import json
 import types
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,12 +23,17 @@ from benchmark.reference import dense
 from benchmark.reference import proxy as bproxy
 from benchmark.reference import score as ref
 from benchmark.runners.frame_loop import program_cameras
+from fovsplat.ops import stats as jstats
 from fovsplat_torch.models import state as S
 from fovsplat_torch.models.gaussians import GaussianParams
 from fovsplat_torch.ops import stats
+from fovsplat_torch.ops.blend import tile_inside_mask
+from fovsplat_torch.ops.kernels import fetch_count as fc
 from fovsplat_torch.ops.kernels.project_sh import sh_tensor
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from fovsplat_torch.train import loops
+from tests.test_torch_cuda import (FETCH_CAP, FETCH_CASES, FETCH_GRID,
+                                   FETCH_N, fetch_case)
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -210,3 +219,71 @@ def test_sh_pair_matches_one_tensor(backend, mode):
     assert int(a["binned"].overflow) == 0
     assert int((a["contribs"] > 0).sum()) > 100
     assert not bool(a["radii"][~live].any())
+
+
+@pytest.fixture(scope="module")
+def jax_fetch_counts():
+    """The JAX package's fetch-time gs_count of its fused route
+    (fovsplat/ops/stats.py:285-302: tile_fetch_counts, each lane's tile by
+    a boundary scatter and a cumsum, a segment_sum of the fetched lanes)
+    on every fetch_case, one compile for all of them."""
+    gx, gy = FETCH_GRID
+    T = gx * gy
+
+    @jax.jit
+    def count(first_trig, seg_start, inside, pair_gauss):
+        nf = jstats.tile_fetch_counts(first_trig, seg_start, inside, T)
+        lane = jnp.arange(FETCH_CAP, dtype=jnp.int32)
+        in_use = lane < seg_start[T]
+        gid = jnp.where(in_use, pair_gauss, FETCH_N)
+        marks = jnp.zeros(FETCH_CAP, jnp.int32).at[seg_start[1:T]].add(
+            1, mode="drop")
+        t_all = jnp.minimum(jnp.cumsum(marks), T - 1).astype(jnp.int32)
+        fetched = in_use & ((lane - seg_start[t_all]) < nf[t_all])
+        return jax.ops.segment_sum(
+            fetched.astype(jnp.int32), jnp.where(fetched, gid, FETCH_N),
+            num_segments=FETCH_N + 1)[:FETCH_N]
+    out = {}
+    for case in FETCH_CASES:
+        ft, seg, gauss, w, h = fetch_case(case)
+        inside = jstats.tile_inside_mask(gx, gy, w, h)
+        out[case] = np.asarray(count(jnp.asarray(ft, jnp.float32),
+                                     jnp.asarray(seg), inside,
+                                     jnp.asarray(gauss)))
+    return out
+
+
+@pytest.mark.parametrize("case", FETCH_CASES)
+def test_fetch_count_plain_matches_jax(jax_fetch_counts, case):
+    """fetch_count on CPU tensors (its plain version) against the JAX
+    package's gs_count on each edge case of fetch_case, exactly: tiles
+    without an inside pixel, pixels that never freeze, fetch points past
+    a segment's end and on round edges, empty segments, lanes past
+    num_pairs, padding pixels; and each case's own tiles stop where the
+    case puts their fetch points."""
+    ft, seg, gauss, w, h = fetch_case(case)
+    lane = np.arange(FETCH_CAP)
+    gid = np.where(lane < seg[-1], gauss, FETCH_N).astype(np.int32)
+    got = fc.fetch_count(torch.from_numpy(ft), torch.from_numpy(seg),
+                         torch.from_numpy(gid), FETCH_N, FETCH_GRID[0], w, h)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), jax_fetch_counts[case])
+    nf = fc.tile_fetch_counts(
+        torch.from_numpy(ft).float(), torch.from_numpy(seg),
+        tile_inside_mask(FETCH_GRID[0], FETCH_GRID[1], w, h)).numpy()
+    seg_len = np.diff(seg)
+    # Each case's tiles: their fetch points as the case sets them.
+    want = {"no_inside": ([4, 9, 14, 19], 0),
+            "never": ([0, 7, 12], seg_len[[0, 7, 12]]),
+            "past_end": ([3, 8], [300, 257]),
+            "rounds": ([1, 2, 6, 11, 13], [256, 256, 512, 512, 768]),
+            "empty": ([0, 5, 6, 19], 0),
+            "padding": ([4, 19], np.minimum(seg_len[[4, 19]], 256))}
+    if case in want:
+        tiles, nfs = want[case]
+        np.testing.assert_array_equal(nf[tiles], nfs)
+    assert 0 < int(got.sum()) < int((gid < FETCH_N).sum())
+    assert (nf < seg_len).any()
+    if case == "past_num_pairs":
+        assert FETCH_CAP - seg[-1] >= 3000
+        assert (gauss[seg[-1]:] < FETCH_N).any()

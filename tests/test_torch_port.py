@@ -24,6 +24,7 @@ from fovsplat_torch.ops.kernels import blend_stats as tbs
 from fovsplat_torch.ops.kernels import build_table as tbt
 from fovsplat_torch.ops.kernels import expand_fov as texp
 from fovsplat_torch.ops.kernels import expand_ps1 as tep1
+from fovsplat_torch.ops.kernels import fetch_count as tfc
 from fovsplat_torch.ops.kernels import segment_reduce as tsr
 from fovsplat_torch.ops.rasterize import RasterizeConfig
 from fovsplat_torch.train import loops as tloops
@@ -174,7 +175,8 @@ def test_train_steps_need_cuda_or_cpu(monkeypatch):
 @pytest.mark.parametrize("wrapper", ["build_table", "expand_fov",
                                      "blend_fov", "expand_ps1",
                                      "blend_forward", "blend_backward",
-                                     "reduce_by_sorted_gid", "blend_stats"])
+                                     "reduce_by_sorted_gid", "blend_stats",
+                                     "fetch_count"])
 def test_wrappers_take_only_cpu_or_cuda(wrapper):
     """A tensor that is neither on the CPU nor on a card raises instead of
     reaching the plain version or the kernel."""
@@ -211,6 +213,10 @@ def test_wrappers_take_only_cpu_or_cuda(wrapper):
     elif wrapper == "blend_stats":
         call = lambda: tbs.blend_stats(                   # noqa: E731
             torch.empty(9, 64, **meta), torch.empty(25, **i32), 6, 96, 64)
+    elif wrapper == "fetch_count":
+        call = lambda: tfc.fetch_count(                   # noqa: E731
+            torch.empty(24, 256, **i32), torch.empty(25, **i32),
+            torch.empty(64, **i32), 8, 6, 96, 64)
     else:
         call = lambda: tsr.reduce_by_sorted_gid(          # noqa: E731
             torch.empty(64, **i32), torch.empty(9, 64, **meta), 8)

@@ -23,6 +23,7 @@ from fovsplat_torch.ops import binning as tbin
 from fovsplat_torch.ops import blend as tblend
 from fovsplat_torch.ops import stats as tstats
 from fovsplat_torch.ops.kernels import blend_stats as tbs
+from fovsplat_torch.ops.kernels import fetch_count as tfc
 from fovsplat_torch.ops.rasterize import RasterizeConfig as TConfig
 from tests.test_stats import _fetch_oracle
 from tests.test_torch_train import ps1_columns
@@ -182,8 +183,8 @@ def test_tile_helpers_match_jax():
     ft[5] = rng.integers(0, 40, 256)
     inside = np.asarray(jstats.tile_inside_mask(gx, gy, w, h))
     np.testing.assert_array_equal(
-        tstats.tile_fetch_counts(t(ft), torch.from_numpy(seg),
-                                 torch.from_numpy(inside.copy())).numpy(),
+        tfc.tile_fetch_counts(t(ft), torch.from_numpy(seg),
+                              torch.from_numpy(inside.copy())).numpy(),
         np.asarray(jstats.tile_fetch_counts(jnp.asarray(ft),
                                             jnp.asarray(seg),
                                             jnp.asarray(inside), T)))
